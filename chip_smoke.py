@@ -4,11 +4,19 @@
 
 Builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version on the card (exact equality: integer work),
-times both, then drives the port's main path — ``cli check`` of the
-shipped compaction cfg, the checker on the 253,361-state config, both
-published counterexamples, and the scaled bench config to its 17,787,334
--state level — with the kernels' launch counters zeroed before and read
-after.  Each phase prints one line with its seconds.  The last two lines
+times both, then drives the port's two paths, each with the kernels'
+launch counters zeroed before and read after:
+
+- the main path (phases 3-6): ``cli check`` of the shipped compaction
+  cfg, the checker on the 253,361-state config, both published
+  counterexamples, and the scaled bench config to its 17,787,334-state
+  level;
+- the tiered store (phases 9-11): the same checks under tight
+  ``-hbm-budget``s that force eviction, row spill and cold-miss
+  resolution, each held state for state against the untiered run, and
+  the scaled config with its hot table capped at 2^25 slots.
+
+Each phase prints one line with its seconds.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``; any
 failed phase exits non-zero without them.  Exits non-zero at once when
 no CUDA device is available or the port cannot be imported.
@@ -19,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import re
@@ -34,6 +43,10 @@ ALU_OPS_PER_S = 67e12
 SCALED_PREV_TOTAL = 636_718  # cumulative states after level 5
 SCALED_TOTAL = 17_787_334  # cumulative states after level 6
 SEED = 20261017
+# the kernels each path runs (the tiered path runs all four)
+MAIN_PATH_KERNELS = ("selftest", "member_block", "key_plane")
+TIERED_PATH_KERNELS = MAIN_PATH_KERNELS + ("sieve_mask",)
+TIERED_TCAP = 1 << 25  # phase 11's hot-table ceiling
 SPECS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
 
 
@@ -79,7 +92,10 @@ def main() -> int:
         return 2
     try:
         from pulsar_tlaplus_tpu_torch import cli
-        from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+        from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
+            HBM_HEADROOM,
+            DeviceChecker,
+        )
         from pulsar_tlaplus_tpu_torch.kernels import build as kernels
         from pulsar_tlaplus_tpu_torch.models.compaction import (
             CompactionModel,
@@ -87,6 +103,9 @@ def main() -> int:
         from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
         from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
         from pulsar_tlaplus_tpu_torch.ref import pyeval
+        from pulsar_tlaplus_tpu_torch.store.budget import (
+            fmt_bytes as budget_fmt,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -267,6 +286,51 @@ def main() -> int:
     _phase("2b K1 member_block vs plain", k1, failures)
     torch.cuda.empty_cache()
 
+    def k3():
+        # the tiered path's widest eviction: a 2^25-slot table, half
+        # occupied, generations 0-6 on the occupied slots, cutoff 3
+        cap, k = TIERED_TCAP, 2
+        n = cap + 1
+        empty = torch.rand(n, device=dev, generator=gen) < 0.5
+        empty[cap] = True
+        tcols = tuple(torch.where(empty, -1, rand_i32(n)) for _ in range(k))
+        g = torch.randint(0, 7, (n,), dtype=torch.int32, device=dev,
+                          generator=gen)
+        g = torch.where(empty, 0, g)
+        lane = torch.arange(n, device=dev)
+        cold = ~fpset.all_sentinel(tcols) & (lane < cap) & (g >= 1) & (g <= 3)
+        got = tiles.sieve_mask_planes(tcols, g, cold)
+        want = tiles.sieve_mask_planes_plain(tcols, g, cold)
+        err = 0
+        for i, (a, b) in enumerate(zip(got[0] + got[1] + (got[2],),
+                                       want[0] + want[1] + (want[2],))):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"K3 plane {i}: {int((a != b).sum())} slots differ"
+                )
+            err = max(err, int((a.long() - b.long()).abs().max()))
+        # per slot: K words, gen and the cold byte in; 2K words and gen
+        # out; one select per output word
+        nbytes = n * (4 * k + 4 + 1) + n * (8 * k + 4)
+        ops = n * (2 * k + 1)
+        record["sieve_mask"] = dict(
+            ms=_time_ms(
+                torch, lambda: tiles.sieve_mask_planes(tcols, g, cold), 50
+            ),
+            plain_ms=_time_ms(
+                torch,
+                lambda: tiles.sieve_mask_planes_plain(tcols, g, cold), 10,
+            ),
+            max_abs_err=err, bytes=nbytes, bound=_bound(nbytes, ops),
+        )
+        return (
+            f"equal on all {2 * k + 1} planes at {n} slots, K={k}, "
+            f"{int(cold.sum())} cold; {record['sieve_mask']}"
+        )
+
+    _phase("2c K3 sieve_mask vs plain", k3, failures)
+    torch.cuda.empty_cache()
+
     # ---- 3-6: the main path, launch counters zeroed around it
     kernels.reset_launches()
     per_phase = {}
@@ -298,17 +362,45 @@ def main() -> int:
 
     counted("3 shipped cfg (cli)", shipped)
 
+    # untiered results the tiered runs of phases 9 and 11 must equal
+    untiered = {}
+    full_cfg = dataclasses.replace(
+        pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
+    )
+
     def full():
-        c = dataclasses.replace(
-            pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
-        )
-        r = DeviceChecker(CompactionModel(c), invariants=()).run()
+        ck = DeviceChecker(CompactionModel(full_cfg), invariants=())
+        r = ck.run()
         got = (r.distinct_states, r.diameter, r.violation, r.deadlock)
         if got != (253361, 23, None, False):
             raise AssertionError(f"got {got}")
+        untiered["full"] = (r.level_sizes, ck.merged_rows(),
+                            *ck.merged_logs())
         return f"253361 states, diameter 23 ({r.states_per_sec:.0f} st/s)"
 
     counted("4 producer on, RetainNullKey=FALSE", full)
+
+    def check_trace(c, inv, depth, r):
+        """The run found ``inv`` violated at ``depth`` with a trace that
+        replays step by step on the oracle."""
+        if (r.violation, r.diameter, len(r.trace or ())) != (
+            inv, depth, depth
+        ):
+            raise AssertionError(f"{inv}: {r.violation} depth {r.diameter}")
+        ok = pyeval.INVARIANTS[inv]
+        if r.trace[0] not in set(pyeval.initial_states(c)):
+            raise AssertionError(f"{inv}: trace starts off Init")
+        for s, act, t in zip(r.trace, r.trace_actions, r.trace[1:]):
+            if not any(
+                pyeval.ACTION_NAMES[a] == act and u == t
+                for a, u in pyeval.successors(c, s)
+            ):
+                raise AssertionError(f"{inv}: {act} does not replay")
+            if not ok(c, s):
+                raise AssertionError(f"{inv}: violated before the end")
+        if ok(c, r.trace[-1]):
+            raise AssertionError(f"{inv}: last state does not violate")
+        return f"{inv} length {depth} replays (gid {r.violation_gid})"
 
     def bugs():
         notes = []
@@ -316,27 +408,7 @@ def main() -> int:
                            ("DuplicateNullKeyMessage", 4)):
             c = pyeval.SHIPPED_CFG
             r = DeviceChecker(CompactionModel(c), invariants=(inv,)).run()
-            if (r.violation, r.diameter, len(r.trace or ())) != (
-                inv, depth, depth
-            ):
-                raise AssertionError(
-                    f"{inv}: {r.violation} depth {r.diameter}"
-                )
-            ok = pyeval.INVARIANTS[inv]
-            if r.trace[0] not in set(pyeval.initial_states(c)):
-                raise AssertionError(f"{inv}: trace starts off Init")
-            for s, act, t in zip(r.trace, r.trace_actions, r.trace[1:]):
-                if not any(
-                    pyeval.ACTION_NAMES[a] == act and u == t
-                    for a, u in pyeval.successors(c, s)
-                ):
-                    raise AssertionError(f"{inv}: {act} does not replay")
-                if not ok(c, s):
-                    raise AssertionError(f"{inv}: violated before the end")
-            if ok(c, r.trace[-1]):
-                raise AssertionError(f"{inv}: last state does not violate")
-            notes.append(f"{inv} length {depth} replays (gid "
-                         f"{r.violation_gid})")
+            notes.append(check_trace(c, inv, depth, r))
         return "; ".join(notes)
 
     counted("5 counterexamples", bugs)
@@ -364,6 +436,7 @@ def main() -> int:
                 f"level totals {cum} (want ...{SCALED_PREV_TOTAL}, "
                 f"{SCALED_TOTAL}), violation {r.violation}"
             )
+        untiered["scaled"] = (r.level_sizes, *ck.merged_logs())
         st = ck.last_stats
         return (
             f"level totals {cum} (level 7 partial: stop "
@@ -380,19 +453,20 @@ def main() -> int:
 
     launches = dict(kernels.LAUNCHES)
     print(f"[7 launches on the main path] {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in MAIN_PATH_KERNELS:
+        if launches[name] <= 0:
             failures.append(f"kernel {name} never launched on the main path")
 
     # ---- 8: where the time goes in the scaled run (after the counts
     # were read: this run is the profiler's, not the main path's)
-    def profile():
+    def profile(hbm_budget=None):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tprofile
 
         ck = DeviceChecker(CompactionModel(scaled_cfg()),
-                           max_states=SCALED_TOTAL + 1)
+                           max_states=SCALED_TOTAL + 1,
+                           hbm_budget=hbm_budget)
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA],
@@ -421,6 +495,7 @@ def main() -> int:
         top_ops = sorted(ops, key=dev_us, reverse=True)[:8]
         ours = sum(dev_us(e) for e in ev
                    if "member_kernel" in e.key or "key_plane_kernel" in e.key)
+        k3 = sum(dev_us(e) for e in ev if "sieve_mask_kernel" in e.key)
         # buffer fills (torch.full/zeros), the probe's claims among them
         fills = [e for e in allev if e.key == "aten::fill_"]
         fill_ms = sum(dev_us(e) for e in fills) / 1e3
@@ -428,11 +503,20 @@ def main() -> int:
         syncs = [e for e in allev if e.key == "aten::_local_scalar_dense"]
         n_sync = sum(e.count for e in syncs)
         sync_s = sum(e.self_cpu_time_total for e in syncs) / 1e6
+        spill = ""
+        if ck.tiered:
+            sp = ck.tstore.stats
+            spill = (
+                f"; host spill work: {sp.lookup_s:.2f}s of cold lookups "
+                f"({sp.miss_batches} batches), {sp.transfer_s:.2f}s of "
+                f"D2H + encode, {sp.blocked_s:.2f}s waited on encodes"
+            )
         return (
             f"{r.distinct_states} states, wall {wall:.2f}s under the "
             f"profiler; device busy {busy:.3f}s ({busy / wall:.1%} of "
             f"wall); K1+K2 {ours / 1e6:.4f}s ({ours / 1e6 / busy:.2%} of "
-            f"device time); {n_sync} host syncs (.item) holding "
+            f"device time); K3 {k3 / 1e6:.4f}s{spill}; {n_sync} host syncs "
+            f"(.item) holding "
             f"{sync_s:.3f}s of host time; aten::fill_ {fill_ms:.1f}ms "
             f"x{n_fill}; device time by op: "
             + "; ".join(
@@ -447,6 +531,161 @@ def main() -> int:
         )
 
     _phase("8 profile of the scaled run", profile, failures)
+    torch.cuda.empty_cache()
+
+    # ---- 9-11: the tiered store, launch counters zeroed around it
+    def tight_budget(ck, slack=4096):
+        """A budget just above a checker shape's initial tiers, so a
+        tiered run must spill."""
+        est = ck._device_bytes_est(ck.TCAP0, ck.WCAP0, ck.WCAP0)
+        return int(est / (1.0 - HBM_HEADROOM)) + slack
+
+    def same_run(what, want, ck, r):
+        """The tiered run's level sizes, merged rows and merged logs
+        against the untiered run's."""
+        sizes, *arrays = want
+        got = [ck.merged_rows()] if len(arrays) == 3 else []
+        got += list(ck.merged_logs())
+        if r.level_sizes != sizes:
+            raise AssertionError(
+                f"{what}: level sizes {r.level_sizes} != {sizes}"
+            )
+        names = ("rows", "parent", "lane")[-len(arrays):]
+        for name, a, b in zip(names, got, arrays):
+            if a.shape != b.shape or not (a == b).all():
+                raise AssertionError(f"{what}: merged {name} differ")
+        return "/".join(names)
+
+    def spill_note(ck):
+        st = ck.last_stats
+        return (
+            f"{st['spill_evictions']} evictions, {st['spill_keys_evicted']} "
+            f"keys evicted, {st['spill_rows_evicted']} rows spilled, "
+            f"{st['spill_misses_resolved']} misses resolved "
+            f"({st['spill_miss_hits']} hits), {st['spill_hot_keys']} hot, "
+            f"table {st['fpset_table_cap']} slots, budget overridden "
+            f"{ck._budget_overridden}"
+        )
+
+    def tiered_small():
+        # the CLI's checker shape (default windows, -maxstates default)
+        probe = DeviceChecker(CompactionModel(pyeval.SHIPPED_CFG),
+                              max_states=200_000_000, hbm_budget="1T")
+        b = tight_budget(probe)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                           "-config", os.path.join(SPECS, "compaction.cfg"),
+                           "-hbm-budget", str(b)])
+        out = buf.getvalue()
+        m = re.search(r"(\d+) distinct states found, search depth "
+                      r"\(diameter\) (\d+)", out)
+        got = (rc, m and (int(m.group(1)), int(m.group(2))))
+        spill = [ln for ln in out.splitlines() if ln.startswith("Spill (")]
+        if got != (0, (45198, 20)) or "Error" in out or not spill:
+            raise AssertionError(f"cli check -hbm-budget {b}: {got}\n{out}")
+        # the 253,361-state config with windows small enough to evict
+        kw = dict(invariants=(), sub_batch=4096, visited_cap=1 << 12)
+        b2 = tight_budget(DeviceChecker(CompactionModel(full_cfg),
+                                        hbm_budget="1T", **kw))
+        ck = DeviceChecker(CompactionModel(full_cfg), hbm_budget=b2, **kw)
+        r = ck.run()
+        if (r.distinct_states, r.diameter) != (253361, 23):
+            raise AssertionError(f"got {r.distinct_states}/{r.diameter}")
+        if not (ck.last_stats["spill_evictions"] >= 1
+                and ck.last_stats["spill_rows_evicted"] > 0
+                and ck.last_stats["spill_misses_resolved"] > 0):
+            raise AssertionError(
+                f"the budget forced no spill: {spill_note(ck)}"
+            )
+        same = same_run("253361", untiered["full"], ck, r)
+        return (
+            f"cli check -hbm-budget {b}: 45198 states, diameter 20, rc 0 "
+            f"({spill[0]}); 253361 states, diameter 23 at budget {b2}: "
+            f"{same} equal to the untiered run; {spill_note(ck)}"
+        )
+
+    def tiered_leak():
+        inv = "CompactedLedgerLeak"
+        kw = dict(invariants=(inv,), sub_batch=512, visited_cap=1 << 11)
+        c = pyeval.SHIPPED_CFG
+        b = tight_budget(DeviceChecker(CompactionModel(c), hbm_budget="1T",
+                                       **kw))
+        ck = DeviceChecker(CompactionModel(c), hbm_budget=b, **kw)
+        r = ck.run()
+        if r.violation_gid != 23329:
+            raise AssertionError(f"{inv}: gid {r.violation_gid}")
+        return (f"budget {b}: {check_trace(c, inv, 12, r)}; trace from "
+                f"merged logs (row_base {ck._row_base}); {spill_note(ck)}")
+
+    def budget_for_table(m, tcap, **kw):
+        """The largest budget whose hot-table ceiling is ``tcap`` slots,
+        by bisection on the checker's own tier arithmetic (the ceilings
+        grow with the budget)."""
+        def ceiling(b):
+            return DeviceChecker(m, hbm_budget=b, **kw).TCAP_MAX
+
+        probe = DeviceChecker(m, hbm_budget="1T", **kw)
+        w = probe.WCAP_MAX
+        lo = tight_budget(probe, slack=0)
+        hi = int(probe._device_bytes_est(2 * tcap, w, w)
+                 / (1.0 - HBM_HEADROOM)) + 1
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if ceiling(mid) <= tcap:
+                lo = mid
+            else:
+                hi = mid
+        return lo
+
+    def tiered_scaled():
+        m = CompactionModel(scaled_cfg())
+        b = budget_for_table(m, TIERED_TCAP, max_states=SCALED_TOTAL + 1)
+        ck = DeviceChecker(m, max_states=SCALED_TOTAL + 1, hbm_budget=b)
+        if ck.TCAP_MAX != TIERED_TCAP:
+            raise AssertionError(f"budget {b}: table ceiling {ck.TCAP_MAX}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k3_before = kernels.LAUNCHES["sieve_mask"]
+        r = ck.run()
+        st = ck.last_stats
+        if st["spill_evictions"] < 1 or r.violation:
+            raise AssertionError(f"{spill_note(ck)}; {r.violation}")
+        same = same_run("scaled", untiered["scaled"], ck, r)
+        cum = list(itertools.accumulate(r.level_sizes))
+        tiered_budget.append(b)
+        return (
+            f"budget {b} ({budget_fmt(b)}), table ceiling {TIERED_TCAP}: "
+            f"level totals {cum} and merged {same} equal to phase 6's; "
+            f"{spill_note(ck)}; K3 launches "
+            f"{kernels.LAUNCHES['sieve_mask'] - k3_before}; "
+            f"{r.distinct_states} states in {r.wall_s:.2f}s = "
+            f"{r.states_per_sec:.0f} st/s; spill transfer "
+            f"{st['spill_transfer_s']}s, lookups "
+            f"{ck.tstore.stats.lookup_s:.2f}s, encoded "
+            f"{st['spill_bytes_comp']} of {st['spill_bytes_raw']} B; peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+            f" GiB against the budget's {b / 2**30:.2f} GiB"
+        )
+
+    tiered_budget = []
+    kernels.reset_launches()
+    counted("9 tiered: shipped cfg (cli) + 253361-state config",
+            tiered_small)
+    counted("10 tiered: CompactedLedgerLeak", tiered_leak)
+    counted("11 tiered: scaled cfg, hot table <= 2^25 slots", tiered_scaled)
+    tiered_launches = dict(kernels.LAUNCHES)
+    print(f"[12 launches on the tiered path] {tiered_launches}", flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if tiered_launches[name] <= 0:
+            failures.append(
+                f"kernel {name} never launched on the tiered path"
+            )
+    # ---- 13: where the time goes in the tiered scaled run (after the
+    # counts were read)
+    if tiered_budget:
+        _phase("13 profile of the tiered scaled run",
+               lambda: profile(tiered_budget[0]), failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -455,9 +694,13 @@ def main() -> int:
         "selftest": "pulsar_tlaplus_tpu/ops/tiles.py:172",
         "member_block": "pulsar_tlaplus_tpu/ops/tiles.py:326",
         "key_plane": "pulsar_tlaplus_tpu/ops/tiles.py:517",
+        "sieve_mask": "pulsar_tlaplus_tpu/ops/tiles.py:590",
     }
+    # launches: each kernel's count from the run of the path it belongs
+    # to (K3 only runs on the tiered path)
+    path_launches = dict(launches, sieve_mask=tiered_launches["sieve_mask"])
     out = []
-    for name in ("selftest", "member_block", "key_plane"):
+    for name in TIERED_PATH_KERNELS:
         rec = record[name]
         out.append(dict(
             name=name,
@@ -465,7 +708,7 @@ def main() -> int:
             source="pulsar_tlaplus_tpu_torch/kernels/csrc/"
             + kernels.SOURCES[name],
             replaces=replaces[name],
-            launches=launches[name],
+            launches=path_launches[name],
             max_abs_err=rec["max_abs_err"],
             ms=rec["ms"],
             plain_ms=rec["plain_ms"],

@@ -3,10 +3,12 @@
 
     python -m pulsar_tlaplus_tpu_torch.cli check SPEC.tla [-config FILE.cfg]
         [-invariant NAME ...] [-nodeadlock] [-maxstates N] [-cpu]
+        [-hbm-budget BYTES [-no-spill-compress]]
 
 It runs exhaustive BFS of the named spec on the GPU (``-cpu``: on the
 CPU) and prints a TLC-style summary: distinct states, diameter, and a
-counterexample trace on an invariant violation or a deadlock.  Exit code
+counterexample trace on an invariant violation or a deadlock; with
+``-hbm-budget``, one more line sums up what spilled to host RAM.  Exit code
 0 when the search completes clean, 1 on a violation or deadlock (or an
 error), 3 when the state budget truncated the search.
 """
@@ -86,6 +88,8 @@ def _check(args) -> int:
             max_states=args.maxstates,
             device="cpu" if args.cpu else None,
             progress=True,
+            hbm_budget=args.hbm_budget,
+            spill_compress=not args.no_spill_compress,
         )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
@@ -99,7 +103,29 @@ def _check(args) -> int:
         r = ck.run()
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
-    return _report(r, constants, time.time() - t0)
+    rc = _report(r, constants, time.time() - t0)
+    if ck.tiered:
+        _report_spill(ck)
+    return rc
+
+
+def _report_spill(ck) -> None:
+    """One line on the tiered store's work in the run."""
+    from pulsar_tlaplus_tpu_torch.store.budget import fmt_bytes
+
+    st = ck.last_stats
+    print(
+        f"Spill (hbm budget {fmt_bytes(ck.hbm_budget)}): "
+        f"{st['spill_evictions']} evictions, {st['spill_keys_evicted']} "
+        f"keys and {st['spill_rows_evicted']} rows spilled to host RAM "
+        f"({fmt_bytes(st['spill_bytes_comp'])} encoded), "
+        f"{st['spill_misses_resolved']} misses resolved "
+        f"({st['spill_miss_hits']} cold hits), {st['spill_hot_keys']} "
+        "keys hot"
+        + ("; WARNING: the budget was overridden"
+           if ck._budget_overridden else "")
+        + "."
+    )
 
 
 def main(argv=None) -> int:
@@ -117,6 +143,20 @@ def main(argv=None) -> int:
     pc.add_argument("-maxstates", type=int, default=200_000_000)
     pc.add_argument("-cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
+    pc.add_argument(
+        "-hbm-budget", dest="hbm_budget", metavar="BYTES", default=None,
+        help="device-memory byte budget for the tiered state store (e.g. "
+        "7.5G, 512M; PTT_HBM_BUDGET env works too): visited keys and "
+        "aged rows/trace logs past the budget spill to host RAM through "
+        "the sieve-and-compress pipeline — breaks the device-memory "
+        "ceiling on max_states",
+    )
+    pc.add_argument(
+        "-no-spill-compress", dest="no_spill_compress",
+        action="store_true",
+        help="spill raw planes instead of delta+zlib (trades link bytes "
+        "for encode CPU)",
+    )
     args = p.parse_args(argv)
     return _check(args)
 

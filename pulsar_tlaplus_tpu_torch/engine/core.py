@@ -2,9 +2,10 @@
 of ``pulsar_tlaplus_tpu/engine/core.py`` (``build_trace``,
 ``replay_lane_trace``).
 
-A trace is rebuilt from the engine's parent/lane logs: the parent chain
-ends at an initial state, logged as ``-1 - init_idx``; the lanes along
-the chain replay from that initial state.
+A trace is rebuilt from the engine's parent/lane logs (on the device, or
+a tiered run's merged logs on the host): the parent chain ends at an
+initial state, logged as ``-1 - init_idx``; the lanes along the chain
+replay from that initial state.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ from pulsar_tlaplus_tpu_torch.ops.packing import smap
 from pulsar_tlaplus_tpu_torch.ref import pyeval
 
 
-def build_trace(model, parent_log: torch.Tensor, lane_log: torch.Tensor,
-                gid: int, max_depth: int):
+def build_trace(model, parent_log, lane_log, gid: int, max_depth: int):
     """The behavior ending at state ``gid``: walk the parent chain (at
     most ``max_depth`` states) and replay its lanes through the model.
-    Returns (pyeval.State list, action names)."""
+    The logs are indexed by absolute gid: int32 tensors, or numpy
+    arrays (a tiered run's merged cold + window logs).  Returns
+    (pyeval.State list, action names)."""
     lanes = []
     g = int(gid)
     for _ in range(max_depth):

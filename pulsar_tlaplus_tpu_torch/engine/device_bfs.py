@@ -23,6 +23,34 @@ The loop is eager: each flush syncs with the host (the insert tail's
 chunk count, the new-state count), and the stop conditions (violation,
 deadlock, ``max_states``) are checked after every flush.  The visited
 table, row store and logs grow by doubling.
+
+**Tiered mode** (``hbm_budget``; the JAX engine's tiered state store,
+RAM tier): the device keeps a budgeted hot tier and the host keeps the
+rest in a ``store/tiers.TieredStore``.
+
+- The budget fixes tier ceilings once, by round-robin doubling of the
+  table and the row/log window from their initial sizes while
+  :meth:`DeviceChecker._device_bytes_est` stays inside ``budget * (1 -
+  HBM_HEADROOM)``; a budget below the initial tiers raises.
+- An int32 generation column beside the table is tagged with the epoch
+  at every level boundary and re-tagged at generation 1 after every
+  table growth.  When the hot table is full at its ceiling, the
+  oldest generations are evicted (the tiled extract with the sieve-mask
+  kernel K3, then a sort), their sorted keys go to the host and the
+  survivors are rehashed; only when nothing is evictable does the
+  table grow past the budget, once logged as a WARNING.
+- After every flush, the lanes the hot table calls new are resolved
+  against the cold runs on the host, and the false-new ones are cleared
+  before the compaction that assigns gids: discovery order equals the
+  untiered run's, state for state.
+- Rows and trace logs live in a window ``[row_base, ...)``: ranges
+  older than the frontier spill to the host at level boundaries once
+  eviction has begun, or when the window is full.  Gids stay absolute;
+  traces walk the merged cold + window logs.
+
+The JAX engine's fused-megakernel handoff (``_tiered_pressure``) has no
+counterpart: the port's loop is unfused, so every flush consults the
+budget.  The durable spill tier and checkpoint frames are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +59,7 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
@@ -39,9 +68,17 @@ from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_rows
 from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
+from pulsar_tlaplus_tpu_torch.store import budget as store_budget
+from pulsar_tlaplus_tpu_torch.store import sieve
+from pulsar_tlaplus_tpu_torch.store.tiers import TieredStore
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
 BIG = 2**31 - 1
+# tiered mode: the share of the budget kept free, and the keys a
+# cold-miss lookup moves to the host at a time (the JAX engine's
+# defaults of ``hbm_headroom`` and ``miss_batch``)
+HBM_HEADROOM = 0.1
+MISS_BATCH = 1 << 15
 
 
 def _pow2_at_least(n: int, floor: int = 1 << 10) -> int:
@@ -49,6 +86,12 @@ def _pow2_at_least(n: int, floor: int = 1 << 10) -> int:
     while c < n:
         c <<= 1
     return c
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy (a copy also on the CPU, where
+    ``.cpu()`` would alias the device buffer that is about to slide)."""
+    return t.to("cpu", copy=True).numpy()
 
 
 class DeviceChecker:
@@ -59,6 +102,11 @@ class DeviceChecker:
     ``sub_batch * A`` candidate lanes, the width of every flush.  The
     visited table starts with room for ``visited_cap`` states at load
     1/2.  The run stops (truncated) once ``max_states`` are found.
+
+    ``hbm_budget`` (bytes, or a spec such as ``"7.5G"``; the
+    ``PTT_HBM_BUDGET`` environment variable when not given) turns on
+    the tiered store; ``spill_compress=False`` sizes the spilled planes
+    raw instead of delta + zlib.
     """
 
     def __init__(
@@ -71,6 +119,8 @@ class DeviceChecker:
         max_states: int = 1 << 26,
         device=None,
         progress: bool = False,
+        hbm_budget=None,
+        spill_compress: bool = True,
     ):
         self.device = device_mod.resolve(device)
         self.model = model
@@ -89,9 +139,69 @@ class DeviceChecker:
         self.K = self.keys.ncols
         self.SCAP = max_states
         self.TCAP0 = _pow2_at_least(2 * visited_cap, 1 << 11)
+        self.WCAP0 = _pow2_at_least(min(self.TCAP0 // 2, max_states + 1))
+        self.NQ = self.G * self.A  # lanes of one expand window's flush
         self.progress = progress
         self.last_stats: Dict[str, object] = {}
         self.last_bufs: Dict[str, torch.Tensor] = {}
+        self.hbm_budget = store_budget.resolve_budget(hbm_budget)
+        self.tiered = self.hbm_budget is not None
+        self.spill_compress = bool(spill_compress)
+        self.tstore: Optional[TieredStore] = None
+        self._budget_overridden = False
+        self._row_base = 0
+        if self.tiered:
+            self.TCAP_MAX, self.WCAP_MAX = self._tier_ceilings()
+
+    # ------------------------------------------------- tiered-store sizing
+
+    def _device_bytes_est(self, tcap: int, rows_cap: int,
+                          logs_cap: int) -> int:
+        """Resident bytes at a tier: the table's K key columns and its
+        generation column, the row window, the parent/lane log window,
+        and one expand window's packed rows and keys.  This is what the
+        budget caps."""
+        fixed = (self.W + self.K) * self.NQ * 4
+        table = (tcap + 1) * (self.K + 1) * 4
+        rows = rows_cap * self.W * 4
+        logs = 2 * logs_cap * 4
+        return fixed + table + rows + logs
+
+    def _tier_ceilings(self) -> Tuple[int, int]:
+        """(table slots, window states) ceilings: double the table and
+        the window in turn from their initial sizes while the estimate
+        stays inside the budget less its headroom.  Rows and logs share
+        one window in the port.  The table never goes below the room for
+        two flushes at load 1/2."""
+        eff = int(self.hbm_budget * (1.0 - HBM_HEADROOM))
+        tc, wc = self.TCAP0, self.WCAP0
+        if self._device_bytes_est(tc, wc, wc) > eff:
+            need = self._device_bytes_est(tc, wc, wc)
+            raise ValueError(
+                "hbm_budget too small: the initial tiers need "
+                f"{store_budget.fmt_bytes(need)} (+{HBM_HEADROOM:.0%} "
+                "headroom) but the budget is "
+                f"{store_budget.fmt_bytes(self.hbm_budget)} — raise the "
+                "budget or shrink sub_batch/visited_cap"
+            )
+        capv = max(self.SCAP + self.NQ, 2 * self.NQ)
+        capw = self.SCAP + self.NQ
+        while True:
+            grew = False
+            if tc // 2 < capv and self._device_bytes_est(
+                2 * tc, wc, wc
+            ) <= eff:
+                tc *= 2
+                grew = True
+            nw = wc + min(wc, max(capw - wc, 0))
+            if nw > wc and self._device_bytes_est(tc, nw, nw) <= eff:
+                wc = nw
+                grew = True
+            if not grew:
+                break
+        while tc // 2 < 2 * self.NQ:
+            tc *= 2
+        return tc, wc
 
     # ------------------------------------------------------------ buffers
 
@@ -99,28 +209,37 @@ class DeviceChecker:
         if self.progress:
             print(f"  {msg}", file=sys.stderr, flush=True)
 
-    def _ensure_table(self, need: int) -> None:
+    def _ensure_table(self, need: int, ceiling: Optional[int] = None) -> None:
         """Double the visited table (rehash on the device) until ``need``
-        states fit at load <= 1/2."""
+        states fit at load <= 1/2, or it reaches ``ceiling`` slots.  In
+        tiered mode the per-slot ages die with the old layout: every key
+        restarts at generation 1, epoch 2."""
         cap = self._tcols[0].shape[0] - 1
         if need <= cap // 2:
             return
         new_cap = _pow2_at_least(2 * need, cap)
+        if ceiling is not None:
+            new_cap = min(new_cap, ceiling)
+        if new_cap <= cap:
+            return
         new, failed = fpset.rehash_cols(
             self._tcols, fpset.empty_cols(new_cap, self.K, self.device)
         )
         if failed:
             raise RuntimeError(f"visited-table rehash overflow ({failed})")
         self._tcols = new
+        if self.tiered:
+            self._gen = sieve.tag_generation(
+                new, torch.zeros((new_cap + 1,), dtype=torch.int32,
+                                 device=self.device), 1,
+            )
+            self._epoch = 2
         self._log(f"visited table grown to {new_cap} slots")
 
-    def _ensure_store(self, need: int) -> None:
-        """Grow the row store and the parent/lane logs to ``need`` states
-        (doubling, contents kept)."""
+    def _grow_store(self, new_cap: int) -> None:
+        """Grow the row store and the parent/lane logs to ``new_cap``
+        states (contents kept)."""
         cap = self._rows.shape[0]
-        if need <= cap:
-            return
-        new_cap = _pow2_at_least(need, cap)
         dev = self.device
         rows = torch.zeros((new_cap, self.W), dtype=torch.int32, device=dev)
         rows[:cap] = self._rows
@@ -132,13 +251,193 @@ class DeviceChecker:
         self._rows = rows
         self._parent, self._lane = logs
 
+    def _ensure_store(self, need: int) -> None:
+        """Grow the row store and the parent/lane logs to ``need`` states
+        (doubling)."""
+        cap = self._rows.shape[0]
+        if need > cap:
+            self._grow_store(_pow2_at_least(need, cap))
+
+    # ------------------------------------------------------ tiered store
+
+    def _override_budget(self, what: str) -> None:
+        if not self._budget_overridden:
+            self._budget_overridden = True
+            self._log(
+                f"WARNING: hbm_budget too small for the live {what} — "
+                "growing past the budget"
+            )
+
+    def _ensure_hot_capacity(self, head: int) -> None:
+        """Admit ``head`` more keys in the hot table at load <= 1/2: grow
+        within the budget, else evict the cold generations (all but the
+        newest tagged one, then all tagged), else grow past the
+        budget."""
+        def fits():
+            return self._hot_n + head <= (self._tcols[0].shape[0] - 1) // 2
+
+        if fits():
+            return
+        if self._tcols[0].shape[0] - 1 < self._tcap_max:
+            self._ensure_table(self._hot_n + head, self._tcap_max)
+            if fits():
+                return
+        for cutoff in (self._epoch - 2, self._epoch - 1):
+            if cutoff >= 1 and not fits():
+                self._evict_cold_keys(cutoff)
+        if fits():
+            return
+        self._override_budget("frontier")
+        self._tcap_max = max(2 * self._tcap_max,
+                             _pow2_at_least(2 * (self._hot_n + head)))
+        self._ensure_table(self._hot_n + head, self._tcap_max)
+
+    def _evict_cold_keys(self, cutoff: int) -> int:
+        """Evict generations <= ``cutoff`` to the cold tier: extract
+        (K3 + sort), D2H of the sorted prefix, a rehash of the
+        survivors at the same capacity, all survivors at generation 1.
+        Returns the evicted count."""
+        holed, _gen, ev, n = sieve.extract_cold(
+            self._tcols, self._gen, cutoff
+        )
+        if n == 0:
+            return 0
+        t0 = time.perf_counter()
+        ev_np = [c[:n].cpu().numpy().view(np.uint32) for c in ev]
+        self.tstore.note_transfer(time.perf_counter() - t0)
+        cap = self._tcols[0].shape[0] - 1
+        self._tcols = None  # the holed copy replaces it
+        new, failed = fpset.rehash_cols(
+            holed, fpset.empty_cols(cap, self.K, self.device)
+        )
+        if failed:
+            raise RuntimeError(
+                f"visited-table rehash overflow during eviction ({failed})"
+            )
+        self._tcols = new
+        self._gen = sieve.tag_generation(
+            new, torch.zeros_like(self._gen), 1
+        )
+        self._epoch = 2
+        self.tstore.evict_keys(ev_np)
+        self._hot_n -= n
+        self._spill_active = True
+        self._log(f"spill: evicted {n} cold keys to the ram tier "
+                  f"(hot {self._hot_n})")
+        return n
+
+    def _resolve_cold_misses(self, kcols, is_new, n_new: int):
+        """Resolve the flush's hot-new lanes against the cold runs in
+        ``MISS_BATCH``-key batches and clear the false-new lanes.
+        Returns the corrected ``(n_new, is_new)``."""
+        *kc, lanes, n = sieve.sieve_new(kcols, is_new)
+        self._spill_syncs += 1
+        false_lanes = []
+        for off in range(0, n, MISS_BATCH):
+            m = min(MISS_BATCH, n - off)
+            t0 = time.perf_counter()
+            kq = [c[off: off + m].cpu().numpy().view(np.uint32) for c in kc]
+            lq = lanes[off: off + m].cpu().numpy()
+            self.tstore.note_transfer(time.perf_counter() - t0)
+            dup = self.tstore.lookup_keys(kq)
+            if dup.any():
+                false_lanes.append(lq[dup])
+        if not false_lanes:
+            return n_new, is_new
+        fl = np.concatenate(false_lanes)
+        is_new = sieve.unflag_lanes(
+            is_new, torch.from_numpy(fl).to(self.device), len(fl)
+        )
+        return n_new - len(fl), is_new
+
+    def _spill_aged(self, upto: int) -> None:
+        """Spill rows + trace logs of ``[row_base, upto)`` to the cold
+        tier and slide the window down."""
+        base = self._row_base
+        if upto <= base:
+            return
+        n, keep = upto - base, self._nv - upto
+        t0 = time.perf_counter()
+        rows = _host(self._rows[:n]).view(np.uint32).reshape(-1)
+        par, lan = _host(self._parent[:n]), _host(self._lane[:n])
+        self.tstore.note_transfer(time.perf_counter() - t0)
+        self.tstore.spill_rows(base, upto, rows)
+        self.tstore.spill_logs(base, upto, par, lan)
+        for t in (self._rows, self._parent, self._lane):
+            t[:keep] = t[n: n + keep].clone()  # the ranges overlap
+        self._row_base = upto
+        self._spill_active = True
+
+    def _tiered_ensure_windows(self, level_base: int, need_abs: int,
+                               hard: bool = True) -> None:
+        """Admit states up to gid ``need_abs`` in the row/log window:
+        spill the aged range (everything before the frontier at
+        ``level_base``) first, then grow within the budget, and only
+        past both — for a ``hard`` need, one a flush is about to
+        write — grow past the budget."""
+        def short():
+            return need_abs - self._row_base > self._rows.shape[0]
+
+        if not short():
+            return
+        if level_base > self._row_base:
+            self._spill_aged(level_base)
+            if not short():
+                return
+        need = need_abs - self._row_base
+        cap = self._rows.shape[0]
+        if cap < self._wcap_max:
+            self._grow_store(min(_pow2_at_least(need, cap), self._wcap_max))
+            if not short():
+                return
+        if hard:
+            self._override_budget("windows")
+            self._wcap_max = max(2 * self._wcap_max, need)
+            self._grow_store(min(_pow2_at_least(need, cap), self._wcap_max))
+
+    def _tiered_boundary(self, level_base: int) -> None:
+        """Level-boundary housekeeping: tag the epoch, make room within
+        the budget for the next level's first flush, spill aged
+        rows/logs once spilling is active, and keep the hot table inside
+        the budget.  The room made here is a soft ask: the flush itself
+        knows how many states it appends and makes room then."""
+        self._gen = sieve.tag_generation(self._tcols, self._gen, self._epoch)
+        self._epoch += 1
+        self._tiered_ensure_windows(level_base, self._nv + self.NQ,
+                                    hard=False)
+        if self._spill_active and level_base > self._row_base:
+            self._spill_aged(level_base)
+        self._ensure_hot_capacity(2 * self.NQ)
+
+    def merged_logs(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The parent and lane logs of every state found, int32 numpy
+        ``[nv]``: the cold segments, then the device window."""
+        nv, base = self._nv, self._row_base
+        par = self._parent[: nv - base].cpu().numpy()
+        lan = self._lane[: nv - base].cpu().numpy()
+        if not base:
+            return par, lan
+        cp, cl = self.tstore.fetch_logs(0, base)
+        return np.concatenate([cp, par]), np.concatenate([cl, lan])
+
+    def merged_rows(self) -> np.ndarray:
+        """The packed rows of every state found, flat uint32 numpy
+        ``[nv * W]``: the cold segments, then the device window."""
+        nv, base = self._nv, self._row_base
+        rows = self._rows[: nv - base].cpu().numpy().view(np.uint32)
+        if not base:
+            return rows.reshape(-1)
+        cold = self.tstore.fetch_rows(0, base, self.W)
+        return np.concatenate([cold, rows.reshape(-1)])
+
     # -------------------------------------------------------- the stages
 
     def _expand(self, f_off: int, n: int):
         """Expand frontier rows ``[f_off, f_off + n)`` (absolute gids):
         ``(packed [n*A, W], key cols)``; records a deadlocked row."""
         m = self.model
-        states = self.layout.unpack(self._rows[f_off: f_off + n])
+        off = f_off - self._row_base
+        states = self.layout.unpack(self._rows[off: off + n])
         succ, valid = m.successors(states)
         packed = self.layout.pack(succ).reshape(n * self.A, self.W)
         kcols = tiles.key_plane(self.keys, packed, valid.reshape(-1))
@@ -155,7 +454,10 @@ class DeviceChecker:
         ``j`` came from source ``acc_base + j // A`` (expand) or is
         initial state ``acc_base + j`` (init)."""
         nq = packed.shape[0]
-        self._ensure_table(self._nv + nq)
+        if self.tiered:
+            self._ensure_hot_capacity(nq)
+        else:
+            self._ensure_table(self._nv + nq)
         self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
             self._tcols, kcols, nq, self._fpm
         )
@@ -164,23 +466,34 @@ class DeviceChecker:
                 f"visited-table probe overflow ({int(self._fpm[2])} "
                 "lanes unresolved): the table broke its load contract"
             )
+        if self.tiered:
+            # every hot-new key stays inserted, false-new ones included
+            self._hot_n += n_new
+            if n_new and self.tstore.has_cold_keys:
+                n_new, is_new = self._resolve_cold_misses(
+                    kcols, is_new, n_new
+                )
         if not n_new:
             return
         crows, idx = compact_rows(packed, is_new)
         crows, idx = crows[:n_new], idx[:n_new]
         nv = self._nv
-        self._ensure_store(nv + n_new)
-        self._rows[nv: nv + n_new] = crows
-        if is_init:
-            self._parent[nv: nv + n_new] = (-1 - (acc_base + idx)).to(
-                torch.int32
-            )
-            self._lane[nv: nv + n_new] = 0
+        if self.tiered:
+            self._tiered_ensure_windows(self._level_base, nv + n_new)
         else:
-            self._parent[nv: nv + n_new] = (acc_base + idx // self.A).to(
+            self._ensure_store(nv + n_new)
+        w = nv - self._row_base
+        self._rows[w: w + n_new] = crows
+        if is_init:
+            self._parent[w: w + n_new] = (-1 - (acc_base + idx)).to(
                 torch.int32
             )
-            self._lane[nv: nv + n_new] = (idx % self.A).to(torch.int32)
+            self._lane[w: w + n_new] = 0
+        else:
+            self._parent[w: w + n_new] = (acc_base + idx // self.A).to(
+                torch.int32
+            )
+            self._lane[w: w + n_new] = (idx % self.A).to(torch.int32)
         if self.invariant_names:
             states = self.layout.unpack(crows)
             pos = torch.arange(n_new, device=self.device)
@@ -224,14 +537,26 @@ class DeviceChecker:
             # K0 on this card (builds and loads the kernels on first use)
             kernels.selftest(dev)
         self._tcols = fpset.empty_cols(self.TCAP0, self.K, dev)
-        cap0 = _pow2_at_least(min(self.TCAP0 // 2, self.SCAP + 1))
-        self._rows = torch.zeros((cap0, self.W), dtype=torch.int32,
+        self._rows = torch.zeros((self.WCAP0, self.W), dtype=torch.int32,
                                  device=dev)
-        self._parent = torch.zeros((cap0,), dtype=torch.int32, device=dev)
-        self._lane = torch.zeros((cap0,), dtype=torch.int32, device=dev)
+        self._parent = torch.zeros((self.WCAP0,), dtype=torch.int32,
+                                   device=dev)
+        self._lane = torch.zeros((self.WCAP0,), dtype=torch.int32,
+                                 device=dev)
         self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64)
         self._nv, self._dead = 0, BIG
         self._viol = [BIG] * len(self.invariant_names)
+        self._row_base = self._level_base = 0
+        self._budget_overridden = False
+        if self.tiered:
+            if self.tstore is not None:
+                self.tstore.close()
+            self.tstore = TieredStore(compress=self.spill_compress)
+            self._tcap_max, self._wcap_max = self.TCAP_MAX, self.WCAP_MAX
+            self._gen = torch.zeros((self.TCAP0 + 1,), dtype=torch.int32,
+                                    device=dev)
+            self._epoch, self._hot_n, self._spill_syncs = 1, 0, 0
+            self._spill_active = False
 
         # ---- level 1: initial states (compaction.tla:188-202)
         n_init = self.model.n_initial
@@ -260,6 +585,7 @@ class DeviceChecker:
             if nf == 0:
                 return self._result(t0, level_sizes)
             stop = False
+            self._level_base = level_base
             for f_off in range(0, nf, self.G):
                 n = min(self.G, nf - f_off)
                 packed, kcols = self._expand(level_base + f_off, n)
@@ -279,6 +605,8 @@ class DeviceChecker:
                 return self._result(t0, level_sizes, **self._stop_reason())
             level_base += nf
             nf = level_count
+            if self.tiered and nf:
+                self._tiered_boundary(level_base)
 
     def _result(
         self, t0, level_sizes, viol=None, dead_gid=None, truncated=False,
@@ -304,6 +632,26 @@ class DeviceChecker:
             fpset_table_cap=tcap,
             fpset_occupancy=nv / tcap,
         )
+        if self.tiered:
+            # the run is over: join the encodes so the byte counts are
+            # final, and release the worker (the tiers stay readable)
+            self.tstore.close()
+            sp = self.tstore.stats
+            self.last_stats.update(
+                hbm_budget=self.hbm_budget,
+                spill_evictions=int(sp.evictions),
+                spill_keys_evicted=int(sp.keys_evicted),
+                spill_rows_evicted=int(sp.rows_evicted),
+                spill_bytes_raw=int(sp.bytes_raw),
+                spill_bytes_comp=int(sp.bytes_comp),
+                spill_transfer_s=round(sp.transfer_s, 3),
+                spill_misses_resolved=int(sp.misses_resolved),
+                spill_miss_hits=int(sp.miss_hits),
+                spill_syncs=int(self._spill_syncs),
+                spill_hot_keys=int(self._hot_n),
+                spill_overlap_ratio=sp.overlap_ratio,
+                spill_bytes_per_state=round(sp.bytes_comp / max(nv, 1), 2),
+            )
         res = CheckerResult(
             distinct_states=nv,
             diameter=len(level_sizes),
@@ -323,7 +671,6 @@ class DeviceChecker:
         if gid is not None:
             res.violation_gid = gid
             res.trace, res.trace_actions = build_trace(
-                self.model, self._parent, self._lane, gid,
-                len(level_sizes) + 2,
+                self.model, *self.merged_logs(), gid, len(level_sizes) + 2,
             )
         return res

@@ -36,6 +36,7 @@ SOURCES = {
     "selftest": "selftest.cu",
     "key_plane": "key_plane.cu",
     "member_block": "member.cu",
+    "sieve_mask": "sieve_mask.cu",
 }
 
 P = ctypes.c_void_p
@@ -55,6 +56,9 @@ _SIGNATURES = {
             P, P, P, P, P, P, P, P, P, I64, ctypes.c_uint32, ctypes.c_int,
             ctypes.c_int, P,
         ),
+    },
+    "sieve_mask": {
+        "ptt_sieve_mask": (P, P, P, P, P, P, I64, ctypes.c_int, P),
     },
 }
 

@@ -1,6 +1,7 @@
-"""The key-plane and membership-probe kernels and the tiled flush — the
-counterpart of ``pulsar_tlaplus_tpu/ops/tiles.py`` (``key_plane``,
-``member_block``, ``flush_acc_tiles``).
+"""The key-plane, membership-probe and sieve-mask kernels, the tiled
+flush and the tiled cold extract — the counterpart of
+``pulsar_tlaplus_tpu/ops/tiles.py`` (``key_plane``, ``member_block``,
+``flush_acc_tiles``, ``sieve_mask_planes``, ``extract_cold_tiles``).
 
 Each kernel has a wrapper and a plain PyTorch version beside it.  The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -15,6 +16,11 @@ plain ``probe_insert`` in chunks of ``max(nq/4, MIN_STAGE)`` lanes.
 Chunk order is lane order and bids use original lane ids, so equal keys
 resolve min-lane-wins and ``is_new`` equals the JAX package's flush bit
 for bit.
+
+The tiered store's cold extract is the tiled one too: the sieve-mask
+kernel (K3) masks the table planes in place and the masked planes are
+sorted directly in unsigned lexicographic column order, with no
+compaction before the sort.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.ops import fpset
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
-from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL
+from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
 
 # probe rounds one membership pass resolves (>= the dense schedule, so
 # steady-state flushes resolve in one pass)
@@ -193,3 +199,80 @@ def flush_acc_tiles(tcols, kcols, n_acc: int, fpm: torch.Tensor):
     n_new = int(is_new.sum())
     fpm = fpset.fpm_update(fpm, rounds, n_failed, int(valid.sum()))
     return tcols, n_new, is_new, fpm
+
+
+# ------------------------------------------------------ K3: sieve mask
+
+
+def sieve_mask_planes_plain(tcols, gen: torch.Tensor, cold: torch.Tensor):
+    """The sieve's masking plane in plain PyTorch."""
+    masked = tuple(torch.where(cold, c, SENTINEL) for c in tcols)
+    holed = tuple(torch.where(cold, SENTINEL, c) for c in tcols)
+    gen2 = torch.where(cold, 0, gen)
+    return masked, holed, gen2
+
+
+def sieve_mask_planes(tcols, gen: torch.Tensor, cold: torch.Tensor):
+    """The sieve's masking plane over the ``cap + 1`` table slots:
+    ``(masked cols, holed cols, gen')`` with ``masked = cold ? key :
+    SENTINEL``, ``holed = cold ? SENTINEL : key`` and ``gen' = cold ? 0
+    : gen`` (K int32 columns, int32 ``gen``, bool ``cold``)."""
+    if all(t.device.type == "cpu" for t in (*tcols, gen, cold)):
+        return sieve_mask_planes_plain(tcols, gen, cold)
+    dev = _on_card("sieve_mask_planes", (*tcols, gen, cold))
+    k, n = len(tcols), gen.shape[0]
+    if k not in (2, 3):
+        raise ValueError(f"sieve_mask_planes: K must be 2 or 3 (got {k})")
+    for t in tcols:
+        _expect("sieve_mask_planes", t, torch.int32, (n,))
+    _expect("sieve_mask_planes", gen, torch.int32, (n,))
+    _expect("sieve_mask_planes", cold, torch.bool, (n,))
+    # planes 0..K-1 masked, K..2K-1 holed, 2K the cleared generations
+    out = torch.empty((2 * k + 1, n), dtype=torch.int32, device=dev)
+    if n:
+        t2 = kernels.ptr(tcols[2]) if k == 3 else None
+        with torch.cuda.device(dev):
+            kernels.launch(
+                "sieve_mask", "ptt_sieve_mask", kernels.ptr(tcols[0]),
+                kernels.ptr(tcols[1]), t2, kernels.ptr(gen),
+                kernels.ptr(cold), kernels.ptr(out), n, k,
+                kernels.stream(dev),
+            )
+    return (tuple(out[:k].unbind(0)), tuple(out[k: 2 * k].unbind(0)),
+            out[2 * k])
+
+
+def _key64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose signed order is the unsigned order of the int32
+    bit-pattern pairs ``(a, b)``: the high word biased by 2^31."""
+    return ((u32(a) - (1 << 31)) << 32) | u32(b)
+
+
+def sort_cols(cols):
+    """Sort K = 2 or 3 int32 key columns together in unsigned
+    lexicographic column order (SENTINEL = 0xFFFFFFFF sorts last):
+    one int64 sort of the first two columns for K = 2; for K = 3 a
+    sort of columns 1-2, then a stable sort of column 0."""
+    if len(cols) == 2:
+        order = torch.sort(_key64(cols[0], cols[1])).indices
+    else:
+        order = torch.sort(_key64(cols[1], cols[2])).indices
+        order = order[torch.sort(u32(cols[0][order]), stable=True).indices]
+    return tuple(c[order] for c in cols)
+
+
+def extract_cold_tiles(tcols, gen: torch.Tensor, cutoff: int):
+    """Select the occupied slots with ``1 <= gen <= cutoff``, mask them
+    out of the table, and sort their keys.  Returns ``(holed cols,
+    gen', sorted cols, n_evicted)``: the first ``n_evicted`` lanes of
+    the full-width sorted columns are the evicted keys in unsigned
+    lexicographic order, SENTINEL padding after.  The holed table must
+    be rehashed before it serves lookups again (probe chains break
+    across holes)."""
+    cap = tcols[0].shape[0] - 1
+    lane = torch.arange(cap + 1, device=gen.device)
+    occ = ~fpset.all_sentinel(tcols) & (lane < cap)
+    cold = occ & (gen >= 1) & (gen <= cutoff)
+    n_ev = int(cold.sum())
+    masked, holed, gen2 = sieve_mask_planes(tcols, gen, cold)
+    return holed, gen2, sort_cols(masked), n_ev

@@ -7,11 +7,16 @@ is not installed:
 
 Tolerance: exact equality (integer work)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
+    HBM_HEADROOM,
+    DeviceChecker,
+)
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec, from_jax_arrays
@@ -74,6 +79,46 @@ def test_member_block_kernel(card, K, rounds):
     )
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("K,cap1", [(2, (1 << 20) + 1), (3, (1 << 20) + 1),
+                                   (2, 4097), (3, 12_345)])
+def test_sieve_mask_kernel(card, K, cap1):
+    """K3 at odd slot counts: all 2K + 1 planes equal the plain
+    version's."""
+    rng = np.random.default_rng(K * 7 + cap1)
+    tcols = from_jax_arrays(*(_rand_u32(rng, cap1) for _ in range(K)))
+    gen, cold = from_jax_arrays(
+        rng.integers(0, 7, cap1).astype(np.int32), rng.random(cap1) < 0.4
+    )
+    want = tiles.sieve_mask_planes(tcols, gen, cold)
+    got = tiles.sieve_mask_planes(
+        tuple(t.to(card) for t in tcols), gen.to(card), cold.to(card)
+    )
+    for g, w in zip(got[0] + got[1] + (got[2],),
+                    want[0] + want[1] + (want[2],)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_tiered_engine_on_card_equals_cpu(card):
+    """The 253,361-state config under a budget that forces eviction: the
+    CPU run's level sizes and merged rows and logs."""
+    m = CompactionModel(dataclasses.replace(
+        pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
+    ))
+    kw = dict(invariants=(), sub_batch=4096, visited_cap=1 << 12)
+    p = DeviceChecker(m, device="cpu", hbm_budget="1T", **kw)
+    kw["hbm_budget"] = int(p._device_bytes_est(p.TCAP0, p.WCAP0, p.WCAP0)
+                           / (1.0 - HBM_HEADROOM)) + 4096
+    a = DeviceChecker(m, device="cpu", **kw)
+    b = DeviceChecker(m, device=card, **kw)
+    ra, rb = a.run(), b.run()
+    assert (rb.distinct_states, rb.diameter) == (253361, 23)
+    assert rb.level_sizes == ra.level_sizes
+    assert b.last_stats["spill_evictions"] >= 1
+    assert np.array_equal(b.merged_rows(), a.merged_rows())
+    for x, y in zip(b.merged_logs(), a.merged_logs()):
+        assert np.array_equal(x, y)
 
 
 def test_engine_on_card_equals_cpu(card):
