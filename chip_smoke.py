@@ -4,8 +4,10 @@
 
 Builds the port's CUDA kernels from this checkout, holds each against
 its plain PyTorch version on the card (exact equality: integer work),
-times both, then drives the port's two paths, each with the kernels'
-launch counters zeroed before and read after:
+times both (each kernel through its wrapper, ``ms``, and as raw
+launches on preallocated outputs, ``device_ms``), then drives the
+port's two paths, each with the kernels' launch counters zeroed before
+and read after:
 
 - the main path (phases 3-6): ``cli check`` of the shipped compaction
   cfg, the checker on the 253,361-state config, both published
@@ -145,7 +147,8 @@ def main() -> int:
         if err:
             raise AssertionError(f"K0 computed {o.tolist()}")
         record["selftest"] = dict(
-            ms=ms, plain_ms=_time_ms(torch, lambda: x + 1, 200),
+            ms=ms, device_ms=ms,
+            plain_ms=_time_ms(torch, lambda: x + 1, 200),
             max_abs_err=err, bound=_bound(64, 8),
         )
         regs = {
@@ -165,14 +168,16 @@ def main() -> int:
     def k2():
         notes = []
         # the main path's shapes: the shipped cfg's widest window (3645
-        # rows x A=7, exact W=2) and a scaled-config window (2^16 rows
-        # x A=34, W=20, 64-bit fingerprints); ragged sizes and 96-bit
-        # fingerprints for coverage
+        # rows x A=7, exact W=2: the unstaged route) and a scaled-config
+        # window (2^16 rows x A=34, W=20, 64-bit fingerprints); ragged
+        # sizes, 96-bit fingerprints and the runtime-width route (exact
+        # W=3, hashed W=7) for coverage
         cases = [
             (KeySpec(42, 2), 3645 * 7),
             (KeySpec(618, 20, 64), (1 << 16) * 34),
             (KeySpec(618, 20, 96), 1_000_003),
             (KeySpec(70, 3), 99_991),
+            (KeySpec(224, 7, 64), 99_989),
         ]
         worst = 0
         for ks, nc in cases:
@@ -198,9 +203,14 @@ def main() -> int:
         # murmur3: ~5 ops a word plus ~6 a word and column, fmix ~13 a
         # column
         ops = nc * (ks.W * (5 + 6 * ks.ncols) + 13 * ks.ncols)
+        # device_ms: raw launches on a preallocated output (no wrapper
+        # checks, no allocation)
+        out = torch.empty((ks.ncols, nc), dtype=torch.int32, device=dev)
+        args = tiles.key_plane_args(ks, packed, valid, out)
         record["key_plane"] = dict(
             ms=_time_ms(torch, lambda: tiles.key_plane(ks, packed, valid),
                         50),
+            device_ms=_time_ms(torch, lambda: kernels.launch(*args), 100),
             plain_ms=_time_ms(
                 torch, lambda: tiles.key_plane_plain(ks, packed, valid), 5
             ),
@@ -250,37 +260,62 @@ def main() -> int:
             err = max(err, int((g.int() - w.int()).abs().max()))
         # the bytes this data needs: keys, valid, both flags, and K
         # table words per probed slot (a lane stops at its key or at
-        # the first empty slot)
+        # the first empty slot); and the distinct 32-byte sectors of
+        # the table those probes touch, per lane: slot s lies in sector
+        # s >> 2 of the slot-major table, and in sector s >> 3 of each
+        # of K separate columns (probe offsets only grow, so a lane's
+        # sectors change or repeat, never return)
         h = fpset.slot_hash(kcols)
         probes = torch.zeros(nq, dtype=torch.int64, device=dev)
+        sectors = torch.zeros(nq, dtype=torch.int64, device=dev)
+        col_sectors = torch.zeros(nq, dtype=torch.int64, device=dev)
+        prev = torch.full((nq,), -1, dtype=torch.int64, device=dev)
+        prev_col = prev.clone()
         live = valid.clone()
         for r in range(tiles.TILE_R):
             s = (h + (r * (r + 1) >> 1)) & (cap - 1)
             sv = tuple(c[s] for c in tcols)
             probes += live.long()
+            sectors += (live & (s >> 2 != prev)).long()
+            col_sectors += (live & (s >> 3 != prev_col)).long() * k
+            prev = torch.where(live, s >> 2, prev)
+            prev_col = torch.where(live, s >> 3, prev_col)
             stop = fpset.all_sentinel(sv) | (
                 (sv[0] == kcols[0]) & (sv[1] == kcols[1])
             )
             live = live & ~stop
         n_probes = int(probes.sum())
+        n_sectors, n_col_sectors = int(sectors.sum()), int(col_sectors.sum())
         nbytes = nq * (k * 4 + 1 + 2) + n_probes * k * 4
         # slot hash ~10 ops a column, ~2 + 5K a probe
         ops = nq * 10 * k + n_probes * (2 + 5 * k)
+        flags = torch.empty((2, nq), dtype=torch.bool, device=dev)
+        args = tiles.member_block_args(tcols, kcols, valid, flags[0],
+                                       flags[1], tiles.TILE_R)
         record["member_block"] = dict(
             ms=_time_ms(
                 torch, lambda: tiles.member_block(tcols, kcols, valid), 50
             ),
+            device_ms=_time_ms(torch, lambda: kernels.launch(*args), 100),
             plain_ms=_time_ms(
                 torch,
                 lambda: tiles.member_block_plain(tcols, kcols, valid), 5,
             ),
             max_abs_err=err, bytes=nbytes, bound=_bound(nbytes, ops),
+            sectors=n_sectors,
+            # the random sectors alone at the memory rate, and the
+            # streamed lane bytes beside them
+            sector_floor_ms=(n_sectors * 32 + nq * (k * 4 + 3))
+            / HBM_BYTES_PER_S * 1e3,
         )
         return (
-            f"equal at cap=2^26 (16M keys), nq={nq}: "
+            f"equal at cap=2^26 (16M keys, slot-major), nq={nq}: "
             f"{int(got[0].sum())} members, {int((~got[1]).sum())} "
             f"unresolved, {n_probes / max(int(valid.sum()), 1):.3f} "
-            f"probes/valid lane; {record['member_block']}"
+            f"probes/valid lane, {n_probes} probes = {n_probes * k * 4} B "
+            f"of table words in {n_sectors} random 32-byte sectors "
+            f"({n_col_sectors} as K separate columns); "
+            f"{record['member_block']}"
         )
 
     _phase("2b K1 member_block vs plain", k1, failures)
@@ -293,7 +328,9 @@ def main() -> int:
         n = cap + 1
         empty = torch.rand(n, device=dev, generator=gen) < 0.5
         empty[cap] = True
-        tcols = tuple(torch.where(empty, -1, rand_i32(n)) for _ in range(k))
+        tcols = fpset.slot_major(
+            tuple(torch.where(empty, -1, rand_i32(n)) for _ in range(k))
+        )
         g = torch.randint(0, 7, (n,), dtype=torch.int32, device=dev,
                           generator=gen)
         g = torch.where(empty, 0, g)
@@ -313,10 +350,13 @@ def main() -> int:
         # out; one select per output word
         nbytes = n * (4 * k + 4 + 1) + n * (8 * k + 4)
         ops = n * (2 * k + 1)
+        out = torch.empty((2 * k + 1, n), dtype=torch.int32, device=dev)
+        args = tiles.sieve_mask_args(tcols, g, cold, out)
         record["sieve_mask"] = dict(
             ms=_time_ms(
                 torch, lambda: tiles.sieve_mask_planes(tcols, g, cold), 50
             ),
+            device_ms=_time_ms(torch, lambda: kernels.launch(*args), 50),
             plain_ms=_time_ms(
                 torch,
                 lambda: tiles.sieve_mask_planes_plain(tcols, g, cold), 10,
@@ -324,7 +364,8 @@ def main() -> int:
             max_abs_err=err, bytes=nbytes, bound=_bound(nbytes, ops),
         )
         return (
-            f"equal on all {2 * k + 1} planes at {n} slots, K={k}, "
+            f"equal on all {2 * k + 1} planes at {n} slots (slot-major "
+            f"table), K={k}, "
             f"{int(cold.sum())} cold; {record['sieve_mask']}"
         )
 
@@ -500,6 +541,15 @@ def main() -> int:
         fills = [e for e in allev if e.key == "aten::fill_"]
         fill_ms = sum(dev_us(e) for e in fills) / 1e3
         n_fill = sum(e.count for e in fills)
+        # the probe's gathers, table writes and bids (their totals over
+        # the run: the model's own index ops are in the first; a table
+        # write's kernel is launched by _index_put_impl_)
+        probe_ops = {
+            key: (sum(dev_us(e) for e in allev if e.key == key) / 1e3,
+                  sum(e.count for e in allev if e.key == key))
+            for key in ("aten::index", "aten::_index_put_impl_",
+                        "aten::scatter_reduce_")
+        }
         syncs = [e for e in allev if e.key == "aten::_local_scalar_dense"]
         n_sync = sum(e.count for e in syncs)
         sync_s = sum(e.self_cpu_time_total for e in syncs) / 1e6
@@ -518,7 +568,10 @@ def main() -> int:
             f"device time); K3 {k3 / 1e6:.4f}s{spill}; {n_sync} host syncs "
             f"(.item) holding "
             f"{sync_s:.3f}s of host time; aten::fill_ {fill_ms:.1f}ms "
-            f"x{n_fill}; device time by op: "
+            f"x{n_fill}; gathers/scatters by op: "
+            + "; ".join(f"{key} {ms:.1f}ms x{n}"
+                        for key, (ms, n) in probe_ops.items())
+            + "; device time by op: "
             + "; ".join(
                 f"{e.key} {dev_us(e) / 1e3:.1f}ms x{e.count}"
                 for e in top_ops
@@ -711,6 +764,7 @@ def main() -> int:
             launches=path_launches[name],
             max_abs_err=rec["max_abs_err"],
             ms=rec["ms"],
+            device_ms=rec["device_ms"],
             plain_ms=rec["plain_ms"],
             bound_ms=rec["bound"][0],
             bound_by=rec["bound"][1],

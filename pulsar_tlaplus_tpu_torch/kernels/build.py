@@ -53,12 +53,12 @@ _SIGNATURES = {
     },
     "member_block": {
         "ptt_member_block": (
-            P, P, P, P, P, P, P, P, P, I64, ctypes.c_uint32, ctypes.c_int,
+            P, P, P, P, P, P, P, I64, ctypes.c_uint32, ctypes.c_int,
             ctypes.c_int, P,
         ),
     },
     "sieve_mask": {
-        "ptt_sieve_mask": (P, P, P, P, P, P, I64, ctypes.c_int, P),
+        "ptt_sieve_mask": (P, P, P, P, I64, ctypes.c_int, P),
     },
 }
 

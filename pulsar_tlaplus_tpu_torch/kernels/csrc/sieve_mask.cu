@@ -3,8 +3,8 @@
 // Replaces: pulsar_tlaplus_tpu/ops/tiles.py:sieve_mask_planes
 // (impl="pallas"; plain twin: the three jnp.wheres of impl="tile").
 //
-// Over the cap + 1 slots of the visited table, with cold[i] the
-// eviction mask of slot i:
+// Over the cap + 1 slots of the slot-major visited table tab[n][K],
+// with cold[i] the eviction mask of slot i:
 //   masked_c[i] = cold ? t_c[i] : SENTINEL   (the run the sort sees)
 //   holed_c[i]  = cold ? SENTINEL : t_c[i]   (the table after eviction)
 //   gen'[i]     = cold ? 0 : gen[i]
@@ -15,7 +15,8 @@
 // Bound on the card: bytes.  Per slot it reads 4K + 4 + 1 bytes and
 // writes 8K + 4 (33 B at K = 2) and does a handful of selects, far
 // under the ALU rate.  Design: consecutive threads take consecutive
-// slots, so every load and every store of a warp is one coalesced
+// slots, so a warp's table loads are one contiguous span (one uint2 a
+// slot at K = 2, three words at K = 3) and every store is one coalesced
 // 128-byte line per plane (32 bytes for the cold bytes); the 2K + 1
 // outputs are planes of one [2K + 1, n] buffer.
 #include <cstdint>
@@ -26,9 +27,7 @@ namespace {
 constexpr uint32_t kSent = 0xFFFFFFFFu;
 
 template <int K>
-__global__ void sieve_mask_kernel(const uint32_t* __restrict__ t0,
-                                  const uint32_t* __restrict__ t1,
-                                  const uint32_t* __restrict__ t2,
+__global__ void sieve_mask_kernel(const uint32_t* __restrict__ tab,
                                   const int32_t* __restrict__ gen,
                                   const uint8_t* __restrict__ cold,
                                   uint32_t* __restrict__ out, int64_t n) {
@@ -37,9 +36,14 @@ __global__ void sieve_mask_kernel(const uint32_t* __restrict__ t0,
        i += stride) {
     const bool c = cold[i] != 0;
     uint32_t v[K];
-    v[0] = t0[i];
-    v[1] = t1[i];
-    if constexpr (K == 3) v[2] = t2[i];
+    if constexpr (K == 2) {
+      const uint2 s = reinterpret_cast<const uint2*>(tab)[i];
+      v[0] = s.x;
+      v[1] = s.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = tab[K * i + j];
+    }
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       out[j * n + i] = c ? v[j] : kSent;
@@ -51,11 +55,10 @@ __global__ void sieve_mask_kernel(const uint32_t* __restrict__ t0,
 
 }  // namespace
 
-// t*: u32[n] table columns (t2 null when k == 2); gen: i32[n];
-// cold: bool[n]; out: u32[2k + 1, n] (masked planes, holed planes,
-// cleared generations).
-extern "C" int ptt_sieve_mask(const void* t0, const void* t1,
-                              const void* t2, const void* gen,
+// tab: u32[n][k] slot-major table (8-byte aligned when k == 2);
+// gen: i32[n]; cold: bool[n]; out: u32[2k + 1, n] (masked planes,
+// holed planes, cleared generations).
+extern "C" int ptt_sieve_mask(const void* tab, const void* gen,
                               const void* cold, void* out, int64_t n,
                               int k, void* stream) {
   if (n > 0) {
@@ -64,12 +67,12 @@ extern "C" int ptt_sieve_mask(const void* t0, const void* t1,
     cudaStream_t s = (cudaStream_t)stream;
     if (k == 3) {
       sieve_mask_kernel<3><<<(unsigned)blocks, 256, 0, s>>>(
-          (const uint32_t*)t0, (const uint32_t*)t1, (const uint32_t*)t2,
-          (const int32_t*)gen, (const uint8_t*)cold, (uint32_t*)out, n);
+          (const uint32_t*)tab, (const int32_t*)gen, (const uint8_t*)cold,
+          (uint32_t*)out, n);
     } else {
       sieve_mask_kernel<2><<<(unsigned)blocks, 256, 0, s>>>(
-          (const uint32_t*)t0, (const uint32_t*)t1, (const uint32_t*)t2,
-          (const int32_t*)gen, (const uint8_t*)cold, (uint32_t*)out, n);
+          (const uint32_t*)tab, (const int32_t*)gen, (const uint8_t*)cold,
+          (uint32_t*)out, n);
     }
   }
   return (int)cudaGetLastError();

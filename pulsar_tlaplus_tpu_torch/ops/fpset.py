@@ -4,12 +4,18 @@ counterpart of ``pulsar_tlaplus_tpu/ops/fpset.py`` (``slot_hash``,
 ``fpm_update``).
 
 The table is ``K`` int32 key columns of ``cap + 1`` slots (``cap`` a power
-of two); the all-SENTINEL tuple marks an empty slot and slot ``cap`` is a
-write-only trash row that parked lanes scatter into, so every scatter is
-dense.  Probe round ``r`` looks at ``(h + r(r+1)/2) & (cap - 1)``, which
-visits every slot.  Equal keys resolve to the lowest lane id by an
-``amin`` scatter of lane ids (order-independent), which is what fixes the
-discovery order.  Engines keep the load at or under 1/2.
+of two), laid out slot-major: one ``[cap + 1, K]`` buffer whose K column
+views (stride K) are what every op here takes, so a slot's key words
+sit together and the membership kernel reads a slot in one sector.
+Plain ops gather and ``index_put_`` through the views, which writes
+through to the buffer; nothing may ``.contiguous()`` or ``.clone()`` a
+column, which would fork the table.  The all-SENTINEL tuple marks an
+empty slot and slot ``cap`` is a write-only trash row that parked lanes
+scatter into, so every scatter is dense.  Probe round ``r`` looks at
+``(h + r(r+1)/2) & (cap - 1)``, which visits every slot.  Equal keys
+resolve to the lowest lane id by an ``amin`` scatter of lane ids
+(order-independent), which is what fixes the discovery order.  Engines
+keep the load at or under 1/2.
 
 Unlike the JAX package, the table columns are updated in place: the
 batched loop owns them between flushes, and a copy per round would double
@@ -68,13 +74,42 @@ def slot_hash(kcols) -> torch.Tensor:
 
 
 def empty_cols(cap: int, ncols: int, device) -> Tuple[torch.Tensor, ...]:
-    """K SENTINEL-filled int32 columns of ``cap + 1`` slots."""
+    """A SENTINEL-filled slot-major table: the K column views of one
+    int32 ``[cap + 1, K]`` buffer."""
     if cap & (cap - 1):
         raise ValueError(f"table capacity must be a power of two: {cap}")
-    return tuple(
-        torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=device)
-        for _ in range(ncols)
-    )
+    buf = torch.full((cap + 1, ncols), SENTINEL, dtype=torch.int32,
+                     device=device)
+    return tuple(buf.unbind(1))
+
+
+def slot_major(cols, device=None) -> Tuple[torch.Tensor, ...]:
+    """A fresh slot-major copy of any K equal-length columns (on
+    ``device``, default theirs) — how a table moves between devices."""
+    return tuple(torch.stack(cols, dim=1).to(device).unbind(1))
+
+
+def slot_major_base(tcols) -> torch.Tensor:
+    """The first column view of a slot-major table, whose data pointer
+    is the ``[cap + 1, K]`` buffer a kernel reads: raises ValueError
+    unless ``tcols`` are K int32 views of one storage with stride
+    ``(K,)`` at consecutive offsets (what ``empty_cols`` makes), 8-byte
+    aligned for K = 2 (one ``uint2`` load a slot)."""
+    k, t0 = len(tcols), tcols[0]
+    stor = t0.untyped_storage().data_ptr()
+    for c, t in enumerate(tcols):
+        if (t.dtype != torch.int32 or t.dim() != 1 or t.shape != t0.shape
+                or t.stride() != (k,)
+                or t.untyped_storage().data_ptr() != stor
+                or t.storage_offset() != t0.storage_offset() + c):
+            raise ValueError(
+                "visited table is not slot-major: want the K column views "
+                "of one int32 [cap + 1, K] buffer (fpset.empty_cols / "
+                "fpset.slot_major)"
+            )
+    if k == 2 and t0.data_ptr() % 8:
+        raise ValueError("slot-major K = 2 table is not 8-byte aligned")
+    return t0
 
 
 def all_sentinel(cols) -> torch.Tensor:

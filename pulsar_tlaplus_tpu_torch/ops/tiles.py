@@ -7,6 +7,10 @@ Each kernel has a wrapper and a plain PyTorch version beside it.  The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the hand-written kernel (``kernels/csrc``) or
 raises.  The kernels are built on first use by ``kernels/build.py``.
+K1 and K3 read the visited table through one pointer, so on the card it
+must be slot-major (``fpset.empty_cols``); the ``*_args`` helpers check
+a kernel's inputs and return its launch arguments, which also lets a
+caller time raw launches on preallocated outputs.
 
 In the port the tiled flush IS the flush: the membership prefilter (K1)
 settles every lane whose key is already in the table or whose probe
@@ -39,17 +43,22 @@ from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
 TILE_R = 8
 
 
-def _on_card(name: str, tensors) -> torch.device:
-    """The CUDA device all ``tensors`` share, for a kernel launch; a
-    CPU tensor in the mix, or any other device, raises."""
+def _on_card(name: str, tensors, table=()) -> torch.device:
+    """The CUDA device all ``tensors`` (and the visited-table columns
+    ``table``) share, for a kernel launch; a CPU tensor in the mix, or
+    any other device, raises, as does a non-contiguous tensor or a
+    table that is not slot-major (``fpset.slot_major_base``)."""
     dev = tensors[0].device
-    for t in tensors:
+    for t in (*tensors, *table):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if table:
+        fpset.slot_major_base(table)
     return dev
 
 
@@ -72,6 +81,24 @@ def key_plane_plain(keyspec, packedf: torch.Tensor,
     )
 
 
+def key_plane_args(keyspec, packedf: torch.Tensor, vflat: torch.Tensor,
+                   out: torch.Tensor) -> tuple:
+    """Check the card inputs of K2 and return the arguments of its
+    ``kernels.launch`` into ``out`` (int32 ``[K, nc]``)."""
+    dev = _on_card("key_plane", (packedf, vflat, out))
+    nc, w = packedf.shape
+    k = keyspec.ncols
+    _expect("key_plane", packedf, torch.int32, (nc, keyspec.W))
+    _expect("key_plane", vflat, torch.bool, (nc,))
+    _expect("key_plane", out, torch.int32, (k, nc))
+    if packedf.data_ptr() % 16:
+        raise ValueError("key_plane: packed rows must be 16-byte aligned "
+                         "(the tiles are bulk-copied)")
+    return ("key_plane", "ptt_key_plane", kernels.ptr(packedf),
+            kernels.ptr(vflat), kernels.ptr(out), nc, w, k,
+            int(keyspec.exact), kernels.stream(dev))
+
+
 def key_plane(keyspec, packedf: torch.Tensor,
               vflat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Key columns of one expand window's flattened successor matrix:
@@ -79,20 +106,13 @@ def key_plane(keyspec, packedf: torch.Tensor,
     ``[nc]`` columns, SENTINEL where invalid."""
     if packedf.device.type == "cpu" and vflat.device.type == "cpu":
         return key_plane_plain(keyspec, packedf, vflat)
-    dev = _on_card("key_plane", (packedf, vflat))
-    nc, w = packedf.shape
-    _expect("key_plane", packedf, torch.int32, (nc, keyspec.W))
-    _expect("key_plane", vflat, torch.bool, (nc,))
-    k = keyspec.ncols
-    out = torch.empty((k, nc), dtype=torch.int32, device=dev)
-    if nc:
-        with torch.cuda.device(dev):
-            kernels.launch(
-                "key_plane", "ptt_key_plane", kernels.ptr(packedf),
-                kernels.ptr(vflat), kernels.ptr(out), nc, w, k,
-                int(keyspec.exact), kernels.stream(dev),
-            )
-    return tuple(out[c] for c in range(k))
+    out = torch.empty((keyspec.ncols, packedf.shape[0]), dtype=torch.int32,
+                      device=packedf.device)
+    args = key_plane_args(keyspec, packedf, vflat, out)
+    if packedf.shape[0]:
+        with torch.cuda.device(out.device):
+            kernels.launch(*args)
+    return tuple(out.unbind(0))
 
 
 # ------------------------------------------------ K1: membership probe
@@ -121,15 +141,13 @@ def member_block_plain(tcols, kcols, valid: torch.Tensor,
     return member & valid, resolved | ~valid
 
 
-def member_block(tcols, kcols, valid: torch.Tensor, rounds: int = TILE_R):
-    """Membership prefilter over a batch: ``(member, resolved)`` bool
-    ``[nq]`` — member = the key sits in the table before the first empty
-    slot of its probe sequence; resolved = member, or an empty slot came
-    first, within ``rounds`` probes.  Invalid lanes read as resolved
-    non-members."""
-    if all(t.device.type == "cpu" for t in (*tcols, *kcols, valid)):
-        return member_block_plain(tcols, kcols, valid, rounds)
-    dev = _on_card("member_block", (*tcols, *kcols, valid))
+def member_block_args(tcols, kcols, valid: torch.Tensor, member, resolved,
+                      rounds: int = TILE_R) -> tuple:
+    """Check the card inputs of K1 (a slot-major table) and return the
+    arguments of its ``kernels.launch`` into the bool ``[nq]`` flags
+    ``member`` and ``resolved``."""
+    dev = _on_card("member_block", (*kcols, valid, member, resolved),
+                   table=tcols)
     k, nq, cap1 = len(kcols), kcols[0].shape[0], tcols[0].shape[0]
     cap = cap1 - 1
     if k not in (2, 3) or len(tcols) != k:
@@ -140,21 +158,32 @@ def member_block(tcols, kcols, valid: torch.Tensor, rounds: int = TILE_R):
         _expect("member_block", t, torch.int32, (cap1,))
     for t in kcols:
         _expect("member_block", t, torch.int32, (nq,))
-    _expect("member_block", valid, torch.bool, (nq,))
-    member = torch.empty((nq,), dtype=torch.bool, device=dev)
-    resolved = torch.empty((nq,), dtype=torch.bool, device=dev)
+    for t in (valid, member, resolved):
+        _expect("member_block", t, torch.bool, (nq,))
+        if t.data_ptr() % 4:  # four lanes' flags a uchar4
+            raise ValueError("member_block: flags must be 4-byte aligned")
+    q2 = kernels.ptr(kcols[2]) if k == 3 else None
+    return ("member_block", "ptt_member_block", kernels.ptr(tcols[0]),
+            kernels.ptr(kcols[0]), kernels.ptr(kcols[1]), q2,
+            kernels.ptr(valid), kernels.ptr(member), kernels.ptr(resolved),
+            nq, cap - 1, k, rounds, kernels.stream(dev))
+
+
+def member_block(tcols, kcols, valid: torch.Tensor, rounds: int = TILE_R):
+    """Membership prefilter over a batch: ``(member, resolved)`` bool
+    ``[nq]`` — member = the key sits in the table before the first empty
+    slot of its probe sequence; resolved = member, or an empty slot came
+    first, within ``rounds`` probes.  Invalid lanes read as resolved
+    non-members.  On the card the table must be slot-major."""
+    if all(t.device.type == "cpu" for t in (*tcols, *kcols, valid)):
+        return member_block_plain(tcols, kcols, valid, rounds)
+    nq = kcols[0].shape[0]
+    member = torch.empty((nq,), dtype=torch.bool, device=valid.device)
+    resolved = torch.empty_like(member)
+    args = member_block_args(tcols, kcols, valid, member, resolved, rounds)
     if nq:
-        t2 = kernels.ptr(tcols[2]) if k == 3 else None
-        q2 = kernels.ptr(kcols[2]) if k == 3 else None
-        with torch.cuda.device(dev):
-            kernels.launch(
-                "member_block", "ptt_member_block",
-                kernels.ptr(tcols[0]), kernels.ptr(tcols[1]), t2,
-                kernels.ptr(kcols[0]), kernels.ptr(kcols[1]), q2,
-                kernels.ptr(valid), kernels.ptr(member),
-                kernels.ptr(resolved), nq, cap - 1, k, rounds,
-                kernels.stream(dev),
-            )
+        with torch.cuda.device(member.device):
+            kernels.launch(*args)
     return member, resolved
 
 
@@ -212,14 +241,12 @@ def sieve_mask_planes_plain(tcols, gen: torch.Tensor, cold: torch.Tensor):
     return masked, holed, gen2
 
 
-def sieve_mask_planes(tcols, gen: torch.Tensor, cold: torch.Tensor):
-    """The sieve's masking plane over the ``cap + 1`` table slots:
-    ``(masked cols, holed cols, gen')`` with ``masked = cold ? key :
-    SENTINEL``, ``holed = cold ? SENTINEL : key`` and ``gen' = cold ? 0
-    : gen`` (K int32 columns, int32 ``gen``, bool ``cold``)."""
-    if all(t.device.type == "cpu" for t in (*tcols, gen, cold)):
-        return sieve_mask_planes_plain(tcols, gen, cold)
-    dev = _on_card("sieve_mask_planes", (*tcols, gen, cold))
+def sieve_mask_args(tcols, gen: torch.Tensor, cold: torch.Tensor,
+                    out: torch.Tensor) -> tuple:
+    """Check the card inputs of K3 (a slot-major table) and return the
+    arguments of its ``kernels.launch`` into ``out`` (int32
+    ``[2K + 1, n]``)."""
+    dev = _on_card("sieve_mask_planes", (gen, cold, out), table=tcols)
     k, n = len(tcols), gen.shape[0]
     if k not in (2, 3):
         raise ValueError(f"sieve_mask_planes: K must be 2 or 3 (got {k})")
@@ -227,17 +254,28 @@ def sieve_mask_planes(tcols, gen: torch.Tensor, cold: torch.Tensor):
         _expect("sieve_mask_planes", t, torch.int32, (n,))
     _expect("sieve_mask_planes", gen, torch.int32, (n,))
     _expect("sieve_mask_planes", cold, torch.bool, (n,))
+    _expect("sieve_mask_planes", out, torch.int32, (2 * k + 1, n))
+    return ("sieve_mask", "ptt_sieve_mask", kernels.ptr(tcols[0]),
+            kernels.ptr(gen), kernels.ptr(cold), kernels.ptr(out), n, k,
+            kernels.stream(dev))
+
+
+def sieve_mask_planes(tcols, gen: torch.Tensor, cold: torch.Tensor):
+    """The sieve's masking plane over the ``cap + 1`` table slots:
+    ``(masked cols, holed cols, gen')`` with ``masked = cold ? key :
+    SENTINEL``, ``holed = cold ? SENTINEL : key`` and ``gen' = cold ? 0
+    : gen`` (K int32 columns, int32 ``gen``, bool ``cold``).  On the
+    card the table must be slot-major; the outputs are planes of one
+    buffer."""
+    if all(t.device.type == "cpu" for t in (*tcols, gen, cold)):
+        return sieve_mask_planes_plain(tcols, gen, cold)
+    k, n = len(tcols), gen.shape[0]
     # planes 0..K-1 masked, K..2K-1 holed, 2K the cleared generations
-    out = torch.empty((2 * k + 1, n), dtype=torch.int32, device=dev)
+    out = torch.empty((2 * k + 1, n), dtype=torch.int32, device=gen.device)
+    args = sieve_mask_args(tcols, gen, cold, out)
     if n:
-        t2 = kernels.ptr(tcols[2]) if k == 3 else None
-        with torch.cuda.device(dev):
-            kernels.launch(
-                "sieve_mask", "ptt_sieve_mask", kernels.ptr(tcols[0]),
-                kernels.ptr(tcols[1]), t2, kernels.ptr(gen),
-                kernels.ptr(cold), kernels.ptr(out), n, k,
-                kernels.stream(dev),
-            )
+        with torch.cuda.device(out.device):
+            kernels.launch(*args)
     return (tuple(out[:k].unbind(0)), tuple(out[k: 2 * k].unbind(0)),
             out[2 * k])
 

@@ -39,19 +39,32 @@ def _rand_u32(rng, shape):
 @pytest.mark.parametrize(
     "total_bits,W,fp_bits",
     [(20, 1, None), (42, 2, None), (70, 3, None), (96, 3, 64),
-     (618, 20, 64), (618, 20, 96)],
+     (224, 7, 64), (618, 20, 64), (618, 20, 96)],
 )
 def test_key_plane_kernel(card, total_bits, W, fp_bits):
+    """Every route of K2 (exact W = 2 unstaged, W = 20 staged, the
+    runtime-width staged kernel) with nc below one 256-row tile, not a
+    multiple of it, and at the scaled run's window (2^16 x 34 rows)."""
     ks = KeySpec(total_bits, W, fp_bits)
     rng = np.random.default_rng(W)
-    for nc in (1, 4097, 100_003):
+    for nc in (1, 200, 4097, 100_003, (1 << 16) * 34):
         packed, valid = from_jax_arrays(
-            _rand_u32(rng, (nc, W)), rng.random(nc) < 0.8
+            _rand_u32(rng, (nc, W)), rng.random(nc) < 0.8, device=card
         )
-        want = tiles.key_plane(ks, packed, valid)
-        got = tiles.key_plane(ks, packed.to(card), valid.to(card))
+        want = tiles.key_plane_plain(ks, packed, valid)
+        got = tiles.key_plane(ks, packed, valid)
         for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w)
+            assert torch.equal(g, w)
+
+
+def test_key_plane_rejects_unaligned_rows(card):
+    """The staged route bulk-copies 16-byte aligned tiles: rows that
+    start 28 bytes into a buffer raise."""
+    ks = KeySpec(224, 7, 64)
+    packed = torch.zeros((1001, 7), dtype=torch.int32, device=card)
+    valid = torch.ones((1000,), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        tiles.key_plane(ks, packed[1:], valid)
 
 
 @pytest.mark.parametrize("K,rounds", [(2, 8), (3, 8), (2, 3)])
@@ -74,18 +87,33 @@ def test_member_block_kernel(card, K, rounds):
     valid = torch.as_tensor(rng.random(nq) < 0.9)
     want = tiles.member_block(tcols, kcols, valid, rounds)
     got = tiles.member_block(
-        tuple(t.to(card) for t in tcols), tuple(t.to(card) for t in kcols),
+        fpset.slot_major(tcols, card), tuple(t.to(card) for t in kcols),
         valid.to(card), rounds,
     )
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
 
+def test_kernels_reject_columnar_table(card):
+    """K1 and K3 read the slot-major table through one pointer: K
+    separate columns on the card raise instead of being copied."""
+    tcols = tuple(torch.full((4097,), -1, dtype=torch.int32, device=card)
+                  for _ in range(2))
+    keys = tuple(torch.zeros((64,), dtype=torch.int32, device=card)
+                 for _ in range(2))
+    valid = torch.ones((64,), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="slot-major"):
+        tiles.member_block(tcols, keys, valid)
+    gen = torch.zeros((4097,), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="slot-major"):
+        tiles.sieve_mask_planes(tcols, gen, gen == 1)
+
+
 @pytest.mark.parametrize("K,cap1", [(2, (1 << 20) + 1), (3, (1 << 20) + 1),
                                    (2, 4097), (3, 12_345)])
 def test_sieve_mask_kernel(card, K, cap1):
-    """K3 at odd slot counts: all 2K + 1 planes equal the plain
-    version's."""
+    """K3 at odd slot counts on a slot-major table: all 2K + 1 planes
+    equal the plain version's."""
     rng = np.random.default_rng(K * 7 + cap1)
     tcols = from_jax_arrays(*(_rand_u32(rng, cap1) for _ in range(K)))
     gen, cold = from_jax_arrays(
@@ -93,7 +121,7 @@ def test_sieve_mask_kernel(card, K, cap1):
     )
     want = tiles.sieve_mask_planes(tcols, gen, cold)
     got = tiles.sieve_mask_planes(
-        tuple(t.to(card) for t in tcols), gen.to(card), cold.to(card)
+        fpset.slot_major(tcols, card), gen.to(card), cold.to(card)
     )
     for g, w in zip(got[0] + got[1] + (got[2],),
                     want[0] + want[1] + (want[2],)):

@@ -119,7 +119,7 @@ def test_member_block_matches_jax(cap_log2, K, nq, dup_frac, fill_frac,
         tuple(jnp.asarray(c) for c in kcols),
         jnp.asarray(valid), rounds,
     )
-    tt = from_jax_arrays(*tcols)
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
     tk = from_jax_arrays(*kcols)
     (tv,) = from_jax_arrays(valid)
     gm, gr = tiles.member_block(tt, tk, tv, rounds)
@@ -161,10 +161,11 @@ def test_flush_matches_jax(cap_log2, K, nq, dup_frac, n_acc_frac,
         tuple(jnp.asarray(c) for c in kcols),
         jnp.int32(n_acc), fpm0, probe_impl="pallas",
     )
-    tt = from_jax_arrays(*tcols)
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
     tk = from_jax_arrays(*kcols)
     fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64)
     gt, gn, gflag, gfpm = tiles.flush_acc_tiles(tt, tk, n_acc, fpm)
+    assert fpset.slot_major_base(gt) is tt[0]  # updated in place
     assert gn == int(jn)
     assert np.array_equal(gflag.numpy(), np.asarray(jflag).astype(bool))
     for g, w in zip(gt, jt):
@@ -214,6 +215,72 @@ def test_rehash_keeps_every_key():
         big, keys, torch.ones(600, dtype=torch.bool), rounds=64
     )
     assert member.all() and resolved.all()
+
+
+# ---- the slot-major table ---------------------------------------------
+
+
+def _buffer(tcols):
+    """The ``[cap + 1, K]`` int32 buffer under a table's column views."""
+    buf = torch.empty(0, dtype=torch.int32)
+    buf.set_(tcols[0].untyped_storage())
+    return buf.reshape(tcols[0].shape[0], len(tcols))
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_empty_cols_is_one_slot_major_buffer(K):
+    """``empty_cols`` returns the K column views of one ``[cap + 1, K]``
+    buffer, and ``probe_insert``'s in-place writes land in it."""
+    tcols = fpset.empty_cols(1 << 10, K, "cpu")
+    assert fpset.slot_major_base(tcols) is tcols[0]
+    buf = _buffer(tcols)
+    assert buf.numel() == (1 << 10) * K + K and (buf == -1).all()
+    rng = np.random.default_rng(K)
+    keys = from_jax_arrays(*(_rand_u32(rng, 300) for _ in range(K)))
+    is_new, out, pending, _ = fpset.probe_insert(
+        tcols, keys, torch.ones(300, dtype=torch.bool)
+    )
+    assert out is tcols and is_new.all() and not pending.any()
+    rows = {tuple(r) for r in buf[:-1].tolist()}
+    assert {tuple(r) for r in torch.stack(keys, 1).tolist()} <= rows
+    assert len(rows) == 301  # the keys and the empty tuple
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_slot_major_round_trips(K):
+    """Any K columns (strided views included) come back equal, as a
+    fresh slot-major table the layout check accepts."""
+    rng = np.random.default_rng(K + 20)
+    wide = from_jax_arrays(_rand_u32(rng, (777, 2 * K)))[0]
+    cols = tuple(wide[:, 2 * c] for c in range(K))
+    tcols = fpset.slot_major(cols)
+    fpset.slot_major_base(tcols)
+    for a, b in zip(tcols, cols):
+        assert torch.equal(a, b)
+        assert a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("layout", ["columns", "transposed", "wide",
+                                    "reordered", "int64"])
+def test_slot_major_check_raises(layout):
+    """The layout check K1 and K3 make on the card, as a plain helper:
+    separate columns, a transposed ``[K, cap + 1]`` buffer, views of a
+    wider buffer, views out of order and a wrong dtype all raise."""
+    n, K = 4097, 2
+    if layout == "columns":
+        tcols = tuple(torch.full((n,), -1, dtype=torch.int32)
+                      for _ in range(K))
+    elif layout == "transposed":
+        tcols = tuple(torch.full((K, n), -1, dtype=torch.int32).unbind(0))
+    elif layout == "wide":
+        tcols = tuple(torch.full((n, K + 1), -1, dtype=torch.int32)
+                      .unbind(1)[:K])
+    elif layout == "reordered":
+        tcols = tuple(reversed(fpset.empty_cols(n - 1, K, "cpu")))
+    else:
+        tcols = tuple(torch.full((n, K), -1).unbind(1))
+    with pytest.raises(ValueError, match="slot-major"):
+        fpset.slot_major_base(tcols)
 
 
 def test_shared_claims_match_fresh_claims():

@@ -34,7 +34,7 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
     DeviceChecker,
 )
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
-from pulsar_tlaplus_tpu_torch.ops import tiles
+from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.dedup import from_jax_arrays
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from pulsar_tlaplus_tpu_torch.store import budget, sieve
@@ -204,7 +204,7 @@ def test_sieve_mask_plain_matches_jax_pallas(K, cap):
         tuple(jnp.asarray(c) for c in tcols), jnp.asarray(gen),
         jnp.asarray(cold), impl="pallas",
     )
-    tt = from_jax_arrays(*tcols)
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
     tg, tc = from_jax_arrays(gen, cold)
     got = tiles.sieve_mask_planes(tt, tg, tc)
     plain = tiles.sieve_mask_planes_plain(tt, tg, tc)
@@ -239,7 +239,7 @@ def test_extract_cold_matches_jax(K, cutoff):
     rng = np.random.default_rng(K * 10 + cutoff)
     cap = 1 << 12
     tcols, gen = _table(rng, cap, K, 1700)
-    tt = from_jax_arrays(*tcols)
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
     (tg,) = from_jax_arrays(gen)
     holed, gen2, ev, n = sieve.extract_cold(tt, tg, cutoff)
     want_n = int(((gen >= 1) & (gen <= cutoff)).sum())
@@ -264,7 +264,7 @@ def test_tag_sieve_unflag_match_jax():
     cap, K = 1 << 11, 2
     tcols, gen = _table(rng, cap, K, 700)
     gen = np.where(rng.random(cap + 1) < 0.5, gen, 0).astype(np.int32)
-    tt = from_jax_arrays(*tcols)
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
     (tg,) = from_jax_arrays(gen)
     got = sieve.tag_generation(tt, tg, 7)
     want = jsieve.tag_generation(
