@@ -3,20 +3,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against
-its plain PyTorch version on the card (exact equality: integer work),
-times both (each kernel through its wrapper, ``ms``, and as raw
-launches on preallocated outputs, ``device_ms``), then drives the
-port's two paths, each with the kernels' launch counters zeroed before
-and read after:
+its plain PyTorch version on the card (exact equality: integer work;
+for the insert tail H1, phase 2d, the table slot for slot), times both
+(each kernel through its wrapper, ``ms``, and as raw launches on
+preallocated outputs, ``device_ms``), then drives the port's two paths,
+each with the kernels' launch counters zeroed before and read after:
 
-- the main path (phases 3-6): ``cli check`` of the shipped compaction
-  cfg, the checker on the 253,361-state config, both published
-  counterexamples, and the scaled bench config to its 17,787,334-state
-  level;
+- the main path (phases 3-6), in the default fused-level mode: ``cli
+  check`` of the shipped compaction cfg, the checker on the
+  253,361-state config, both published counterexamples, and the scaled
+  bench config to its 17,787,334-state level, counting the card's
+  synchronizations beside the checker's ``host_syncs``; phase 6b runs
+  the scaled config in the stage loop and holds its level totals, rows
+  and logs against phase 6's;
 - the tiered store (phases 9-11): the same checks under tight
   ``-hbm-budget``s that force eviction, row spill and cold-miss
   resolution, each held state for state against the untiered run, and
   the scaled config with its hot table capped at 2^25 slots.
+
+Phase 8 profiles the fused scaled run and fails if the plain probe's
+``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
+profiles the stage loop the same way and prints where the two loops'
+device time by op differs.
 
 Each phase prints one line with its seconds.  The last two lines
 are the kernels' JSON record and ``{"ok": true, "device": {...}}``; any
@@ -36,6 +44,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 # H100 SXM peaks (NVIDIA data sheet) for each kernel's bound: memory
 # rate, and the 32-bit non-tensor rate (67 T/s in float32; the kernels'
@@ -45,8 +54,8 @@ ALU_OPS_PER_S = 67e12
 SCALED_PREV_TOTAL = 636_718  # cumulative states after level 5
 SCALED_TOTAL = 17_787_334  # cumulative states after level 6
 SEED = 20261017
-# the kernels each path runs (the tiered path runs all four)
-MAIN_PATH_KERNELS = ("selftest", "member_block", "key_plane")
+# the kernels each path runs (the tiered path runs all five)
+MAIN_PATH_KERNELS = ("selftest", "member_block", "key_plane", "insert_tail")
 TIERED_PATH_KERNELS = MAIN_PATH_KERNELS + ("sieve_mask",)
 TIERED_TCAP = 1 << 25  # phase 11's hot-table ceiling
 SPECS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
@@ -86,6 +95,40 @@ def _time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _time_each(torch, setup, fn, iters):
+    """Mean milliseconds of ``fn`` on the card with ``setup`` run before
+    each call outside the timed span (CUDA events around each call;
+    one untimed warm-up)."""
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _card_syncs(torch, fn):
+    """``fn()`` and the number of calls that synchronized the host with
+    the card meanwhile (PyTorch's sync debug mode warns at each)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = sum("synchroniz" in str(w.message) for w in caught)
+    return out, n
+
+
 def main() -> int:
     import torch
 
@@ -103,6 +146,7 @@ def main() -> int:
             CompactionModel,
         )
         from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
+        from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
         from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
         from pulsar_tlaplus_tpu_torch.ref import pyeval
         from pulsar_tlaplus_tpu_torch.store.budget import (
@@ -222,6 +266,8 @@ def main() -> int:
 
     _phase("2a K2 key_plane vs plain", k2, failures)
 
+    shared = {}
+
     def k1():
         # a visited table at the scaled run's last tier (2^26 slots)
         # holding 16M keys, filled by the plain insert
@@ -251,6 +297,7 @@ def main() -> int:
         valid = (lane < nq - 12345) & ~fpset.all_sentinel(kcols)
         got = tiles.member_block(tcols, kcols, valid)
         want = tiles.member_block_plain(tcols, kcols, valid)
+        shared["flush"] = (tcols, kcols, valid, got[0])
         err = 0
         for g, w, what in zip(got, want, ("member", "resolved")):
             if not torch.equal(g, w):
@@ -372,6 +419,211 @@ def main() -> int:
     _phase("2c K3 sieve_mask vs plain", k3, failures)
     torch.cuda.empty_cache()
 
+    # ---- 2d: H1, the insert tail, against its plain chunk loop
+    def tail_pair(tcols, ckeys, cids, npend, cw, n_ids):
+        """H1 and the plain loop on two copies of ``tcols``: is_new,
+        the stats and the table slot for slot (slot cap is the plain
+        loop's trash row) must be equal and the bids left unclaimed.
+        Returns H1's copy of the table, is_new and stats."""
+        cap = tcols[0].shape[0] - 1
+        ta, tb = fpset.slot_major(tcols), fpset.slot_major(tcols)
+        ca, cb = fpset.new_claims(cap, dev), fpset.new_claims(cap, dev)
+        npd = torch.full((), npend, dtype=torch.int64, device=dev)
+        ga = fpset.insert_tail(ta, ckeys, cids, npd, cw, ca, n_ids)
+        gb = fpset.insert_tail_plain(tb, ckeys, cids, npd, cw, cb, n_ids)
+        what = []
+        if not torch.equal(ga[0][:n_ids], gb[0][:n_ids]):
+            what.append("is_new")
+        if not torch.equal(ga[1], gb[1]):
+            what.append(f"stats {ga[1].tolist()} vs {gb[1].tolist()}")
+        diff = sum(int((a[:cap] != b[:cap]).sum()) for a, b in zip(ta, tb))
+        if diff:
+            what.append(f"{diff} table words")
+        if not torch.equal(ca, fpset.new_claims(cap, dev)):
+            what.append("claims left claimed")
+        if what:
+            raise AssertionError("H1 vs plain: " + ", ".join(what))
+        return ta, ga[0][:n_ids], ga[1]
+
+    def filled(cap, k, n):
+        """A slot-major table holding ``n`` random keys (plain insert in
+        2^22-key batches) and the keys."""
+        tcols = fpset.empty_cols(cap, k, dev)
+        claims = fpset.new_claims(cap, dev)
+        keys = tuple(rand_i32(n) for _ in range(k))
+        for base in range(0, n, 1 << 22):
+            ks = tuple(c[base: base + (1 << 22)] for c in keys)
+            _n, tcols, pending, _r = fpset.probe_insert(
+                tcols, ks, ~fpset.all_sentinel(ks), claims=claims
+            )
+            if pending.any():
+                raise AssertionError("plain insert left lanes pending")
+        return tcols, keys
+
+    def probe_work(tcols, ckeys, npend):
+        """The probes the survivors need in the final table (a lane's
+        resolution round + 1; 64 for a failure) and the distinct random
+        32-byte sectors they touch in the slot-major table."""
+        cap, k = tcols[0].shape[0] - 1, len(tcols)
+        keys = tuple(c[:npend] for c in ckeys)
+        h = fpset.slot_hash(keys)
+        probes = torch.zeros(npend, dtype=torch.int64, device=dev)
+        sectors = torch.zeros_like(probes)
+        prev = torch.full_like(probes, -1)
+        live = torch.ones(npend, dtype=torch.bool, device=dev)
+        for r in range(fpset.MAX_PROBES):
+            s = (h + (r * (r + 1) >> 1)) & (cap - 1)
+            sec = (s * k) >> 3  # 32 B = 8 words
+            probes += live.long()
+            sectors += (live & (sec != prev)).long()
+            prev = torch.where(live, sec, prev)
+            hit = tcols[0][s] == keys[0]
+            for a, b in zip(tcols[1:], keys[1:]):
+                hit = hit & (a[s] == b)
+            live = live & ~hit
+            if not bool(live.any()):
+                break
+        return int(probes.sum()), int(sectors.sum())
+
+    def h1():
+        notes = []
+        # (a) phase 2b's scaled flush: K1's survivors of the 2.2M-lane
+        # accumulator on the 2^26-slot table holding 16M keys
+        tcols, kcols, valid, member = shared.pop("flush")
+        nq, k = kcols[0].shape[0], len(kcols)
+        lane = torch.arange(nq, dtype=torch.int32, device=dev)
+        surv = valid & ~member
+        ccols, _ = compact_by_flag(~surv, (*kcols, lane))
+        ckeys, cids = ccols[:k], ccols[k]
+        npend = int(surv.sum())
+        cw = max(nq // 4, min(nq, fpset.MIN_STAGE))
+        ta, is_new, st = tail_pair(tcols, ckeys, cids, npend, cw, nq)
+        n_new = int(is_new.sum())
+        probes, sectors = probe_work(ta, ckeys, npend)
+        notes.append(
+            f"scaled flush: {npend} survivors of {nq} lanes, {n_new} new, "
+            f"{st[0].item()} rounds in {-(-npend // cw)} chunks, {probes} "
+            f"probes in {sectors} random sectors"
+        )
+        # timing on a table restored before each call
+        snap = fpset.slot_major(tcols)
+        work = fpset.slot_major(tcols)
+        claims = fpset.new_claims(tcols[0].shape[0] - 1, dev)
+        npd = torch.full((), npend, dtype=torch.int64, device=dev)
+
+        def restore():
+            for a, b in zip(work, snap):  # views: writes reach the buffer
+                a.copy_(b)
+
+        out = (torch.zeros(nq + 1, dtype=torch.bool, device=dev),
+               torch.empty(cw, dtype=torch.uint8, device=dev),
+               torch.empty(2, dtype=torch.int32, device=dev),
+               torch.empty(2, dtype=torch.int64, device=dev))
+        args = fpset.insert_tail_args(work, ckeys, cids, npd, cw, claims,
+                                      *out)
+
+        def raw_setup():
+            restore()
+            out[0].zero_()
+
+        nbytes = npend * (4 * k + 4) + probes * 4 * k + n_new * (4 * k + 1)
+        # slot hash ~10 ops a column, ~2 + 5K a probe
+        ops = npend * 10 * k + probes * (2 + 5 * k)
+        def wrapped():
+            fpset.insert_tail(work, ckeys, cids, npd, cw, claims, nq)
+
+        def raw():
+            kernels.launch(*args)
+
+        # wrapper and raw launches in turns (wrapper, raw, raw, wrapper)
+        t = [_time_each(torch, restore, wrapped, 10),
+             _time_each(torch, raw_setup, raw, 10),
+             _time_each(torch, raw_setup, raw, 10),
+             _time_each(torch, restore, wrapped, 10)]
+        record["insert_tail"] = dict(
+            ms=(t[0] + t[3]) / 2, device_ms=(t[1] + t[2]) / 2, turns=t,
+            plain_ms=_time_each(
+                torch, restore, lambda: fpset.insert_tail_plain(
+                    work, ckeys, cids, npd, cw, claims, nq), 3),
+            max_abs_err=0, bytes=nbytes, bound=_bound(nbytes, ops),
+            sectors=sectors,
+            sector_floor_ms=(sectors * 32 + npend * (4 * k + 4))
+            / HBM_BYTES_PER_S * 1e3,
+        )
+        # the timed calls ran on restored tables: the last one left H1's
+        # table
+        if not all(torch.equal(a[:-1], b[:-1]) for a, b in zip(work, ta)):
+            raise AssertionError("a timed call did not start from the table")
+        del tcols, kcols, valid, member, ta, snap, work
+        torch.cuda.empty_cache()
+        # (b) one chunk of 2^20 lanes, each key eight times: min lane wins
+        n = 1 << 20
+        base = tuple(rand_i32(n // 8) for _ in range(2))
+        perm = torch.randperm(n, device=dev, generator=gen)
+        keys = tuple(c.repeat(8)[perm].contiguous() for c in base)
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        _t, is_new, st = tail_pair(fpset.empty_cols(1 << 22, 2, dev), keys,
+                                   ids, n, n, n)
+        first = torch.full((n // 8,), n, dtype=torch.int64, device=dev)
+        first.scatter_reduce_(0, perm % (n // 8), ids.long(), "amin")
+        if not torch.equal(torch.nonzero(is_new).flatten().sort().values,
+                           first.sort().values):
+            raise AssertionError("duplicates: a winner is not the min lane")
+        notes.append(f"duplicates: {int(is_new.sum())} winners of {n} "
+                     f"lanes, {st[0].item()} rounds")
+        # (c) a 2^22-slot table filled to load 1/2 by the insert
+        cap, n = 1 << 22, 1 << 18
+        tcols, _ = filled(cap, 2, cap // 2 - n)
+        keys = tuple(rand_i32(n) for _ in range(2))
+        _t, is_new, st = tail_pair(tcols, keys, torch.arange(
+            n, dtype=torch.int32, device=dev), n, n // 4, n)
+        notes.append(f"load 1/2: {int(is_new.sum())} new, rounds "
+                     f"{st[0].item()}, failed {st[1].item()}")
+        # (d) K = 3: half the survivors already in the table
+        cap, n = 1 << 22, 1 << 19
+        tcols, fill = filled(cap, 3, 1 << 20)
+        pick = torch.randint(0, 1 << 20, (n,), device=dev, generator=gen)
+        old = torch.rand(n, device=dev, generator=gen) < 0.5
+        keys = tuple(torch.where(old, f[pick], rand_i32(n)) for f in fill)
+        _t, is_new, st = tail_pair(tcols, keys, torch.arange(
+            n, dtype=torch.int32, device=dev), n, n // 4, n)
+        notes.append(f"K=3: {int(is_new.sum())} new of {n}, rounds "
+                     f"{st[0].item()}")
+        del tcols, fill
+        torch.cuda.empty_cache()
+        # (e) a rehash of a 2^25-slot table at load 1/2 into 2^26 slots:
+        # rehash_cols (H1 on the card) against its chunks through the
+        # plain loop
+        old_t, _ = filled(1 << 25, 2, 1 << 24)
+        t0 = time.time()
+        got, failed = fpset.rehash_cols(old_t, fpset.empty_cols(1 << 26, 2,
+                                                                dev))
+        torch.cuda.synchronize()
+        t_h1 = time.time() - t0
+        want = fpset.empty_cols(1 << 26, 2, dev)
+        claims = fpset.new_claims(1 << 26, dev)
+        t0 = time.time()
+        for b0 in range(0, 1 << 25, 1 << 20):
+            ks = tuple(c[b0: b0 + (1 << 20)] for c in old_t)
+            occ = ~fpset.all_sentinel(ks)
+            cc, _ = compact_by_flag(~occ, (*ks, torch.arange(
+                1 << 20, dtype=torch.int32, device=dev)))
+            fpset.insert_tail_plain(want, cc[:2], cc[2], occ.sum(), 1 << 20,
+                                    claims, 1 << 20)
+        torch.cuda.synchronize()
+        t_plain = time.time() - t0
+        diff = sum(int((a[:-1] != b[:-1]).sum()) for a, b in zip(got, want))
+        if diff or int(failed):
+            raise AssertionError(f"rehash: {diff} words differ, {int(failed)}"
+                                 " failed")
+        notes.append(f"rehash 2^25 -> 2^26 (16.8M keys): equal, {t_h1:.3f}s"
+                     f" through H1, {t_plain:.3f}s through the plain loop")
+        return "equal: " + "; ".join(notes) + f"; {record['insert_tail']}"
+
+    _phase("2d H1 insert_tail vs plain", h1, failures)
+    shared.clear()
+    torch.cuda.empty_cache()
+
     # ---- 3-6: the main path, launch counters zeroed around it
     kernels.reset_launches()
     per_phase = {}
@@ -467,7 +719,11 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         ck = DeviceChecker(CompactionModel(scaled_cfg()),
                            max_states=SCALED_TOTAL + 1)
-        r = ck.run()
+        # every sync of the run is one of the fused level's counted host
+        # reads, or one of three outside the loop: the K0 self-test's at
+        # the start, the layout's one upload of its constants at the
+        # first pack, and the result's synchronize
+        r, card_syncs = _card_syncs(torch, ck.run)
         cum, tot = [], 0
         for n in r.level_sizes:
             tot += n
@@ -478,11 +734,22 @@ def main() -> int:
                 f"{SCALED_TOTAL}), violation {r.violation}"
             )
         untiered["scaled"] = (r.level_sizes, *ck.merged_logs())
+        untiered["scaled_wall"] = r.wall_s
+        nv = r.distinct_states
+        untiered["scaled_rows"] = ck.last_bufs["rows"][: nv * ck.W].clone()
         st = ck.last_stats
+        if card_syncs > st["host_syncs"] + 3:
+            raise AssertionError(
+                f"{card_syncs} card syncs against {st['host_syncs']} host "
+                "reads + 3"
+            )
         return (
             f"level totals {cum} (level 7 partial: stop "
             f"{r.stop_reason}); {r.distinct_states} states in "
-            f"{r.wall_s:.2f}s = {r.states_per_sec:.0f} st/s; table "
+            f"{r.wall_s:.2f}s = {r.states_per_sec:.0f} st/s; host_syncs "
+            f"{st['host_syncs']} ({card_syncs} card syncs in sync debug "
+            f"mode), syncs_per_level {st['syncs_per_level']}, fuse_levels "
+            f"{st['fuse_levels']}; table "
             f"{st['fpset_table_cap']} slots, load "
             f"{st['fpset_occupancy']:.3f}; {st['fpset_flushes']} flushes, "
             f"{st['fpset_probe_rounds']} probe rounds; device memory "
@@ -498,16 +765,73 @@ def main() -> int:
         if launches[name] <= 0:
             failures.append(f"kernel {name} never launched on the main path")
 
+    def scaled_stage():
+        ck = DeviceChecker(CompactionModel(scaled_cfg()),
+                           max_states=SCALED_TOTAL + 1, fuse="stage")
+        r, card_syncs = _card_syncs(torch, ck.run)
+        sizes, par, lan = untiered["scaled"]
+        nv = r.distinct_states
+        rows = untiered.pop("scaled_rows")
+        if r.level_sizes != sizes:
+            raise AssertionError(f"level sizes {r.level_sizes} != {sizes}")
+        got_par, got_lan = ck.merged_logs()
+        if not (rows.shape[0] == nv * ck.W
+                and torch.equal(ck.last_bufs["rows"][: nv * ck.W], rows)
+                and (got_par == par).all() and (got_lan == lan).all()):
+            raise AssertionError("rows or logs differ from phase 6's")
+        st = ck.last_stats
+        del ck, rows
+        # the two loops again in turns, on a warm allocator (phase 6 was
+        # the first run on an empty one): the scaled config, then the
+        # 253,361-state config (launch-bound windows), each run held
+        # state for state against phase 4's
+        walls = {"scaled": [("level (phase 6)", untiered["scaled_wall"]),
+                            ("stage", r.wall_s)], "253361": []}
+        for name, fuse in (("scaled", "level"), ("253361", "stage"),
+                           ("253361", "level")):
+            if name == "scaled":
+                m = CompactionModel(scaled_cfg())
+                kw = dict(max_states=SCALED_TOTAL + 1)
+            else:
+                m, kw = CompactionModel(full_cfg), dict(invariants=())
+            c2 = DeviceChecker(m, fuse=fuse, **kw)
+            r2 = c2.run()
+            want = untiered["scaled" if name == "scaled" else "full"]
+            got = ([c2.merged_rows()] if name != "scaled" else []) + list(
+                c2.merged_logs())
+            if r2.level_sizes != want[0] or not all(
+                a.shape == b.shape and (a == b).all()
+                for a, b in zip(got, want[1:])
+            ):
+                raise AssertionError(f"{name} {fuse}: differs")
+            walls[name].append(
+                (f"{fuse} ({c2.last_stats['host_syncs']} syncs)", r2.wall_s))
+            del c2
+        return (
+            f"level totals {list(itertools.accumulate(r.level_sizes))}, "
+            f"rows, parent and lane logs equal to phase 6's; "
+            f"{nv} states in {r.wall_s:.2f}s = {r.states_per_sec:.0f} st/s; "
+            f"host_syncs {st['host_syncs']} ({card_syncs} card syncs), "
+            f"syncs_per_level {st['syncs_per_level']}; walls in turns: "
+            + "; ".join(f"{k}: " + ", ".join(f"{w} {t:.4f}s" for w, t in v)
+                        for k, v in walls.items())
+        )
+
+    counted("6b scaled cfg, -fuse stage, against phase 6", scaled_stage)
+    torch.cuda.empty_cache()
+
     # ---- 8: where the time goes in the scaled run (after the counts
     # were read: this run is the profiler's, not the main path's)
-    def profile(hbm_budget=None):
+    op_ms = {}  # phase -> {PyTorch op: (device ms, calls)}
+
+    def profile(hbm_budget=None, fuse="level", phase="8"):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tprofile
 
         ck = DeviceChecker(CompactionModel(scaled_cfg()),
                            max_states=SCALED_TOTAL + 1,
-                           hbm_budget=hbm_budget)
+                           hbm_budget=hbm_budget, fuse=fuse)
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA],
@@ -529,13 +853,16 @@ def main() -> int:
         if busy <= 0:
             return (f"wall {wall:.2f}s; torch.profiler reported no device "
                     "time on this machine")
-        top = sorted(ev, key=dev_us, reverse=True)[:5]
+        top = sorted(ev, key=dev_us, reverse=True)[:6]
         # the same device time by the PyTorch op that launched it
         ops = [e for e in allev
                if e.device_type == DeviceType.CPU and dev_us(e) > 0]
         top_ops = sorted(ops, key=dev_us, reverse=True)[:8]
+        op_ms[phase] = {e.key: (dev_us(e) / 1e3, e.count) for e in ops}
         ours = sum(dev_us(e) for e in ev
                    if "member_kernel" in e.key or "key_plane_kernel" in e.key)
+        h1 = [e for e in ev if "insert_tail_kernel" in e.key]
+        h1_ms = sum(dev_us(e) for e in h1) / 1e3
         k3 = sum(dev_us(e) for e in ev if "sieve_mask_kernel" in e.key)
         # buffer fills (torch.full/zeros), the probe's claims among them
         fills = [e for e in allev if e.key == "aten::fill_"]
@@ -553,6 +880,13 @@ def main() -> int:
         syncs = [e for e in allev if e.key == "aten::_local_scalar_dense"]
         n_sync = sum(e.count for e in syncs)
         sync_s = sum(e.self_cpu_time_total for e in syncs) / 1e6
+        stream_syncs = sum(e.count for e in allev
+                           if e.key == "cudaStreamSynchronize")
+        if not ck.tiered and probe_ops["aten::scatter_reduce_"][1]:
+            raise AssertionError(
+                "aten::scatter_reduce_ ran in the fused scaled run: "
+                f"{probe_ops['aten::scatter_reduce_']}"
+            )
         spill = ""
         if ck.tiered:
             sp = ck.tstore.stats
@@ -564,10 +898,14 @@ def main() -> int:
         return (
             f"{r.distinct_states} states, wall {wall:.2f}s under the "
             f"profiler; device busy {busy:.3f}s ({busy / wall:.1%} of "
-            f"wall); K1+K2 {ours / 1e6:.4f}s ({ours / 1e6 / busy:.2%} of "
-            f"device time); K3 {k3 / 1e6:.4f}s{spill}; {n_sync} host syncs "
-            f"(.item) holding "
-            f"{sync_s:.3f}s of host time; aten::fill_ {fill_ms:.1f}ms "
+            f"wall, idle {1 - busy / wall:.1%}); K1+K2 {ours / 1e6:.4f}s "
+            f"({ours / 1e6 / busy:.2%} of device time); H1 {h1_ms:.1f}ms "
+            f"x{sum(e.count for e in h1)} ({h1_ms / 1e3 / busy:.2%}); K3 "
+            f"{k3 / 1e6:.4f}s{spill}; host_syncs "
+            f"{ck.last_stats['host_syncs']}, syncs_per_level "
+            f"{ck.last_stats['syncs_per_level']}; {n_sync} .item calls "
+            f"holding {sync_s:.3f}s of host time, {stream_syncs} "
+            f"cudaStreamSynchronize; aten::fill_ {fill_ms:.1f}ms "
             f"x{n_fill}; gathers/scatters by op: "
             + "; ".join(f"{key} {ms:.1f}ms x{n}"
                         for key, (ms, n) in probe_ops.items())
@@ -584,6 +922,23 @@ def main() -> int:
         )
 
     _phase("8 profile of the scaled run", profile, failures)
+    torch.cuda.empty_cache()
+
+    def profile_stage():
+        """The stage loop under the profiler, and where its device time
+        by op differs from phase 8's fused run."""
+        out = profile(fuse="stage", phase="8b")
+        lv, st = op_ms.get("8", {}), op_ms["8b"]
+        keys = sorted(set(lv) | set(st), key=lambda k: -abs(
+            lv.get(k, (0, 0))[0] - st.get(k, (0, 0))[0]))
+        return out.split("; K1+K2")[0] + "; device ms by op, fused " \
+            "(phase 8) minus stage: " + "; ".join(
+                f"{k} {lv.get(k, (0, 0))[0] - st.get(k, (0, 0))[0]:+.1f}ms "
+                f"(x{lv.get(k, (0, 0))[1]} vs x{st.get(k, (0, 0))[1]})"
+                for k in keys[:10])
+
+    _phase("8b profile of the scaled run, -fuse stage", profile_stage,
+           failures)
     torch.cuda.empty_cache()
 
     # ---- 9-11: the tiered store, launch counters zeroed around it
@@ -738,7 +1093,7 @@ def main() -> int:
     # counts were read)
     if tiered_budget:
         _phase("13 profile of the tiered scaled run",
-               lambda: profile(tiered_budget[0]), failures)
+               lambda: profile(tiered_budget[0], phase="13"), failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -748,6 +1103,8 @@ def main() -> int:
         "member_block": "pulsar_tlaplus_tpu/ops/tiles.py:326",
         "key_plane": "pulsar_tlaplus_tpu/ops/tiles.py:517",
         "sieve_mask": "pulsar_tlaplus_tpu/ops/tiles.py:590",
+        "insert_tail": "pulsar_tlaplus_tpu/ops/fpset.py::probe_insert "
+        "(XLA, no Pallas)",
     }
     # launches: each kernel's count from the run of the path it belongs
     # to (K3 only runs on the tiered path)

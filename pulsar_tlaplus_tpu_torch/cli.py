@@ -3,6 +3,7 @@
 
     python -m pulsar_tlaplus_tpu_torch.cli check SPEC.tla [-config FILE.cfg]
         [-invariant NAME ...] [-nodeadlock] [-maxstates N] [-cpu]
+        [-fuse level|stage] [-fuse-group G]
         [-hbm-budget BYTES [-no-spill-compress]]
 
 It runs exhaustive BFS of the named spec on the GPU (``-cpu``: on the
@@ -90,6 +91,8 @@ def _check(args) -> int:
             progress=True,
             hbm_budget=args.hbm_budget,
             spill_compress=not args.no_spill_compress,
+            fuse=args.fuse,
+            fuse_group=args.fuse_group,
         )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
@@ -143,6 +146,20 @@ def main(argv=None) -> int:
     pc.add_argument("-maxstates", type=int, default=200_000_000)
     pc.add_argument("-cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
+    pc.add_argument(
+        "-fuse", choices=("level", "stage"), default="level",
+        help="level (default): the fused level — a level's windows run "
+        "with no host read between them and ramp levels batch up to "
+        "-fuse-group per read; stage: read the device after every "
+        "window (the differential path)",
+    )
+    pc.add_argument(
+        "-fuse-group", dest="fuse_group", type=int, default=None,
+        metavar="G",
+        help="max ramp levels (frontier within one expand window) one "
+        "host read may close under -fuse level (default 8; 1 disables "
+        "the batching)",
+    )
     pc.add_argument(
         "-hbm-budget", dest="hbm_budget", metavar="BYTES", default=None,
         help="device-memory byte budget for the tiered state store (e.g. "

@@ -1,31 +1,77 @@
 """Level-synchronous BFS on one device — the counterpart of
-``pulsar_tlaplus_tpu/engine/device_bfs.py``'s ``DeviceChecker``, reduced to
-the unfused stage chain:
+``pulsar_tlaplus_tpu/engine/device_bfs.py``'s ``DeviceChecker``.
+
+One expand window of up to ``sub_batch`` frontier rows runs this chain:
 
 - **init**: ``gen_initial`` over index windows, packed, keyed;
-- **expand**: a window of up to ``sub_batch`` frontier rows is unpacked,
-  ``successors`` gives ``[G, A]`` lanes, they are packed and keyed by the
-  key-plane kernel (K2); rows with no enabled lane and no stutter are
-  deadlocks;
-- **flush**: the tiled flush — the membership-probe kernel (K1) then the
-  insert tail — probes or inserts the window's keys in the visited table;
+- **expand**: the window's rows are unpacked, ``successors`` gives
+  ``[G, A]`` lanes, they are packed and keyed by the key-plane kernel
+  (K2); rows with no enabled lane and no stutter are deadlocks;
+- **flush**: the tiled flush — the membership-probe kernel (K1), then
+  the insert tail (H1) — probes or inserts the window's keys in the
+  visited table;
 - **compact**: the new rows move to the front in lane order;
-- **append**: invariants run on the new states only, and rows, parent
-  gids and action lanes are written at the next gids.
+- **append**: invariants run on the new states, and rows, parent gids
+  and action lanes are written at the next gids.
 
 All discovered rows stay on the device in gid order (the JAX engine's
 ``rows_window="all"``), so a level is a contiguous gid range.  Gids
 follow first occurrence in (frontier row, action lane) order under
 min-lane-wins, and roots log parent ``-1 - init_idx``: rows, parents and
-lanes equal the JAX engine's state for state, whatever the window size.
+lanes equal the JAX engine's state for state, whatever the window size
+or the loop.
 
-The loop is eager: each flush syncs with the host (the insert tail's
-chunk count, the new-state count), and the stop conditions (violation,
-deadlock, ``max_states``) are checked after every flush.  The visited
+**The fused level** (``fuse="level"``, the default; the JAX engine's
+``_fused_jit`` / ``_fused_level_pass``): the host enqueues a whole
+level's windows and reads nothing between them.  The state count, the
+deadlock gid, the first violating gid per invariant and the flush
+metrics live on the device; a window's flush (``tiles.flush_tiles``)
+returns its new-state count as a device scalar, the append writes the
+compacted rows, parents and lanes blind at ``nv + j`` for every lane
+``j`` of the window (the JAX engine's blind append window: lanes past
+the count write rows past ``nv``, which later windows overwrite), and
+violations and deadlocks reduce by ``amin`` into device vectors.  The
+host keeps ``nv_hi``, an upper bound of ``nv`` (the last count it read
+plus the lanes of every window it enqueued since), and reads the device
+(one small vector: a *host sync*) only
+
+- at the end of a level, or of a ramp batch;
+- before a window whose bound could break the table's load contract
+  (load <= 1/2) or overflow the row store — then it grows the table
+  (rehash through H1) and the store with headroom for ``max(GROW_AHEAD,
+  fuse_group)`` windows, as the JAX engine grows ``(group + 1)``
+  accumulators ahead;
+- before a window once the bound has reached ``max_states``: a window
+  runs only while the state count is under the budget, the JAX kernel's
+  ``fits`` gate, so the run stops at the stage loop's count.
+
+A violation or deadlock ends the run at the next level boundary or
+sync, as the JAX kernel's loop condition does.  **The ramp**: a level
+whose frontier fits one window runs as one of a batch of up to
+``fuse_group`` (default 8) such levels between two syncs; each reads its
+window at a device-held level base (``index_select``), masks the rows
+past the device-held frontier size, and a device flag turns the rest of
+the batch into no-ops once a frontier outgrows the window, reaches 0, or
+a violation or deadlock was found.  A ramp window has as many rows as
+the host's bound on its frontier (the batch's first frontier, exact,
+times ``A`` a level, at most ``sub_batch``), and the batch goes past its
+first level only while the windows are narrow
+(:data:`RAMP_SPEC_LANES`): on the card a wide padded or no-op window
+costs more than the sync it would save.  The batch's level sizes come
+back in its one read, so the level accounting and the progress log
+replay exactly.  ``last_stats`` counts ``host_syncs``, ``fuse_levels``
+(levels closed by the fused loop) and ``syncs_per_level``.
+
+**The stage loop** (``fuse="stage"``) reads the device after every
+window: the deadlock position, the flush's new-state count, the probe
+overflow and the invariants, and it checks the stop conditions
+(violation, deadlock, ``max_states``) after every flush.  The visited
 table, row store and logs grow by doubling.
 
 **Tiered mode** (``hbm_budget``; the JAX engine's tiered state store,
-RAM tier): the device keeps a budgeted hot tier and the host keeps the
+RAM tier) runs the stage loop whatever ``fuse`` says, as if the JAX
+engine's ``_tiered_pressure`` handoff to its stage path had happened at
+the start: the device keeps a budgeted hot tier and the host keeps the
 rest in a ``store/tiers.TieredStore``.
 
 - The budget fixes tier ceilings once, by round-robin doubling of the
@@ -48,9 +94,7 @@ rest in a ``store/tiers.TieredStore``.
   eviction has begun, or when the window is full.  Gids stay absolute;
   traces walk the merged cold + window logs.
 
-The JAX engine's fused-megakernel handoff (``_tiered_pressure``) has no
-counterpart: the port's loop is unfused, so every flush consults the
-budget.  The durable spill tier and checkpoint frames are not ported.
+The durable spill tier and checkpoint frames are not ported.
 """
 
 from __future__ import annotations
@@ -79,6 +123,15 @@ BIG = 2**31 - 1
 # defaults of ``hbm_headroom`` and ``miss_batch``)
 HBM_HEADROOM = 0.1
 MISS_BATCH = 1 << 15
+# the fused level's growth headroom in windows (at least fuse_group):
+# the JAX engine's (group + 1) accumulators at its default group of 4
+GROW_AHEAD = 5
+# the widest window (in lanes) of a ramp level after a batch's first,
+# whose frontier the host knows only by a bound: about where a window's
+# ops stop being launch-bound on an H100 (2^16 lanes x ~80 B ~ 2 us at
+# 3.35 TB/s, one launch), so padding it to the bound, or running it as
+# a no-op, costs no more than the sync it saves
+RAMP_SPEC_LANES = 1 << 16
 
 
 def _pow2_at_least(n: int, floor: int = 1 << 10) -> int:
@@ -103,10 +156,14 @@ class DeviceChecker:
     visited table starts with room for ``visited_cap`` states at load
     1/2.  The run stops (truncated) once ``max_states`` are found.
 
+    ``fuse="level"`` (the default) runs the fused level, ``"stage"``
+    the loop that reads the device after every window; ``fuse_group``
+    (default 8, at most 64) caps the ramp levels one sync may close.
+
     ``hbm_budget`` (bytes, or a spec such as ``"7.5G"``; the
     ``PTT_HBM_BUDGET`` environment variable when not given) turns on
-    the tiered store; ``spill_compress=False`` sizes the spilled planes
-    raw instead of delta + zlib.
+    the tiered store, which runs the stage loop; ``spill_compress=False``
+    sizes the spilled planes raw instead of delta + zlib.
     """
 
     def __init__(
@@ -121,7 +178,15 @@ class DeviceChecker:
         progress: bool = False,
         hbm_budget=None,
         spill_compress: bool = True,
+        fuse: str = "level",
+        fuse_group: Optional[int] = None,
     ):
+        if fuse not in ("level", "stage"):
+            raise ValueError(f"fuse must be level|stage: {fuse}")
+        if fuse_group is not None and fuse_group < 1:
+            raise ValueError(f"fuse_group must be >= 1: {fuse_group}")
+        self.fuse = fuse
+        self.RMAX = min(fuse_group or 8, 64)
         self.device = device_mod.resolve(device)
         self.model = model
         self.layout = model.layout
@@ -222,12 +287,14 @@ class DeviceChecker:
             new_cap = min(new_cap, ceiling)
         if new_cap <= cap:
             return
+        claims = fpset.new_claims(new_cap, self.device)
         new, failed = fpset.rehash_cols(
-            self._tcols, fpset.empty_cols(new_cap, self.K, self.device)
+            self._tcols, fpset.empty_cols(new_cap, self.K, self.device),
+            claims=claims,
         )
-        if failed:
-            raise RuntimeError(f"visited-table rehash overflow ({failed})")
-        self._tcols = new
+        # read with the next probe-overflow check (_check_overflow)
+        self._rehash_failed = self._rehash_failed + failed
+        self._tcols, self._claims = new, claims
         if self.tiered:
             self._gen = sieve.tag_generation(
                 new, torch.zeros((new_cap + 1,), dtype=torch.int32,
@@ -308,9 +375,10 @@ class DeviceChecker:
         cap = self._tcols[0].shape[0] - 1
         self._tcols = None  # the holed copy replaces it
         new, failed = fpset.rehash_cols(
-            holed, fpset.empty_cols(cap, self.K, self.device)
+            holed, fpset.empty_cols(cap, self.K, self.device),
+            claims=self._claims,
         )
-        if failed:
+        if int(failed):
             raise RuntimeError(
                 f"visited-table rehash overflow during eviction ({failed})"
             )
@@ -432,19 +500,43 @@ class DeviceChecker:
 
     # -------------------------------------------------------- the stages
 
+    def _read(self, *vals: torch.Tensor) -> List[int]:
+        """Device values as host ints, in one read (a sync with the
+        card), counted in ``host_syncs``."""
+        self._host_syncs += 1
+        flat = [v.reshape(-1).to(torch.int64) for v in vals]
+        return torch.cat(flat).tolist()
+
+    def _lanes(self, rows: torch.Tensor, rowvalid=None):
+        """The window's successor lanes: ``(states, valid [n, A], packed
+        [n*A, W], key cols)``; rows outside ``rowvalid`` have none."""
+        m = self.model
+        states = self.layout.unpack(rows)
+        succ, valid = m.successors(states)
+        if rowvalid is not None:
+            valid = valid & rowvalid[:, None]
+        n = rows.shape[0]
+        packed = self.layout.pack(succ).reshape(n * self.A, self.W)
+        kcols = tiles.key_plane(self.keys, packed, valid.reshape(-1))
+        return states, valid, packed, kcols
+
+    def _dead_pos(self, states, valid, rowvalid=None) -> torch.Tensor:
+        """The first deadlocked row of a window (BIG if none), int64 0-d."""
+        dead = ~valid.any(dim=1) & ~self.model.stutter_enabled(states)
+        if rowvalid is not None:
+            dead = dead & rowvalid
+        pos = torch.arange(dead.shape[0], device=self.device)
+        return torch.where(dead, pos, BIG).amin()
+
     def _expand(self, f_off: int, n: int):
         """Expand frontier rows ``[f_off, f_off + n)`` (absolute gids):
         ``(packed [n*A, W], key cols)``; records a deadlocked row."""
-        m = self.model
         off = f_off - self._row_base
-        states = self.layout.unpack(self._rows[off: off + n])
-        succ, valid = m.successors(states)
-        packed = self.layout.pack(succ).reshape(n * self.A, self.W)
-        kcols = tiles.key_plane(self.keys, packed, valid.reshape(-1))
+        states, valid, packed, kcols = self._lanes(
+            self._rows[off: off + n]
+        )
         if self.check_deadlock:
-            dead = ~valid.any(dim=1) & ~m.stutter_enabled(states)
-            pos = torch.arange(n, device=self.device)
-            d = int(torch.where(dead, pos, BIG).amin())
+            (d,) = self._read(self._dead_pos(states, valid))
             if d < BIG:
                 self._dead = min(self._dead, f_off + d)
         return packed, kcols
@@ -459,13 +551,10 @@ class DeviceChecker:
         else:
             self._ensure_table(self._nv + nq)
         self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
-            self._tcols, kcols, nq, self._fpm
+            self._tcols, kcols, nq, self._fpm, self._claims
         )
-        if int(self._fpm[2]):
-            raise RuntimeError(
-                f"visited-table probe overflow ({int(self._fpm[2])} "
-                "lanes unresolved): the table broke its load contract"
-            )
+        self._host_syncs += 1  # flush_acc_tiles read the new-lane count
+        self._check_overflow(*self._read(self._fpm[2], self._rehash_failed))
         if self.tiered:
             # every hot-new key stays inserted, false-new ones included
             self._hot_n += n_new
@@ -497,16 +586,212 @@ class DeviceChecker:
         if self.invariant_names:
             states = self.layout.unpack(crows)
             pos = torch.arange(n_new, device=self.device)
-            first_bad = torch.stack([
+            first_bad = self._read(*[
                 torch.where(self.model.invariants[name](states), BIG, pos)
                 .amin()
                 for name in self.invariant_names
-            ]).tolist()
+            ])
             self._viol = [
                 min(v, nv + b) if b < BIG else v
                 for v, b in zip(self._viol, first_bad)
             ]
         self._nv = nv + n_new
+
+    @staticmethod
+    def _check_overflow(probe_failed: int, rehash_failed: int) -> None:
+        """Raise if a flush or a table growth left keys unplaced."""
+        if rehash_failed:
+            raise RuntimeError(
+                f"visited-table rehash overflow ({rehash_failed})"
+            )
+        if probe_failed:
+            raise RuntimeError(
+                f"visited-table probe overflow ({probe_failed} lanes "
+                "unresolved): the table broke its load contract"
+            )
+
+    # ------------------------------------------------ the fused level
+
+    def _lv_sync(self, *extra: torch.Tensor) -> List[int]:
+        """Read the device-held state count, deadlock gid, violation
+        gids and probe failures (and ``extra``) in one sync; raise on a
+        probe overflow.  Returns the ``extra`` values."""
+        n_inv = len(self.invariant_names)
+        vals = self._read(self._nv_t, self._dead_t, self._viol_t,
+                          self._fpm[2], self._rehash_failed, *extra)
+        self._nv, self._dead = vals[0], vals[1]
+        self._viol = vals[2: 2 + n_inv]
+        self._check_overflow(*vals[2 + n_inv: 4 + n_inv])
+        self._nv_hi = self._nv
+        if self._nv < self.SCAP:
+            # room for the headroom's windows (never past max_states'
+            # last window)
+            need = min(self._nv + self._ahead, self.SCAP + self.NQ)
+            self._ensure_table(need)
+            self._ensure_store(need)
+        return vals[4 + n_inv:]
+
+    def _lv_room(self, nq: int) -> bool:
+        """Make room for a window of ``nq`` lanes: True at once when the
+        bound ``nv_hi`` is under ``max_states`` and ``nv_hi + nq`` fits
+        the table's load contract and the row store; else sync (and
+        grow) first, and False when the run must stop."""
+        hi = self._nv_hi + nq
+        if (self._nv_hi < self.SCAP
+                and hi <= (self._tcols[0].shape[0] - 1) // 2
+                and hi <= self._rows.shape[0]):
+            return True
+        self._lv_sync()
+        return self._stop_reason() is None
+
+    def _lv_flush(self, packed, kcols, acc_base, is_init: bool) -> None:
+        """The fused level's flush + compact + append of one window, with
+        no host read: the compacted rows, parents and lanes of all ``nq``
+        lanes go to gids ``nv + j`` (the rows past the new-state count
+        are overwritten by later windows)."""
+        nq = packed.shape[0]
+        dev = self.device
+        self._tcols, n_new, is_new, self._fpm = tiles.flush_tiles(
+            self._tcols, kcols, nq, self._fpm, self._claims
+        )
+        crows, idx = compact_rows(packed, is_new)
+        nv = self._nv_t
+        pos = torch.arange(nq, device=dev)
+        dest = nv + pos
+        self._rows.index_copy_(0, dest, crows)
+        if is_init:
+            par, lane = -1 - (acc_base + idx), torch.zeros_like(idx)
+        else:
+            par, lane = acc_base + idx // self.A, idx % self.A
+        self._parent.index_copy_(0, dest, par.to(torch.int32))
+        self._lane.index_copy_(0, dest, lane.to(torch.int32))
+        if self.invariant_names:
+            states = self.layout.unpack(crows)
+            old = pos >= n_new
+            bad = torch.stack([
+                torch.where(self.model.invariants[name](states) | old, BIG,
+                            pos).amin()
+                for name in self.invariant_names
+            ])
+            self._viol_t = torch.minimum(
+                self._viol_t, torch.where(bad < BIG, nv + bad, BIG)
+            )
+        self._nv_t = nv + n_new
+        self._nv_hi += nq
+
+    def _lv_window(self, rows, base, rowvalid=None) -> None:
+        """Expand, flush and append one window of frontier rows whose
+        first gid is ``base`` (an int, or a 0-d tensor in the ramp)."""
+        states, valid, packed, kcols = self._lanes(rows, rowvalid)
+        if self.check_deadlock:
+            d = self._dead_pos(states, valid, rowvalid)
+            self._dead_t = torch.minimum(
+                self._dead_t, torch.where(d < BIG, base + d, BIG)
+            )
+        self._lv_flush(packed, kcols, base, False)
+
+    def _lv_level(self, level_base: int, nf: int) -> bool:
+        """Enqueue every window of a level (offsets known on the host),
+        syncing only for room.  False when a sync stopped the run
+        mid-level."""
+        for f_off in range(0, nf, self.G):
+            n = min(self.G, nf - f_off)
+            if not self._lv_room(n * self.A):
+                return False
+            off = level_base + f_off
+            self._lv_window(self._rows[off: off + n], off)
+        return True
+
+    def _lv_ramp(self, level_base: int, nf: int) -> Tuple[list, int, int]:
+        """A ramp batch: up to ``RMAX`` levels of one window each, the
+        level base and frontier size held on the device, and one read at
+        the end.  A level's window has as many rows as the host's bound
+        on its frontier, ``nf * A^i`` for the batch's ``i``-th level,
+        capped at ``G``; after the first level (whose frontier is
+        known), the batch goes on only while a window has at most
+        :data:`RAMP_SPEC_LANES` lanes.  Returns ``(sizes of the levels
+        run, level_base, nf)``."""
+        dev = self.device
+        lb = torch.full((), level_base, dtype=torch.int64, device=dev)
+        nft = torch.full((), nf, dtype=torch.int64, device=dev)
+        live = torch.ones((), dtype=torch.bool, device=dev)
+        sizes = []
+        bound = nf
+        for i in range(self.RMAX):
+            n = min(bound, self.G)
+            if i and n * self.A > RAMP_SPEC_LANES:
+                break
+            if not self._lv_room(n * self.A):
+                break
+            ar = torch.arange(n, device=dev)
+            rows = self._rows.index_select(0, lb + ar)
+            self._lv_window(rows, lb, (ar < nft) & live)
+            bound *= self.A
+            size = self._nv_t - (lb + nft)
+            sizes.append(torch.where(live, size, -1))
+            lb = torch.where(live, lb + nft, lb)
+            nft = torch.where(live, size, nft)
+            live = (live & (size > 0) & (size <= self.G)
+                    & (self._dead_t == BIG) & (self._viol_t == BIG).all())
+        lb_h, nf_h, *got = self._lv_sync(lb, nft, *sizes)
+        return [z for z in got if z >= 0], lb_h, nf_h
+
+    def _run_level(self, t0) -> CheckerResult:
+        """The fused level loop (see the module docstring)."""
+        dev = self.device
+        n_inv = len(self.invariant_names)
+        self._nv_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._dead_t = torch.full((), BIG, dtype=torch.int64, device=dev)
+        self._viol_t = torch.full((n_inv,), BIG, dtype=torch.int64,
+                                  device=dev)
+        self._nv_hi = 0
+        self._ahead = max(GROW_AHEAD, self.RMAX) * self.NQ
+        n_init = self.model.n_initial
+        step = self.G * self.A
+        for f_off in range(0, n_init, step):
+            n = min(step, n_init - f_off)
+            if not self._lv_room(n):
+                break
+            idx = torch.arange(f_off, f_off + n, device=dev)
+            packed = self.layout.pack(self.model.gen_initial(idx))
+            kcols = tiles.key_plane(
+                self.keys, packed,
+                torch.ones((n,), dtype=torch.bool, device=dev),
+            )
+            self._lv_flush(packed, kcols, f_off, True)
+        self._lv_sync()
+        level_sizes: List[int] = [self._nv]
+        self._log(f"level 1: {self._nv} initial states")
+
+        level_base, nf = 0, self._nv
+        while True:
+            reason = self._stop_reason()
+            if reason is not None:
+                return self._result(t0, level_sizes, **reason)
+            if nf == 0:
+                return self._result(t0, level_sizes)
+            cum, done = level_base + nf, True
+            if nf <= self.G:
+                sizes, level_base, nf = self._lv_ramp(level_base, nf)
+                self._fuse_levels += len(sizes)
+            else:
+                done = self._lv_level(level_base, nf)
+                if done:
+                    self._lv_sync()
+                    self._fuse_levels += 1
+                sizes = [self._nv - cum]
+                level_base, nf = cum, sizes[0]
+            for sz in sizes:
+                # a level that adds nothing ends the search; a level cut
+                # by a stop keeps its partial count
+                if sz or not done:
+                    cum += sz
+                    level_sizes.append(sz)
+                    wall = time.time() - t0
+                    self._log(
+                        f"level {len(level_sizes)}: +{sz} (total "
+                        f"{cum}, {cum / max(wall, 1e-9):.0f} st/s)"
+                    )
 
     # ---------------------------------------------------------------- run
 
@@ -543,7 +828,11 @@ class DeviceChecker:
                                    device=dev)
         self._lane = torch.zeros((self.WCAP0,), dtype=torch.int32,
                                  device=dev)
-        self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64)
+        self._claims = fpset.new_claims(self.TCAP0, dev)
+        self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64,
+                                device=dev)
+        self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
+        self._host_syncs = self._fuse_levels = 0
         self._nv, self._dead = 0, BIG
         self._viol = [BIG] * len(self.invariant_names)
         self._row_base = self._level_base = 0
@@ -557,6 +846,8 @@ class DeviceChecker:
                                     device=dev)
             self._epoch, self._hot_n, self._spill_syncs = 1, 0, 0
             self._spill_active = False
+        elif self.fuse == "level":
+            return self._run_level(t0)
 
         # ---- level 1: initial states (compaction.tla:188-202)
         n_init = self.model.n_initial
@@ -624,6 +915,11 @@ class DeviceChecker:
         tcap = self._tcols[0].shape[0] - 1
         fl, rounds, fails, valid_lanes, max_rounds = self._fpm.tolist()
         self.last_stats = dict(
+            host_syncs=self._host_syncs,
+            fuse_levels=self._fuse_levels,
+            syncs_per_level=round(
+                self._host_syncs / max(len(level_sizes), 1), 2
+            ),
             fpset_flushes=fl,
             fpset_probe_rounds=rounds,
             fpset_failures=fails,

@@ -37,6 +37,7 @@ SOURCES = {
     "key_plane": "key_plane.cu",
     "member_block": "member.cu",
     "sieve_mask": "sieve_mask.cu",
+    "insert_tail": "insert_tail.cu",
 }
 
 P = ctypes.c_void_p
@@ -59,6 +60,12 @@ _SIGNATURES = {
     },
     "sieve_mask": {
         "ptt_sieve_mask": (P, P, P, P, I64, ctypes.c_int, P),
+    },
+    "insert_tail": {
+        "ptt_insert_tail": (
+            P, P, P, P, P, P, P, P, P, P, P, I64, ctypes.c_uint32,
+            ctypes.c_int, ctypes.c_int, I64, P,
+        ),
     },
 }
 

@@ -22,8 +22,14 @@ batched loop owns them between flushes, and a copy per round would double
 the table's memory traffic.  So is the ``claims`` buffer of bids: a caller
 that probes many batches into one table makes it once with ``new_claims``
 and passes it in; each round resets the slots it bid on.
-``probe_insert``'s ``while any(pending)`` is a host sync per round in
-eager PyTorch.
+
+``probe_insert`` is the plain lookup-or-insert; its ``while any(pending)``
+is a host sync per round in eager PyTorch.  The flush's insert tail and
+the rehash run it in chunks (:func:`insert_tail_plain`) only for CPU
+tensors: on the card :func:`insert_tail` launches the H1 kernel
+(``kernels/csrc/insert_tail.cu``), which runs every chunk and round in
+one cooperative launch, reads the survivor count from device memory and
+leaves the same table slot for slot, with no host read.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, U32, fmix, u32
 
 MAX_PROBES = 64
@@ -46,20 +54,21 @@ MIN_STAGE = 1 << 10
 
 _NO_LANE = 2**31 - 1  # claims fill: above every real lane id
 
-# host-side flush metrics: [flushes, probe_rounds, failures, valid_lanes,
+# flush metrics, int64: [flushes, probe_rounds, failures, valid_lanes,
 # max_probe_rounds] — the JAX package's ``fpm_logical`` view
 FPM_N = 5
 
 
-def fpm_update(fpm: torch.Tensor, rounds: int, n_failed: int,
-               n_valid: int) -> torch.Tensor:
-    """One flush's metrics update of the int64 ``[FPM_N]`` vector."""
-    out = fpm.clone()
-    out[0] += 1
-    out[1] += rounds
-    out[2] += n_failed
-    out[3] += n_valid
-    out[4] = max(int(fpm[4]), rounds)
+def fpm_update(fpm: torch.Tensor, rounds: torch.Tensor,
+               n_failed: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """One flush's metrics update of the int64 ``[FPM_N]`` vector; the
+    counts are int64 0-d tensors on its device, so nothing is read on
+    the host."""
+    one = torch.ones_like(rounds)
+    out = fpm + torch.stack(
+        (one, rounds, n_failed, n_valid, torch.zeros_like(rounds))
+    )
+    out[4] = torch.maximum(fpm[4], rounds)
     return out
 
 
@@ -187,23 +196,152 @@ def probe_insert(
     return is_new, tcols, pending, r
 
 
+# ------------------------------- kernel launches: argument checks
+
+
+def on_card(name: str, tensors, table=()) -> torch.device:
+    """The CUDA device all ``tensors`` (and the visited-table columns
+    ``table``) share, for a kernel launch; a CPU tensor in the mix, or
+    any other device, raises, as does a non-contiguous tensor or a
+    table that is not slot-major (:func:`slot_major_base`)."""
+    dev = tensors[0].device
+    for t in (*tensors, *table):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if table:
+        slot_major_base(table)
+    return dev
+
+
+def expect(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name}: want {dtype} {tuple(shape)}, got {t.dtype} "
+            f"{tuple(t.shape)}"
+        )
+
+
+# --------------------------------------------- H1: the insert tail
+
+
+def insert_tail_plain(tcols, ckeys, cids, npend, cw: int, claims,
+                      n_ids: int, max_probes: int = MAX_PROBES):
+    """H1's plain version: ``probe_insert`` over the first ``npend``
+    (an int64 0-d tensor) lanes of ``ckeys``/``cids`` in chunks of
+    ``cw``, in order, bidding with the lane ids ``cids``.  Returns
+    ``(is_new bool [n_ids + 1], stats int64 [2])``: ``is_new[id]`` for
+    each inserted lane id (index ``n_ids`` is a trash slot), and
+    (probe rounds, failed lanes) over all chunks."""
+    dev = ckeys[0].device
+    n = int(npend)
+    is_new = torch.zeros((n_ids + 1,), dtype=torch.bool, device=dev)
+    rounds = failed = 0
+    for base in range(0, n, cw):
+        end = min(base + cw, n)
+        lid = cids[base:end]
+        new2, tcols, pending, r = probe_insert(
+            tcols, tuple(c[base:end] for c in ckeys),
+            torch.ones((end - base,), dtype=torch.bool, device=dev),
+            max_probes=max_probes, lane_ids=lid, claims=claims,
+        )
+        is_new[torch.where(new2, lid, n_ids).long()] = True
+        failed += int(pending.sum())
+        rounds += r
+    return is_new, torch.tensor([rounds, failed], dtype=torch.int64,
+                                device=dev)
+
+
+def insert_tail_args(tcols, ckeys, cids, npend, cw: int, claims, is_new,
+                     state, cnt, stats, max_probes: int = MAX_PROBES) -> tuple:
+    """Check the card inputs of H1 and return the arguments of its
+    ``kernels.launch``: a slot-major table, contiguous int32 keys and
+    lane ids of one length, an int64 0-d ``npend``, the table's int32
+    ``claims``, a bool ``is_new`` (zeroed, longer than every id), and
+    the scratch: uint8 ``state[cw]``, int32 ``cnt[2]``; int64
+    ``stats[2]`` receives (probe rounds, failed lanes)."""
+    dev = on_card("insert_tail",
+                  (*ckeys, cids, npend, claims, is_new, state, cnt, stats),
+                  table=tcols)
+    k, n, cap1 = len(ckeys), cids.shape[0], tcols[0].shape[0]
+    if k not in (2, 3) or len(tcols) != k:
+        raise ValueError(f"insert_tail: K must be 2 or 3 (got {k})")
+    for c in (*ckeys, cids):
+        expect("insert_tail", c, torch.int32, (n,))
+    for t, dtype, shape in ((npend, torch.int64, ()),
+                            (claims, torch.int32, (cap1,)),
+                            (state, torch.uint8, (cw,)),
+                            (cnt, torch.int32, (2,)),
+                            (stats, torch.int64, (2,))):
+        expect("insert_tail", t, dtype, shape)
+    if is_new.dtype != torch.bool or is_new.dim() != 1 or cw < 1:
+        raise ValueError("insert_tail: want a bool is_new and cw >= 1")
+    p = kernels.ptr
+    return ("insert_tail", "ptt_insert_tail", p(tcols[0]), p(ckeys[0]),
+            p(ckeys[1]), p(ckeys[2]) if k == 3 else None, p(cids), p(npend),
+            p(claims), p(is_new), p(state), p(cnt), p(stats), cw,
+            cap1 - 2, k, max_probes, min(cw, n), kernels.stream(dev))
+
+
+def insert_tail(tcols, ckeys, cids, npend, cw: int, claims, n_ids: int,
+                max_probes: int = MAX_PROBES):
+    """The insert tail of a flush (or a rehash), in place on ``tcols``:
+    the first ``npend`` lanes (an int64 0-d tensor, read on the device)
+    of the compacted keys ``ckeys`` with their original lane ids
+    ``cids`` (all ``< n_ids``) are looked up or inserted in chunks of
+    ``cw``, min-lane-wins.  Returns ``(is_new bool [n_ids + 1], stats
+    int64 [2] = (probe rounds, failed lanes))`` on the table's device;
+    ``claims`` (``new_claims``) comes back unclaimed.  CPU tensors take
+    :func:`insert_tail_plain`; CUDA tensors launch H1 or raise."""
+    if all(t.device.type == "cpu"
+           for t in (*tcols, *ckeys, cids, npend, claims)):
+        return insert_tail_plain(tcols, ckeys, cids, npend, cw, claims,
+                                 n_ids, max_probes)
+    dev = cids.device
+    is_new = torch.zeros((n_ids + 1,), dtype=torch.bool, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+    state = torch.empty((cw,), dtype=torch.uint8, device=dev)
+    cnt = torch.empty((2,), dtype=torch.int32, device=dev)
+    args = insert_tail_args(tcols, ckeys, cids, npend, cw, claims, is_new,
+                            state, cnt, stats, max_probes)
+    if cids.shape[0]:
+        with torch.cuda.device(dev):
+            kernels.launch(*args)
+    return is_new, stats
+
+
 def rehash_cols(
     old_cols: Tuple[torch.Tensor, ...],
     new_cols: Tuple[torch.Tensor, ...],
     chunk: int = 1 << 20,
     max_probes: int = MAX_PROBES,
+    claims: Optional[torch.Tensor] = None,
 ):
     """Re-insert every occupied slot of ``old_cols`` into the larger
-    ``new_cols`` in chunks.  Returns ``(new_cols, n_failed)``; a nonzero
-    count means the caller broke the load contract."""
+    ``new_cols`` in chunks of ``chunk`` slots, each one insert tail of
+    its occupied keys bidding with their slot offsets in the chunk (H1
+    on the card).  ``claims`` is the new table's bid buffer (made when
+    not given).  Returns ``(new_cols, n_failed)``, the count an int64 0-d
+    tensor on the table's device (nothing is read on the host); a
+    nonzero count means the caller broke the load contract."""
     ocap = old_cols[0].shape[0] - 1
-    claims = new_claims(new_cols[0].shape[0] - 1, new_cols[0].device)
-    n_failed = 0
+    dev = new_cols[0].device
+    if claims is None:
+        claims = new_claims(new_cols[0].shape[0] - 1, dev)
+    k = len(old_cols)
+    failed = torch.zeros((), dtype=torch.int64, device=dev)
     for base in range(0, ocap, chunk):
         ks = tuple(c[base: min(base + chunk, ocap)] for c in old_cols)
-        _new, new_cols, pending, _r = probe_insert(
-            new_cols, ks, ~all_sentinel(ks), max_probes=max_probes,
-            claims=claims,
+        m = ks[0].shape[0]
+        occ = ~all_sentinel(ks)
+        ccols, _ = compact_by_flag(
+            ~occ, (*ks, torch.arange(m, dtype=torch.int32, device=dev))
         )
-        n_failed += int(pending.sum())
-    return new_cols, n_failed
+        _new, st = insert_tail(new_cols, ccols[:k], ccols[k], occ.sum(),
+                               m, claims, m, max_probes)
+        failed = failed + st[1]
+    return new_cols, failed

@@ -79,14 +79,22 @@ class _FieldCodec:
         self._consts = {}
 
     def _on(self, device):
-        """The per-field index/shift tensors on ``device`` (cached)."""
+        """The per-field index/shift tensors on ``device`` (cached; one
+        host-to-device copy for all of them, so the first use costs one
+        sync with the card, not four a field)."""
         key = str(device)
         if key not in self._consts:
-            t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-            self._consts[key] = [
-                (t(widx), t(shift), t(spill), t(shr), bool(spill.any()))
-                for _name, _n, _w, widx, shift, spill, shr in self.fields
-            ]
+            flat = torch.as_tensor(np.concatenate(
+                [np.concatenate([widx, shift, spill, shr]).astype(np.int64)
+                 for _name, _n, _w, widx, shift, spill, shr in self.fields]
+            )).to(device)
+            consts, off = [], 0
+            for _name, n, _w, _widx, _shift, spill, _shr in self.fields:
+                widx, shift, spl, shr = flat[off: off + 4 * n].view(4, n)
+                consts.append((widx, shift, spl.bool(), shr,
+                               bool(spill.any())))
+                off += 4 * n
+            self._consts[key] = consts
         return self._consts[key]
 
     def pack(self, values_by_field, n_rows: int, device) -> torch.Tensor:

@@ -16,10 +16,13 @@ In the port the tiled flush IS the flush: the membership prefilter (K1)
 settles every lane whose key is already in the table or whose probe
 sequence meets an empty slot within :data:`TILE_R` rounds; the survivors
 compact order-preservingly, original lane ids riding along, and run the
-plain ``probe_insert`` in chunks of ``max(nq/4, MIN_STAGE)`` lanes.
-Chunk order is lane order and bids use original lane ids, so equal keys
-resolve min-lane-wins and ``is_new`` equals the JAX package's flush bit
-for bit.
+insert tail (``fpset.insert_tail``: the H1 kernel on the card, the plain
+``probe_insert`` chunk loop on the CPU) in chunks of ``max(nq/4,
+MIN_STAGE)`` lanes.  Chunk order is lane order and bids use original
+lane ids, so equal keys resolve min-lane-wins and ``is_new`` equals the
+JAX package's flush bit for bit.  :func:`flush_tiles` reads nothing on
+the host (the fused level's flush); :func:`flush_acc_tiles` reads the
+new-lane count (the stage loop's).
 
 The tiered store's cold extract is the tiled one too: the sieve-mask
 kernel (K3) masks the table planes in place and the masked planes are
@@ -43,33 +46,6 @@ from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
 TILE_R = 8
 
 
-def _on_card(name: str, tensors, table=()) -> torch.device:
-    """The CUDA device all ``tensors`` (and the visited-table columns
-    ``table``) share, for a kernel launch; a CPU tensor in the mix, or
-    any other device, raises, as does a non-contiguous tensor or a
-    table that is not slot-major (``fpset.slot_major_base``)."""
-    dev = tensors[0].device
-    for t in (*tensors, *table):
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-    if table:
-        fpset.slot_major_base(table)
-    return dev
-
-
-def _expect(name: str, t: torch.Tensor, dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: want {dtype} {tuple(shape)}, got {t.dtype} "
-            f"{tuple(t.shape)}"
-        )
-
-
 # ------------------------------------------------------- K2: key plane
 
 
@@ -85,12 +61,12 @@ def key_plane_args(keyspec, packedf: torch.Tensor, vflat: torch.Tensor,
                    out: torch.Tensor) -> tuple:
     """Check the card inputs of K2 and return the arguments of its
     ``kernels.launch`` into ``out`` (int32 ``[K, nc]``)."""
-    dev = _on_card("key_plane", (packedf, vflat, out))
+    dev = fpset.on_card("key_plane", (packedf, vflat, out))
     nc, w = packedf.shape
     k = keyspec.ncols
-    _expect("key_plane", packedf, torch.int32, (nc, keyspec.W))
-    _expect("key_plane", vflat, torch.bool, (nc,))
-    _expect("key_plane", out, torch.int32, (k, nc))
+    fpset.expect("key_plane", packedf, torch.int32, (nc, keyspec.W))
+    fpset.expect("key_plane", vflat, torch.bool, (nc,))
+    fpset.expect("key_plane", out, torch.int32, (k, nc))
     if packedf.data_ptr() % 16:
         raise ValueError("key_plane: packed rows must be 16-byte aligned "
                          "(the tiles are bulk-copied)")
@@ -146,8 +122,8 @@ def member_block_args(tcols, kcols, valid: torch.Tensor, member, resolved,
     """Check the card inputs of K1 (a slot-major table) and return the
     arguments of its ``kernels.launch`` into the bool ``[nq]`` flags
     ``member`` and ``resolved``."""
-    dev = _on_card("member_block", (*kcols, valid, member, resolved),
-                   table=tcols)
+    dev = fpset.on_card("member_block", (*kcols, valid, member, resolved),
+                        table=tcols)
     k, nq, cap1 = len(kcols), kcols[0].shape[0], tcols[0].shape[0]
     cap = cap1 - 1
     if k not in (2, 3) or len(tcols) != k:
@@ -155,11 +131,11 @@ def member_block_args(tcols, kcols, valid: torch.Tensor, member, resolved,
     if cap < 1 or cap & (cap - 1) or cap > 1 << 31:
         raise ValueError(f"member_block: bad table capacity {cap}")
     for t in tcols:
-        _expect("member_block", t, torch.int32, (cap1,))
+        fpset.expect("member_block", t, torch.int32, (cap1,))
     for t in kcols:
-        _expect("member_block", t, torch.int32, (nq,))
+        fpset.expect("member_block", t, torch.int32, (nq,))
     for t in (valid, member, resolved):
-        _expect("member_block", t, torch.bool, (nq,))
+        fpset.expect("member_block", t, torch.bool, (nq,))
         if t.data_ptr() % 4:  # four lanes' flags a uchar4
             raise ValueError("member_block: flags must be 4-byte aligned")
     q2 = kernels.ptr(kcols[2]) if k == 3 else None
@@ -190,11 +166,16 @@ def member_block(tcols, kcols, valid: torch.Tensor, rounds: int = TILE_R):
 # ------------------------------------------------------ the tiled flush
 
 
-def flush_acc_tiles(tcols, kcols, n_acc: int, fpm: torch.Tensor):
-    """One flush of ``nq`` candidate lanes into the table (in place):
-    lanes past ``n_acc`` and all-SENTINEL lanes are invalid.  Returns
-    ``(tcols, n_new, is_new bool[nq], fpm')`` with ``is_new`` in lane
-    order, exactly one True per distinct new key (its lowest lane)."""
+def flush_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None):
+    """One flush of ``nq`` candidate lanes into the table (in place),
+    with no host read: lanes past ``n_acc`` (an int or a 0-d tensor)
+    and all-SENTINEL lanes are invalid.  K1, the order-preserving
+    compaction of the survivors with their lane ids, then the insert
+    tail (H1 on the card) on the table's ``claims`` buffer (made when
+    not given).  Returns ``(tcols, n_new, is_new bool[nq], fpm')``:
+    ``n_new`` an int64 0-d tensor and ``fpm'`` on the lanes' device;
+    ``is_new`` is in lane order, exactly one True per distinct new key
+    (its lowest lane)."""
     nq = kcols[0].shape[0]
     k = len(kcols)
     dev = kcols[0].device
@@ -207,27 +188,25 @@ def flush_acc_tiles(tcols, kcols, n_acc: int, fpm: torch.Tensor):
     member, _resolved = member_block(tcols, kcols, valid, rounds_blk)
     survivors = valid & ~member
     ccols, _ = compact_by_flag(~survivors, (*kcols, lanei))
-    ckeys, cids = ccols[:k], ccols[k]
-    npend = int(survivors.sum())
     cw = max(nq // 4, min(nq, fpset.MIN_STAGE))
-    is_new = torch.zeros((nq + 1,), dtype=torch.bool, device=dev)
-    n_failed, rounds = 0, rounds_blk
-    claims = fpset.new_claims(tcols[0].shape[0] - 1, dev) if npend else None
-    for base in range(0, npend, cw):
-        end = min(base + cw, npend)
-        lid = cids[base:end]
-        new2, tcols, pending, r = fpset.probe_insert(
-            tcols, tuple(c[base:end] for c in ckeys),
-            torch.ones((end - base,), dtype=torch.bool, device=dev),
-            max_probes=max_probes, lane_ids=lid, claims=claims,
-        )
-        is_new[torch.where(new2, lid, nq).long()] = True
-        n_failed += int(pending.sum())
-        rounds += r
+    if claims is None:
+        claims = fpset.new_claims(tcols[0].shape[0] - 1, dev)
+    is_new, st = fpset.insert_tail(
+        tcols, ccols[:k], ccols[k], survivors.sum(), cw, claims, nq,
+        max_probes,
+    )
     is_new = is_new[:nq]
-    n_new = int(is_new.sum())
-    fpm = fpset.fpm_update(fpm, rounds, n_failed, int(valid.sum()))
-    return tcols, n_new, is_new, fpm
+    fpm = fpset.fpm_update(fpm.to(dev), rounds_blk + st[0], st[1],
+                           valid.sum())
+    return tcols, is_new.sum(), is_new, fpm
+
+
+def flush_acc_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None):
+    """:func:`flush_tiles` with the new-lane count read on the host (one
+    sync): ``(tcols, n_new int, is_new bool[nq], fpm')``."""
+    tcols, n_new, is_new, fpm = flush_tiles(tcols, kcols, n_acc, fpm,
+                                            claims)
+    return tcols, int(n_new), is_new, fpm
 
 
 # ------------------------------------------------------ K3: sieve mask
@@ -246,15 +225,15 @@ def sieve_mask_args(tcols, gen: torch.Tensor, cold: torch.Tensor,
     """Check the card inputs of K3 (a slot-major table) and return the
     arguments of its ``kernels.launch`` into ``out`` (int32
     ``[2K + 1, n]``)."""
-    dev = _on_card("sieve_mask_planes", (gen, cold, out), table=tcols)
+    dev = fpset.on_card("sieve_mask_planes", (gen, cold, out), table=tcols)
     k, n = len(tcols), gen.shape[0]
     if k not in (2, 3):
         raise ValueError(f"sieve_mask_planes: K must be 2 or 3 (got {k})")
     for t in tcols:
-        _expect("sieve_mask_planes", t, torch.int32, (n,))
-    _expect("sieve_mask_planes", gen, torch.int32, (n,))
-    _expect("sieve_mask_planes", cold, torch.bool, (n,))
-    _expect("sieve_mask_planes", out, torch.int32, (2 * k + 1, n))
+        fpset.expect("sieve_mask_planes", t, torch.int32, (n,))
+    fpset.expect("sieve_mask_planes", gen, torch.int32, (n,))
+    fpset.expect("sieve_mask_planes", cold, torch.bool, (n,))
+    fpset.expect("sieve_mask_planes", out, torch.int32, (2 * k + 1, n))
     return ("sieve_mask", "ptt_sieve_mask", kernels.ptr(tcols[0]),
             kernels.ptr(gen), kernels.ptr(cold), kernels.ptr(out), n, k,
             kernels.stream(dev))

@@ -128,6 +128,110 @@ def test_sieve_mask_kernel(card, K, cap1):
         assert torch.equal(g.cpu(), w)
 
 
+def _filled(rng, cap, K, n_fill, device="cpu"):
+    """A slot-major table holding ``n_fill`` random keys (plain insert on
+    the CPU), and the keys."""
+    fill = from_jax_arrays(*(_rand_u32(rng, n_fill) for _ in range(K)))
+    tcols = fpset.empty_cols(cap, K, "cpu")
+    _n, tcols, pending, _r = fpset.probe_insert(
+        tcols, fill, torch.ones(n_fill, dtype=torch.bool)
+    )
+    assert not pending.any()
+    return fpset.slot_major(tcols, device), fill
+
+
+def _tail_vs_plain(card, tcols, ckeys, cids, npend, cw, n_ids):
+    """H1 and its plain version on two copies of the card table: equal
+    ``is_new``, stats and table slots (slot ``cap`` is the plain loop's
+    trash row), and the bids left unclaimed."""
+    cap = tcols[0].shape[0] - 1
+    ta, tb = fpset.slot_major(tcols, card), fpset.slot_major(tcols, card)
+    ca, cb = fpset.new_claims(cap, card), fpset.new_claims(cap, card)
+    ck = tuple(c.to(card) for c in ckeys)
+    ci = cids.to(card)
+    npd = torch.full((), npend, dtype=torch.int64, device=card)
+    got = fpset.insert_tail(ta, ck, ci, npd, cw, ca, n_ids)
+    want = fpset.insert_tail_plain(tb, ck, ci, npd, cw, cb, n_ids)
+    assert torch.equal(got[0][:n_ids], want[0][:n_ids])
+    assert torch.equal(got[1], want[1])
+    for a, b in zip(ta, tb):
+        assert torch.equal(a[:cap], b[:cap])
+    assert torch.equal(ca, fpset.new_claims(cap, card))
+    return got
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_insert_tail_kernel_flush(card, K):
+    """A flush's tail: dup-heavy survivors of a half-full table, fewer
+    survivors than lanes, several chunks."""
+    rng = np.random.default_rng(40 + K)
+    tcols, fill = _filled(rng, 1 << 16, K, 20_000)
+    nq = 30_011
+    pick = rng.integers(0, 20_000, nq)
+    fresh = torch.as_tensor(rng.random(nq) < 0.5)
+    keys = tuple(
+        torch.where(fresh, from_jax_arrays(_rand_u32(rng, nq))[0], f[pick])
+        for f in fill
+    )
+    ids = torch.as_tensor(np.sort(rng.choice(3 * nq, nq, replace=False))
+                          .astype(np.int32))
+    is_new, st = _tail_vs_plain(card, tcols, keys, ids, nq - 17, 7000,
+                                3 * nq)
+    assert 0 < int(is_new[:3 * nq].sum()) < nq and int(st[1]) == 0
+
+
+def test_insert_tail_kernel_duplicates(card):
+    """Every key eight times over the chunk: the lowest lane wins."""
+    rng = np.random.default_rng(50)
+    n = 8 * 4096
+    base = from_jax_arrays(*(_rand_u32(rng, 4096) for _ in range(2)))
+    perm = torch.as_tensor(rng.permutation(n))
+    keys = tuple(c.repeat(8)[perm].contiguous() for c in base)
+    tcols = fpset.empty_cols(1 << 16, 2, "cpu")
+    is_new, _ = _tail_vs_plain(card, tcols, keys,
+                               torch.arange(n, dtype=torch.int32), n, n, n)
+    assert int(is_new[:n].sum()) == 4096
+
+
+def test_insert_tail_kernel_long_chains(card):
+    """A table filled to load 1/2 by the insert: long probe chains."""
+    rng = np.random.default_rng(60)
+    cap, n = 1 << 15, 6000
+    tcols, _ = _filled(rng, cap, 2, cap // 2 - n)
+    keys = from_jax_arrays(*(_rand_u32(rng, n) for _ in range(2)))
+    _is_new, st = _tail_vs_plain(card, tcols, keys,
+                                 torch.arange(n, dtype=torch.int32), n,
+                                 1024, n)
+    assert int(st[0]) > 6 * 8  # many rounds a chunk
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_rehash_on_card_equals_cpu(card, K):
+    """The rehash through H1: the CPU rehash's table, slot for slot."""
+    rng = np.random.default_rng(70 + K)
+    old, _ = _filled(rng, 1 << 16, K, 30_000)
+    want, wf = fpset.rehash_cols(old, fpset.empty_cols(1 << 17, K, "cpu"),
+                                 chunk=1 << 13)
+    got, gf = fpset.rehash_cols(fpset.slot_major(old, card),
+                                fpset.empty_cols(1 << 17, K, card),
+                                chunk=1 << 13)
+    assert int(gf) == int(wf) == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a[:-1].cpu(), b[:-1])
+
+
+def test_insert_tail_rejects_columnar_table(card):
+    tcols = tuple(torch.full((4097,), -1, dtype=torch.int32, device=card)
+                  for _ in range(2))
+    keys = tuple(torch.zeros((64,), dtype=torch.int32, device=card)
+                 for _ in range(2))
+    ids = torch.arange(64, dtype=torch.int32, device=card)
+    npend = torch.full((), 64, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="slot-major"):
+        fpset.insert_tail(tcols, keys, ids, npend, 64,
+                          fpset.new_claims(4096, card), 64)
+
+
 def test_tiered_engine_on_card_equals_cpu(card):
     """The 253,361-state config under a budget that forces eviction: the
     CPU run's level sizes and merged rows and logs."""
@@ -149,11 +253,12 @@ def test_tiered_engine_on_card_equals_cpu(card):
         assert np.array_equal(x, y)
 
 
-def test_engine_on_card_equals_cpu(card):
+@pytest.mark.parametrize("fuse", ["level", "stage"])
+def test_engine_on_card_equals_cpu(card, fuse):
     """The shipped cfg on the card: the CPU run's rows and logs."""
     m = CompactionModel(pyeval.SHIPPED_CFG)
     a = DeviceChecker(m, sub_batch=1000, device="cpu")
-    b = DeviceChecker(m, sub_batch=1000, device=card)
+    b = DeviceChecker(m, sub_batch=1000, device=card, fuse=fuse)
     ra, rb = a.run(), b.run()
     assert (rb.distinct_states, rb.diameter) == (45198, 20)
     assert rb.level_sizes == ra.level_sizes

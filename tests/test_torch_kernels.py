@@ -174,6 +174,95 @@ def test_flush_matches_jax(cap_log2, K, nq, dup_frac, n_acc_frac,
     assert gn > 0
 
 
+# FLUSH_SHAPES' tables at load <= 1/2 after two flushes (the contract
+# under which the tiled and the staged flush agree)
+SYNC_FREE_SHAPES = [
+    (13, 2, 1000, 0.0, 1.0, 0.25),
+    (11, 2, 777, 0.5, 0.61, 0.25),
+    (14, 3, 3000, 0.3, 1.0, 0.125),
+    (14, 2, 5000, 0.9, 0.83, 0.25),
+]
+
+
+@pytest.mark.parametrize("cap_log2,K,nq,dup_frac,n_acc_frac,fill_frac",
+                         SYNC_FREE_SHAPES)
+def test_sync_free_flush_matches_jax(cap_log2, K, nq, dup_frac, n_acc_frac,
+                                     fill_frac):
+    """``flush_tiles`` (no host read: ``n_new`` a 0-d tensor, ``n_acc``
+    one too) against ``flush_acc_tiles``, the JAX ``flush_acc_tiles``
+    and the JAX ``fpset.flush_acc`` (the XLA flush of its default
+    path), over two flushes that reuse one bid buffer (the engine's
+    per-table ``claims``): ``is_new`` and ``n_new`` everywhere; the
+    metrics and the table slot for slot against the tiled flushes; the
+    flush, failure and valid-lane counts and the set of keys against
+    the staged XLA flush, which places keys in another order."""
+    rng = np.random.default_rng(cap_log2 * 37 + nq)
+    cap = 1 << cap_log2
+    tcols, fill = _filled_table(rng, cap, K, int(cap * fill_frac))
+    batches = []
+    for _ in range(2):
+        kc = _queries(rng, fill, nq, dup_frac)
+        batches.append(tuple(
+            np.where(np.arange(nq) % 5 == 4, np.roll(c, 1), c) for c in kc
+        ))
+    n_acc = int(nq * n_acc_frac)
+    jt = jx = tuple(jnp.asarray(c) for c in tcols)
+    jfpm = jxfpm = jnp.zeros((jfpset.FPM_N,), jnp.int32)
+    ta = fpset.slot_major(from_jax_arrays(*tcols))
+    tb = fpset.slot_major(from_jax_arrays(*tcols))
+    claims = fpset.new_claims(cap, "cpu")
+    fa = fb = torch.zeros((fpset.FPM_N,), dtype=torch.int64)
+    for kcols in batches:
+        jk = tuple(jnp.asarray(c) for c in kcols)
+        jt, jn, jflag, jfpm = jtiles.flush_acc_tiles(
+            jt, jk, jnp.int32(n_acc), jfpm, probe_impl="tile"
+        )
+        jx, jxn, jxflag, jxfpm = jfpset.flush_acc(
+            jx, jk, jnp.int32(n_acc), jxfpm
+        )
+        tk = from_jax_arrays(*kcols)
+        ta, na, flag_a, fa = tiles.flush_tiles(
+            ta, tk, torch.tensor(n_acc), fa, claims
+        )
+        tb, nb, flag_b, fb = tiles.flush_acc_tiles(tb, tk, n_acc, fb)
+        assert isinstance(nb, int) and na.dim() == 0
+        assert int(na) == nb == int(jn) == int(jxn)
+        assert torch.equal(flag_a, flag_b)
+        for w in (jflag, jxflag):
+            assert np.array_equal(flag_a.numpy(), np.asarray(w).astype(bool))
+        assert torch.equal(fa, fb)
+        assert fa.tolist()[2] == 0  # no failures
+        assert fa.tolist() == jfpset.fpm_logical(np.asarray(jfpm)).tolist()
+        jl = jfpset.fpm_logical(np.asarray(jxfpm)).tolist()
+        got = fa.tolist()
+        assert [got[i] for i in (0, 2, 3)] == [jl[i] for i in (0, 2, 3)]
+        for a, b, w in zip(ta, tb, jt):
+            assert np.array_equal(_u32(a)[:cap], np.asarray(w)[:cap])
+            assert torch.equal(a[:cap], b[:cap])
+        got = {tuple(r) for r in np.stack([_u32(c)[:cap] for c in ta], 1)}
+        want = {tuple(r) for r in np.stack([np.asarray(c)[:cap] for c in jx],
+                                           1)}
+        assert got == want
+    assert torch.equal(claims, fpset.new_claims(cap, "cpu"))
+
+
+def test_insert_tail_plain_chunks_in_lane_order():
+    """H1's plain version over several chunks, with fewer pending lanes
+    than keys: equal keys across chunks resolve to the lowest lane id,
+    and only the first ``npend`` lanes are read."""
+    rng = np.random.default_rng(21)
+    keys = from_jax_arrays(*(_rand_u32(rng, 300) for _ in range(2)))
+    dup = tuple(torch.cat([c, c[:100], c[:50]]) for c in keys)
+    ids = torch.arange(450, dtype=torch.int32) * 3
+    tcols = fpset.empty_cols(1 << 11, 2, "cpu")
+    claims = fpset.new_claims(1 << 11, "cpu")
+    is_new, st = fpset.insert_tail(tcols, dup, ids, torch.tensor(420), 128,
+                                   claims, 1350)
+    assert torch.equal(torch.nonzero(is_new[:1350]).flatten(),
+                       ids[:300].long())
+    assert st.tolist()[1] == 0 and st.tolist()[0] >= 4  # >= 1 round a chunk
+
+
 def test_flush_min_lane_wins():
     """Equal new keys in one batch: one winner, the lowest lane."""
     rng = np.random.default_rng(7)
@@ -315,3 +404,17 @@ def test_wrappers_have_no_fallback():
     tc = fpset.empty_cols(8, 2, "meta")
     with pytest.raises(ValueError, match="no kernel"):
         tiles.member_block(tc, (valid.int(), valid.int()), valid)
+
+
+def test_insert_tail_has_no_fallback():
+    """H1's wrapper, like the others: a tensor on a device with no
+    kernel raises instead of taking the plain loop."""
+    tc = fpset.empty_cols(8, 2, "meta")
+    keys = tuple(torch.empty((4,), dtype=torch.int32, device="meta")
+                 for _ in range(2))
+    with pytest.raises(ValueError, match="no kernel"):
+        fpset.insert_tail(
+            tc, keys, keys[0], torch.empty((), dtype=torch.int64,
+                                           device="meta"),
+            4, fpset.new_claims(8, "meta"), 4,
+        )
