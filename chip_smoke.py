@@ -190,10 +190,25 @@ def main() -> int:
         err = int((o - (x + 1)).abs().max())
         if err:
             raise AssertionError(f"K0 computed {o.tolist()}")
+        lib = kernels.load()["selftest"]
+
+        def raw(fn, *args):
+            """A raw ctypes launch (not counted): K0's, and one of a
+            kernel that does no work, whose time is the launch floor."""
+            def call():
+                rc = fn(*args)
+                if rc:
+                    raise RuntimeError(f"raw launch: CUDA error {rc}")
+            return call
+
+        st = kernels.stream(dev)
         record["selftest"] = dict(
-            ms=ms, device_ms=ms,
+            ms=ms,
+            device_ms=_time_ms(torch, raw(lib.ptt_selftest, kernels.ptr(x),
+                                          kernels.ptr(o), 8, st), 200),
             plain_ms=_time_ms(torch, lambda: x + 1, 200),
             max_abs_err=err, bound=_bound(64, 8),
+            launch_floor_ms=_time_ms(torch, raw(lib.ptt_empty, st), 200),
         )
         regs = {
             n: re.findall(r"Used \d+ registers[^\n]*",
@@ -201,7 +216,10 @@ def main() -> int:
             for n in kernels.SOURCES
             if (kernels.BUILD_DIR / f"{n}.log").exists()
         }
-        return f"nvcc {built:.1f}s; K0 x+1 ok; ptxas {regs}"
+        rec = record["selftest"]
+        return (f"nvcc {built:.1f}s; K0 x+1 ok, {ms:.4f} ms through "
+                f"kernels.launch, {rec['device_ms']:.4f} ms raw against the "
+                f"launch floor {rec['launch_floor_ms']:.4f} ms; ptxas {regs}")
 
     _phase("1 build+selftest", build, failures)
     if failures:
@@ -420,22 +438,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 2d: H1, the insert tail, against its plain chunk loop
-    def tail_pair(tcols, ckeys, cids, npend, cw, n_ids):
-        """H1 and the plain loop on two copies of ``tcols``: is_new,
-        the stats and the table slot for slot (slot cap is the plain
-        loop's trash row) must be equal and the bids left unclaimed.
-        Returns H1's copy of the table, is_new and stats."""
+    def tail_pair(tcols, ckeys, cids, npend, cw, n_ids,
+                  max_probes=fpset.MAX_PROBES):
+        """H1 (a raw launch on the wrapper's arguments) and the plain
+        loop on two copies of ``tcols``: is_new, the stats and the table
+        slot for slot (slot cap is the plain loop's trash row) must be
+        equal and the bids left unclaimed.  Returns H1's copy of the
+        table, is_new and its four stats (probe rounds, failed lanes,
+        grid rounds, grid barriers)."""
         cap = tcols[0].shape[0] - 1
         ta, tb = fpset.slot_major(tcols), fpset.slot_major(tcols)
         ca, cb = fpset.new_claims(cap, dev), fpset.new_claims(cap, dev)
         npd = torch.full((), npend, dtype=torch.int64, device=dev)
-        ga = fpset.insert_tail(ta, ckeys, cids, npd, cw, ca, n_ids)
-        gb = fpset.insert_tail_plain(tb, ckeys, cids, npd, cw, cb, n_ids)
+        is_new = torch.zeros((n_ids + 1,), dtype=torch.bool, device=dev)
+        st = torch.zeros((4,), dtype=torch.int64, device=dev)
+        kernels.launch(*fpset.insert_tail_args(
+            ta, ckeys, cids, npd, cw, ca, is_new,
+            torch.empty((2, len(ckeys) + 2, cw), dtype=torch.int32,
+                        device=dev),
+            torch.empty((2,), dtype=torch.int32, device=dev), st,
+            max_probes))
+        gb = fpset.insert_tail_plain(tb, ckeys, cids, npd, cw, cb, n_ids,
+                                     max_probes)
         what = []
-        if not torch.equal(ga[0][:n_ids], gb[0][:n_ids]):
+        if not torch.equal(is_new[:n_ids], gb[0][:n_ids]):
             what.append("is_new")
-        if not torch.equal(ga[1], gb[1]):
-            what.append(f"stats {ga[1].tolist()} vs {gb[1].tolist()}")
+        if not torch.equal(st[:2], gb[1]):
+            what.append(f"stats {st.tolist()} vs {gb[1].tolist()}")
         diff = sum(int((a[:cap] != b[:cap]).sum()) for a, b in zip(ta, tb))
         if diff:
             what.append(f"{diff} table words")
@@ -443,7 +472,7 @@ def main() -> int:
             what.append("claims left claimed")
         if what:
             raise AssertionError("H1 vs plain: " + ", ".join(what))
-        return ta, ga[0][:n_ids], ga[1]
+        return ta, is_new[:n_ids], st.tolist()
 
     def filled(cap, k, n):
         """A slot-major table holding ``n`` random keys (plain insert in
@@ -502,8 +531,10 @@ def main() -> int:
         probes, sectors = probe_work(ta, ckeys, npend)
         notes.append(
             f"scaled flush: {npend} survivors of {nq} lanes, {n_new} new, "
-            f"{st[0].item()} rounds in {-(-npend // cw)} chunks, {probes} "
-            f"probes in {sectors} random sectors"
+            f"{st[0]} rounds in {-(-npend // cw)} chunks ({st[2]} grid "
+            f"rounds, {st[0] - st[2]} tail rounds, {st[3]} grid "
+            f"barriers; tail width {fpset.H1_TAIL}), {probes} probes in "
+            f"{sectors} random sectors"
         )
         # timing on a table restored before each call
         snap = fpset.slot_major(tcols)
@@ -516,9 +547,9 @@ def main() -> int:
                 a.copy_(b)
 
         out = (torch.zeros(nq + 1, dtype=torch.bool, device=dev),
-               torch.empty(cw, dtype=torch.uint8, device=dev),
+               torch.empty((2, k + 2, cw), dtype=torch.int32, device=dev),
                torch.empty(2, dtype=torch.int32, device=dev),
-               torch.empty(2, dtype=torch.int64, device=dev))
+               torch.empty(4, dtype=torch.int64, device=dev))
         args = fpset.insert_tail_args(work, ckeys, cids, npd, cw, claims,
                                       *out)
 
@@ -570,15 +601,16 @@ def main() -> int:
                            first.sort().values):
             raise AssertionError("duplicates: a winner is not the min lane")
         notes.append(f"duplicates: {int(is_new.sum())} winners of {n} "
-                     f"lanes, {st[0].item()} rounds")
+                     f"lanes, stats {st}")
         # (c) a 2^22-slot table filled to load 1/2 by the insert
         cap, n = 1 << 22, 1 << 18
         tcols, _ = filled(cap, 2, cap // 2 - n)
         keys = tuple(rand_i32(n) for _ in range(2))
         _t, is_new, st = tail_pair(tcols, keys, torch.arange(
             n, dtype=torch.int32, device=dev), n, n // 4, n)
-        notes.append(f"load 1/2: {int(is_new.sum())} new, rounds "
-                     f"{st[0].item()}, failed {st[1].item()}")
+        if not 2 <= st[2] < st[0]:
+            raise AssertionError(f"load 1/2: no tail after grid rounds {st}")
+        notes.append(f"load 1/2: {int(is_new.sum())} new, stats {st}")
         # (d) K = 3: half the survivors already in the table
         cap, n = 1 << 22, 1 << 19
         tcols, fill = filled(cap, 3, 1 << 20)
@@ -587,10 +619,38 @@ def main() -> int:
         keys = tuple(torch.where(old, f[pick], rand_i32(n)) for f in fill)
         _t, is_new, st = tail_pair(tcols, keys, torch.arange(
             n, dtype=torch.int32, device=dev), n, n // 4, n)
-        notes.append(f"K=3: {int(is_new.sum())} new of {n}, rounds "
-                     f"{st[0].item()}")
+        notes.append(f"K=3: {int(is_new.sum())} new of {n}, stats {st}")
         del tcols, fill
         torch.cuda.empty_cache()
+        # (f) the other paths of H1's control flow, each in one chunk:
+        # (log2 cap, keys filled, lanes, max_probes, the check of the
+        # kernel's (rounds, failed, grid rounds, barriers))
+        T = fpset.H1_TAIL
+        paths = {
+            "crosses T in round 0": (
+                18, 0, 20_000, 64,
+                lambda s: s[2] == 1 and s[0] > 1 and s[3] == 5),
+            "never reaches T": (
+                17, 1 << 16, 40_000, 2,
+                lambda s: s[0] == s[2] == 2 and s[1] > T),
+            "max_probes 4 in the grid": (
+                15, 1 << 14, 12_000, 4, lambda s: s[0] == 4 and s[1] > 0),
+            "max_probes 4 in the tail": (
+                15, 1 << 14, 1500, 4,
+                lambda s: s[2] == 0 and s[0] == 4 and s[1] > 0),
+            "npend 0": (12, 1000, 0, 64, lambda s: s == [0, 0, 0, 0]),
+            "npend 1": (12, 1000, 1, 64,
+                        lambda s: s[0] >= 1 and s[1:] == [0, 0, 0]),
+        }
+        for what, (cl, n_fill, n, mp, ok) in paths.items():
+            tcols, _ = filled(1 << cl, 2, n_fill)
+            m = max(n, 1)
+            _t, _n, st = tail_pair(tcols, (rand_i32(m), rand_i32(m)),
+                                   torch.arange(m, dtype=torch.int32,
+                                                device=dev), n, m, m, mp)
+            if not ok(st):
+                raise AssertionError(f"{what}: path not taken, stats {st}")
+            notes.append(f"{what}: stats {st}")
         # (e) a rehash of a 2^25-slot table at load 1/2 into 2^26 slots:
         # rehash_cols (H1 on the card) against its chunks through the
         # plain loop
@@ -1112,6 +1172,8 @@ def main() -> int:
     out = []
     for name in TIERED_PATH_KERNELS:
         rec = record[name]
+        extra = ({"launch_floor_ms": rec["launch_floor_ms"]}
+                 if "launch_floor_ms" in rec else {})
         out.append(dict(
             name=name,
             route="cuda",
@@ -1126,6 +1188,7 @@ def main() -> int:
             bound_ms=rec["bound"][0],
             bound_by=rec["bound"][1],
             library_ms=None,
+            **extra,
         ))
     print(smi, flush=True)
     print(json.dumps({"kernels": out}), flush=True)

@@ -45,6 +45,7 @@ I64 = ctypes.c_int64
 _SIGNATURES = {
     "selftest": {
         "ptt_selftest": (P, P, ctypes.c_int, P),
+        "ptt_empty": (P,),
         "ptt_error_string": (ctypes.c_int,),
     },
     "key_plane": {

@@ -28,8 +28,9 @@ is a host sync per round in eager PyTorch.  The flush's insert tail and
 the rehash run it in chunks (:func:`insert_tail_plain`) only for CPU
 tensors: on the card :func:`insert_tail` launches the H1 kernel
 (``kernels/csrc/insert_tail.cu``), which runs every chunk and round in
-one cooperative launch, reads the survivor count from device memory and
-leaves the same table slot for slot, with no host read.
+one cooperative launch (grid rounds over a shrinking list of active
+lanes, then a block-local tail), reads the survivor count from device
+memory and leaves the same table slot for slot, with no host read.
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ STAGES = ((4, 16), (16, MAX_PROBES))
 MIN_STAGE = 1 << 10
 
 _NO_LANE = 2**31 - 1  # claims fill: above every real lane id
+# H1's block-local tail width (``kTail`` of kernels/csrc/insert_tail.cu):
+# a chunk's rounds leave the grid once at most this many lanes are active
+H1_TAIL = 2048
 
 # flush metrics, int64: [flushes, probe_rounds, failures, valid_lanes,
 # max_probe_rounds] — the JAX package's ``fpm_logical`` view
@@ -257,33 +261,39 @@ def insert_tail_plain(tcols, ckeys, cids, npend, cw: int, claims,
 
 
 def insert_tail_args(tcols, ckeys, cids, npend, cw: int, claims, is_new,
-                     state, cnt, stats, max_probes: int = MAX_PROBES) -> tuple:
+                     lists, cnt, stats, max_probes: int = MAX_PROBES) -> tuple:
     """Check the card inputs of H1 and return the arguments of its
     ``kernels.launch``: a slot-major table, contiguous int32 keys and
     lane ids of one length, an int64 0-d ``npend``, the table's int32
     ``claims``, a bool ``is_new`` (zeroed, longer than every id), and
-    the scratch: uint8 ``state[cw]``, int32 ``cnt[2]``; int64
-    ``stats[2]`` receives (probe rounds, failed lanes)."""
-    dev = on_card("insert_tail",
-                  (*ckeys, cids, npend, claims, is_new, state, cnt, stats),
-                  table=tcols)
+    the scratch: int32 ``lists[2, K + 2, cw]`` (the active lanes of a
+    round, by its parity: K key rows, a lane-id row, a state row), int32
+    ``cnt[2]`` (their lengths); int64 ``stats[4]`` receives (probe
+    rounds, failed lanes, grid rounds, grid barriers).  Types and
+    shapes are checked before the device; any mismatch raises
+    ValueError."""
     k, n, cap1 = len(ckeys), cids.shape[0], tcols[0].shape[0]
     if k not in (2, 3) or len(tcols) != k:
         raise ValueError(f"insert_tail: K must be 2 or 3 (got {k})")
+    if cw < 1:
+        raise ValueError(f"insert_tail: want cw >= 1 (got {cw})")
     for c in (*ckeys, cids):
         expect("insert_tail", c, torch.int32, (n,))
     for t, dtype, shape in ((npend, torch.int64, ()),
                             (claims, torch.int32, (cap1,)),
-                            (state, torch.uint8, (cw,)),
+                            (lists, torch.int32, (2, k + 2, cw)),
                             (cnt, torch.int32, (2,)),
-                            (stats, torch.int64, (2,))):
+                            (stats, torch.int64, (4,))):
         expect("insert_tail", t, dtype, shape)
-    if is_new.dtype != torch.bool or is_new.dim() != 1 or cw < 1:
-        raise ValueError("insert_tail: want a bool is_new and cw >= 1")
+    if is_new.dtype != torch.bool or is_new.dim() != 1:
+        raise ValueError("insert_tail: want a 1-d bool is_new")
+    dev = on_card("insert_tail",
+                  (*ckeys, cids, npend, claims, is_new, lists, cnt, stats),
+                  table=tcols)
     p = kernels.ptr
     return ("insert_tail", "ptt_insert_tail", p(tcols[0]), p(ckeys[0]),
             p(ckeys[1]), p(ckeys[2]) if k == 3 else None, p(cids), p(npend),
-            p(claims), p(is_new), p(state), p(cnt), p(stats), cw,
+            p(claims), p(is_new), p(lists), p(cnt), p(stats), cw,
             cap1 - 2, k, max_probes, min(cw, n), kernels.stream(dev))
 
 
@@ -303,15 +313,16 @@ def insert_tail(tcols, ckeys, cids, npend, cw: int, claims, n_ids: int,
                                  n_ids, max_probes)
     dev = cids.device
     is_new = torch.zeros((n_ids + 1,), dtype=torch.bool, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
-    state = torch.empty((cw,), dtype=torch.uint8, device=dev)
+    stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+    lists = torch.empty((2, len(ckeys) + 2, cw), dtype=torch.int32,
+                        device=dev)
     cnt = torch.empty((2,), dtype=torch.int32, device=dev)
     args = insert_tail_args(tcols, ckeys, cids, npend, cw, claims, is_new,
-                            state, cnt, stats, max_probes)
+                            lists, cnt, stats, max_probes)
     if cids.shape[0]:
         with torch.cuda.device(dev):
             kernels.launch(*args)
-    return is_new, stats
+    return is_new, stats[:2]
 
 
 def rehash_cols(

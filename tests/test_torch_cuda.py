@@ -17,6 +17,7 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
     HBM_HEADROOM,
     DeviceChecker,
 )
+from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec, from_jax_arrays
@@ -218,6 +219,85 @@ def test_rehash_on_card_equals_cpu(card, K):
     assert int(gf) == int(wf) == 0
     for a, b in zip(got, want):
         assert torch.equal(a[:-1].cpu(), b[:-1])
+
+
+def _tail_raw_vs_plain(card, tcols, ckeys, cids, npend, cw, n_ids,
+                      max_probes=fpset.MAX_PROBES):
+    """:func:`_tail_vs_plain` through a raw launch of H1 on the
+    wrapper's arguments: also returns the kernel's grid rounds and grid
+    barriers (``stats[2:]``)."""
+    cap = tcols[0].shape[0] - 1
+    ta, tb = fpset.slot_major(tcols, card), fpset.slot_major(tcols, card)
+    ca, cb = fpset.new_claims(cap, card), fpset.new_claims(cap, card)
+    ck = tuple(c.to(card) for c in ckeys)
+    ci = cids.to(card)
+    npd = torch.full((), npend, dtype=torch.int64, device=card)
+    is_new = torch.zeros((n_ids + 1,), dtype=torch.bool, device=card)
+    stats = torch.zeros((4,), dtype=torch.int64, device=card)
+    args = fpset.insert_tail_args(
+        ta, ck, ci, npd, cw, ca, is_new,
+        torch.empty((2, len(ck) + 2, cw), dtype=torch.int32, device=card),
+        torch.empty((2,), dtype=torch.int32, device=card), stats,
+        max_probes)
+    kernels.launch(*args)
+    want = fpset.insert_tail_plain(tb, ck, ci, npd, cw, cb, n_ids,
+                                   max_probes)
+    assert torch.equal(is_new[:n_ids], want[0][:n_ids])
+    assert torch.equal(stats[:2], want[1])
+    for a, b in zip(ta, tb):
+        assert torch.equal(a[:cap], b[:cap])
+    assert torch.equal(ca, fpset.new_claims(cap, card))
+    return stats.tolist()
+
+
+# (cap_log2, K, keys filled, lanes, max_probes): each a path of H1's
+# control flow with the tail width T = fpset.H1_TAIL (2048)
+TAIL_PATHS = {
+    # 20,000 fresh lanes on a near-empty table: ~750 left after round 0
+    "crosses_T_in_round_0": (18, 2, 0, 20_000, 64),
+    # load 1/2, two rounds: more than T lanes pending to the end
+    "never_reaches_T": (17, 2, 1 << 16, 40_000, 2),
+    # load 1/2: the count halves a round, the tail after a few rounds
+    "tail_after_grid_rounds": (17, 2, (1 << 16) - 20_000, 20_000, 64),
+    "tail_after_grid_rounds_K3": (17, 3, (1 << 16) - 20_000, 20_000, 64),
+    # load 1/2, four rounds: failures in the grid and in the tail
+    "max_probes_grid": (15, 2, 1 << 14, 12_000, 4),
+    "max_probes_tail": (15, 2, 1 << 14, 1500, 4),
+    "npend_0": (12, 2, 1000, 0, 64),
+    "npend_1": (12, 2, 1000, 1, 64),
+}
+
+
+@pytest.mark.parametrize("path", sorted(TAIL_PATHS))
+def test_insert_tail_kernel_paths(card, path):
+    """Each path of H1's control flow (grid rounds, the block-local
+    tail, both, a failing max_probes, npend 0 and 1) equals the plain
+    loop: table slot for slot, is_new, probe rounds and failed lanes,
+    bids unclaimed; the kernel's own grid-round count shows the path."""
+    cap_log2, K, n_fill, n, max_probes = TAIL_PATHS[path]
+    rng = np.random.default_rng(80 + cap_log2 * 3 + K + n)
+    tcols, _ = _filled(rng, 1 << cap_log2, K, n_fill)
+    m = max(n, 1)
+    keys = from_jax_arrays(*(_rand_u32(rng, m) for _ in range(K)))
+    ids = torch.arange(m, dtype=torch.int32)
+    rounds, failed, grid_rounds, barriers = _tail_raw_vs_plain(
+        card, tcols, keys, ids, n, m, m, max_probes)
+    T = fpset.H1_TAIL
+    if path == "crosses_T_in_round_0":
+        # A_0, round 0's bid and decision, B_0, C_0 + A_1
+        assert grid_rounds == 1 and rounds > 1 and barriers == 5
+    elif path == "never_reaches_T":
+        assert rounds == grid_rounds == 2 and failed > T
+    elif path.startswith("tail_after_grid_rounds"):
+        assert 2 <= grid_rounds < rounds and failed == 0
+    elif path == "max_probes_grid":
+        assert n > T and rounds == 4 and failed > 0
+    elif path == "max_probes_tail":
+        assert grid_rounds == 0 and rounds == 4 and failed > 0
+    elif path == "npend_0":
+        assert [rounds, failed, grid_rounds, barriers] == [0, 0, 0, 0]
+    else:  # one lane: the tail alone, no grid barrier
+        assert rounds >= 1 and [failed, grid_rounds, barriers] == [0, 0, 0]
 
 
 def test_insert_tail_rejects_columnar_table(card):

@@ -263,6 +263,106 @@ def test_insert_tail_plain_chunks_in_lane_order():
     assert st.tolist()[1] == 0 and st.tolist()[0] >= 4  # >= 1 round a chunk
 
 
+# (cap_log2, K, nq, fill_frac, stage limit): a table near load 1/2 (long
+# probe chains); the JAX flush's insert tail gets max(DENSE_ROUNDS,
+# limit) probe rounds, so limit 4 makes lanes fail
+TAIL_STATS_SHAPES = [
+    (12, 2, 1500, 0.375, 64),
+    (12, 3, 1200, 0.4, 64),
+    (11, 2, 900, 0.45, 4),
+    (12, 3, 2000, 0.375, 4),
+]
+
+
+@pytest.mark.parametrize("cap_log2,K,nq,fill_frac,limit", TAIL_STATS_SHAPES)
+def test_insert_tail_plain_stats_match_jax_flush(cap_log2, K, nq, fill_frac,
+                                                 limit):
+    """``insert_tail_plain``'s (probe rounds, failed lanes), with the
+    prefilter's rounds added, are the JAX ``flush_acc_tiles`` flush
+    metrics on the same inputs, and its table and new lanes the JAX
+    flush's — the round and failure semantics H1 must reproduce,
+    failures included."""
+    rng = np.random.default_rng(cap_log2 * 41 + nq + limit)
+    cap = 1 << cap_log2
+    tcols, fill = _filled_table(rng, cap, K, int(cap * fill_frac))
+    kcols = _queries(rng, fill, nq, 0.2)
+    dense = jfpset.DENSE_ROUNDS
+    jt, jn, jflag, jfpm = jtiles.flush_acc_tiles(
+        tuple(jnp.asarray(c) for c in tcols),
+        tuple(jnp.asarray(c) for c in kcols), jnp.int32(nq),
+        jnp.zeros((jfpset.FPM_N,), jnp.int32), dense_rounds=dense,
+        stages=((4, limit),), probe_impl="tile",
+    )
+    jl = jfpset.fpm_logical(np.asarray(jfpm)).tolist()
+    # the port's flush up to its insert tail, then the tail's plain loop
+    tt = fpset.slot_major(from_jax_arrays(*tcols))
+    tk = from_jax_arrays(*kcols)
+    rounds_blk = max(tiles.TILE_R, dense)
+    valid = ~fpset.all_sentinel(tk)
+    member, _ = tiles.member_block(tt, tk, valid, rounds_blk)
+    surv = valid & ~member
+    ccols, _ = compact.compact_by_flag(
+        ~surv, (*tk, torch.arange(nq, dtype=torch.int32)))
+    cw = max(nq // 4, min(nq, fpset.MIN_STAGE))
+    is_new, st = fpset.insert_tail_plain(
+        tt, ccols[:K], ccols[K], surv.sum(), cw,
+        fpset.new_claims(cap, "cpu"), nq, max(dense, limit))
+    rounds, failed = st.tolist()
+    assert [rounds_blk + rounds, failed] == [jl[1], jl[2]]
+    assert (failed > 0) == (limit == 4)
+    assert np.array_equal(is_new[:nq].numpy(), np.asarray(jflag).astype(bool))
+    assert int(is_new[:nq].sum()) == int(jn)
+    for g, w in zip(tt, jt):
+        assert np.array_equal(_u32(g)[:cap], np.asarray(w)[:cap])
+
+
+def _tail_scratch(K=2, cw=64, n=64, **bad):
+    """H1's launch arguments on the CPU, with ``bad`` replacing any of
+    them (a CPU tensor is refused only after every type and shape)."""
+    args = dict(
+        tcols=fpset.empty_cols(128, K, "cpu"),
+        ckeys=tuple(torch.zeros((n,), dtype=torch.int32) for _ in range(K)),
+        cids=torch.zeros((n,), dtype=torch.int32),
+        npend=torch.zeros((), dtype=torch.int64), cw=cw,
+        claims=fpset.new_claims(128, "cpu"),
+        is_new=torch.zeros((n + 1,), dtype=torch.bool),
+        lists=torch.empty((2, K + 2, cw), dtype=torch.int32),
+        cnt=torch.empty((2,), dtype=torch.int32),
+        stats=torch.empty((4,), dtype=torch.int64),
+    )
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("name,bad", [
+    ("lists", torch.empty((2, 4, 64), dtype=torch.int64)),
+    ("lists", torch.empty((2, 64), dtype=torch.int32)),
+    ("lists", torch.empty((2, 3, 64), dtype=torch.int32)),
+    ("lists", torch.empty((2, 4, 63), dtype=torch.int32)),
+    ("cnt", torch.empty((2,), dtype=torch.int64)),
+    ("cnt", torch.empty((1,), dtype=torch.int32)),
+    ("stats", torch.empty((2,), dtype=torch.int64)),
+    ("stats", torch.empty((4,), dtype=torch.int32)),
+])
+def test_insert_tail_args_checks_scratch(name, bad):
+    """A scratch buffer of the wrong type or shape raises before any
+    launch; with the right ones, a CPU tensor raises for want of a
+    kernel."""
+    with pytest.raises(ValueError, match="insert_tail: want"):
+        fpset.insert_tail_args(**_tail_scratch(**{name: bad}))
+    with pytest.raises(ValueError, match="no kernel"):
+        fpset.insert_tail_args(**_tail_scratch())
+
+
+def test_insert_tail_args_lists_follow_K():
+    """K = 3 takes five list rows: the K = 2 shape is refused."""
+    with pytest.raises(ValueError, match="insert_tail: want"):
+        fpset.insert_tail_args(**_tail_scratch(
+            K=3, lists=torch.empty((2, 4, 64), dtype=torch.int32)))
+    with pytest.raises(ValueError, match="no kernel"):
+        fpset.insert_tail_args(**_tail_scratch(K=3))
+
+
 def test_flush_min_lane_wins():
     """Equal new keys in one batch: one winner, the lowest lane."""
     rng = np.random.default_rng(7)
