@@ -21,6 +21,17 @@ each with the kernels' launch counters zeroed before and read after:
   resolution, each held state for state against the untiered run, and
   the scaled config with its hot table capped at 2^25 slots.
 
+- the other three specs (phases 14-17): ``cli check`` of the shipped
+  subscription, bookkeeper and georeplication cfgs and of their seeded
+  bugs (the JAX engine's gid, depth and actions), the four scaled
+  bindings of ``SPEC_SCALED`` to their pinned level totals through the
+  CLI and the checker in the fused level (card syncs counted), 16b the
+  stage loop held to them (level sizes, rows, logs), and 17 the exact
+  K = 3 binding tiered at a hot table of 2^23 slots, equal to its
+  untiered run.  Phase 2e holds K2 (exact w = 1 and 3, hashed w = 5),
+  K1, H1 and K3 (K = 3) against their plain versions on flushes these
+  models make, and phase 18 profiles the K = 3 binding.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -58,7 +69,56 @@ SEED = 20261017
 MAIN_PATH_KERNELS = ("selftest", "member_block", "key_plane", "insert_tail")
 TIERED_PATH_KERNELS = MAIN_PATH_KERNELS + ("sieve_mask",)
 TIERED_TCAP = 1 << 25  # phase 11's hot-table ceiling
-SPECS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SPECS = os.path.join(ROOT, "specs")
+# the other three specs.  Shipped cfgs: (distinct states, diameter).
+SPEC_SHIPPED = {"subscription": (2272, 24), "bookkeeper": (297, 14),
+                "georeplication": (6400, 18)}
+# the seeded bugs: spec -> (invariant, CONSTANT overrides of the shipped
+# cfg, the JAX engine's violating gid, trace length, actions)
+SPEC_BUGS = {
+    "subscription": ("ExactlyOnceProcessing", {}, 95, 7, [
+        "Publish", "Deliver", "Process", "ConsumerCrash", "Deliver",
+        "Process"]),
+    "bookkeeper": ("ConfirmedEntryReadable", {"MaxBookieCrashes": 2}, 305,
+                   9, ["AddEntry", "WriteLand", "WriteLand", "AckArrive",
+                       "AckArrive", "AdvanceLAC", "BookieCrash",
+                       "BookieCrash"]),
+    "georeplication": ("NoDuplicateDelivery", {}, 79, 5, [
+        "Publish", "Replicate", "ReplicatorCrash", "Replicate"]),
+}
+# the scaled bindings: name -> (spec, CONSTANTS, max_states, level sizes
+# of the JAX DeviceChecker's run on the CPU, scripts/spec_scaled_pins.py).
+# geo_hashed is cut at 10,000,000 states inside level 15: its 14
+# complete levels are pinned
+SPEC_SCALED = {
+    "subscription": ("subscription", dict(MessageLimit=6, MaxCrashTimes=3),
+                     1 << 26, [
+        1, 2, 4, 8, 16, 34, 70, 144, 293, 581, 1126, 2123, 3886, 6887,
+        11789, 19445, 30826, 46893, 68358, 95427, 127534, 163135, 199697,
+        233834, 261742, 279799, 285237, 276825, 255179, 222816, 183690,
+        142395, 103314, 69752, 43523, 24910, 12947, 6079, 2555, 989, 352,
+        131, 41, 15, 3, 1]),
+    "bookkeeper": ("bookkeeper", dict(NumBookies=4, WriteQuorum=3,
+                                      AckQuorum=2, EntryLimit=4,
+                                      MaxBookieCrashes=1), 1 << 26, [
+        1, 5, 8, 26, 78, 219, 616, 1653, 4093, 9295, 19145, 35622, 59912,
+        91293, 126313, 159214, 183427, 193750, 188239, 168879, 140400,
+        108612, 78652, 53687, 34752, 21684, 13318, 8007, 4446, 2108, 793,
+        221, 41, 4]),
+    "geo_exact": ("georeplication", dict(NumClusters=3, PublishLimit=2,
+                                         MaxReplicatorCrashes=2), 1 << 26, [
+        1, 3, 12, 40, 117, 324, 828, 2019, 4626, 10034, 20592, 39954,
+        73270, 126891, 207450, 319770, 464331, 634014, 812330, 973923,
+        1088484, 1128608, 1078368, 941112, 741211, 517776, 312744, 156936,
+        61104, 16224, 2160]),
+    "geo_hashed": ("georeplication", dict(NumClusters=4, PublishLimit=2,
+                                          MaxReplicatorCrashes=1),
+                   10_000_000, [
+        1, 4, 22, 100, 401, 1484, 5074, 16188, 48274, 135540, 359486,
+        903584, 2158489, 4911548]),
+}
+SPEC_TIERED_TCAP = 1 << 23  # phase 17's hot-table ceiling (geo_exact)
 
 
 def _phase(name, fn, failures):
@@ -145,6 +205,7 @@ def main() -> int:
         from pulsar_tlaplus_tpu_torch.models.compaction import (
             CompactionModel,
         )
+        from pulsar_tlaplus_tpu_torch.models import registry
         from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
         from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
         from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
@@ -152,6 +213,7 @@ def main() -> int:
         from pulsar_tlaplus_tpu_torch.store.budget import (
             fmt_bytes as budget_fmt,
         )
+        from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -684,6 +746,216 @@ def main() -> int:
     shared.clear()
     torch.cuda.empty_cache()
 
+    # ---- 2e: K2, K1, H1 and K3 at the other specs' shapes, each on a
+    # flush (and table) that the spec's model makes on the card
+    spec_shapes = []  # one record per (kernel, shape)
+
+    def spec_model(spec, constants):
+        model, _c = registry.COMPILED[spec](
+            cfgmod.TLCConfig(constants=dict(constants)))
+        return model
+
+    def spec_flush(spec, constants, pins=None, level=None):
+        """A checker stopped at the end of BFS level ``level`` (its
+        table holds exactly levels 1..level, whose sizes ``pins``
+        gives; None: the whole run) and
+        the lanes of the flush that would come next: the first window of
+        the frontier (the widest level when ``level`` is None), expanded
+        and keyed as the engine does.  Returns (checker, packed, valid,
+        key cols, window rows)."""
+        model = spec_model(spec, constants)
+        if level is None:
+            ck = DeviceChecker(model, invariants=())
+            sizes = ck.run().level_sizes
+            level = max(range(1, len(sizes) + 1),
+                        key=lambda i: sizes[i - 1])
+        else:
+            ck = DeviceChecker(model, invariants=(),
+                               max_states=sum(pins[:level]))
+            sizes = ck.run().level_sizes
+            if sizes != pins[:level]:
+                raise AssertionError(f"{spec} levels {sizes} != pins")
+        base = sum(sizes[: level - 1])
+        n = min(sizes[level - 1], ck.G)
+        _st, valid, packed, kcols = ck._lanes(ck._rows[base: base + n])
+        return ck, packed, valid.reshape(-1), kcols, n
+
+    # these inputs fit the card's 50 MB L2 cache, where back-to-back
+    # launches find them: each raw launch is timed twice, cold (a 256 MB
+    # fill evicts the L2 before it: the time the byte bound speaks of)
+    # and warm (back to back, as a flush finds the keys K2 just wrote)
+    l2_evict = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+
+    def cold_ms(fn, iters, setup=None):
+        def before():
+            if setup is not None:
+                setup()
+            l2_evict.fill_(1)
+        return _time_each(torch, before, fn, iters)
+
+    def spec_record(kernel, shape, got_ms, warm_ms, plain_ms, nbytes, ops,
+                    **extra):
+        bound = _bound(nbytes, ops)
+        spec_shapes.append(dict(kernel=kernel, shape=shape,
+                                device_ms=got_ms, warm_ms=warm_ms,
+                                plain_ms=plain_ms, bound_ms=bound[0],
+                                bound_by=bound[1], **extra))
+        return (f"{kernel} {shape}: {got_ms:.5f} ms raw with a cold L2 "
+                f"({warm_ms:.5f} warm), plain {plain_ms:.4f} ms, bound "
+                f"{bound[0]:.5f} ms ({bound[1]})")
+
+    def spec_k2(ck, packed, valid, kcols, shape):
+        """K2 against its plain version on the window, then timed."""
+        ks, nc = ck.keys, packed.shape[0]
+        want = tiles.key_plane_plain(ks, packed, valid)
+        for i, (g, w) in enumerate(zip(kcols, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"K2 {shape} column {i}: {int((g != w).sum())} differ")
+        out = torch.empty((ks.ncols, nc), dtype=torch.int32, device=dev)
+        args = tiles.key_plane_args(ks, packed, valid, out)
+        ops = nc * (ks.W * (5 + 6 * ks.ncols) + 13 * ks.ncols) \
+            if not ks.exact else nc * ks.ncols
+        return spec_record(
+            "key_plane", shape,
+            cold_ms(lambda: kernels.launch(*args), 50),
+            _time_ms(torch, lambda: kernels.launch(*args), 100),
+            _time_ms(torch, lambda: tiles.key_plane_plain(ks, packed, valid),
+                     5),
+            nc * (ks.W * 4 + 1 + ks.ncols * 4), ops, nc=nc)
+
+    def probe_count(tcols, kcols, valid, rounds):
+        """The probes K1 makes on this data: a lane stops at its key or
+        at the first empty slot, within ``rounds``."""
+        cap = tcols[0].shape[0] - 1
+        h = fpset.slot_hash(kcols)
+        probes = torch.zeros_like(h)
+        live = valid.clone()
+        for r in range(rounds):
+            s = (h + (r * (r + 1) >> 1)) & (cap - 1)
+            sv = tuple(c[s] for c in tcols)
+            probes += live.long()
+            hit = sv[0] == kcols[0]
+            for a, b in zip(sv[1:], kcols[1:]):
+                hit = hit & (a == b)
+            live = live & ~(fpset.all_sentinel(sv) | hit)
+        return int(probes.sum())
+
+    def k_spec():
+        notes = []
+        # K2 at w = 1: the shipped subscription cfg's widest window
+        consts = {k: int(v) for k, v in cfgmod.load(
+            os.path.join(SPECS, "subscription.cfg")).constants.items()}
+        ck, packed, valid, kcols, n = spec_flush("subscription", consts)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"exact w=1 K=2 ({n} rows x A={ck.A})"))
+        # K2 at w = 5: geo_hashed's flush after level 12
+        _s, consts, _m, pins = SPEC_SCALED["geo_hashed"]
+        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
+                                                 pins, 12)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"hashed w=5 K=2 ({n} rows x A={ck.A})"))
+        del ck, packed, valid, kcols
+        # K2 at w = 3, K1 and H1 at K = 3: geo_exact's flush after level
+        # 20, on its table then (levels 1-20)
+        _s, consts, _m, pins = SPEC_SCALED["geo_exact"]
+        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
+                                                 pins, 20)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"exact w=3 K=3 ({n} rows x A={ck.A})"))
+        tcols, k, nq = ck._tcols, ck.K, packed.shape[0]
+        cap = tcols[0].shape[0] - 1
+        rounds = max(tiles.TILE_R, fpset.DENSE_ROUNDS)
+        vl = valid & ~fpset.all_sentinel(kcols)
+        got = tiles.member_block(tcols, kcols, vl, rounds)
+        want = tiles.member_block_plain(tcols, kcols, vl, rounds)
+        for g, w, what in zip(got, want, ("member", "resolved")):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"K1 K=3 {what}: {int((g != w).sum())} lanes differ")
+        n_probes = probe_count(tcols, kcols, vl, rounds)
+        flags = [torch.empty((nq,), dtype=torch.bool, device=dev)
+                 for _ in range(2)]
+        args = tiles.member_block_args(tcols, kcols, vl, *flags, rounds)
+        notes.append(spec_record(
+            "member_block", f"K=3, nq={nq} on a 2^{cap.bit_length() - 1}"
+            f"-slot table holding {ck._nv} keys",
+            cold_ms(lambda: kernels.launch(*args), 50),
+            _time_ms(torch, lambda: kernels.launch(*args), 100),
+            _time_ms(torch, lambda: tiles.member_block_plain(
+                tcols, kcols, vl, rounds), 5),
+            nq * (k * 4 + 1 + 2) + n_probes * k * 4,
+            nq * 10 * k + n_probes * (2 + 5 * k), nq=nq,
+            members=int(got[0].sum())))
+        # H1 on K1's survivors, against the plain loop, then timed on a
+        # table restored before each launch
+        surv = vl & ~got[0]
+        lane = torch.arange(nq, dtype=torch.int32, device=dev)
+        ccols, _ = compact_by_flag(~surv, (*kcols, lane))
+        ckeys, cids = ccols[:k], ccols[k]
+        npend = int(surv.sum())
+        cw = max(nq // 4, min(nq, fpset.MIN_STAGE))
+        ta, is_new, st = tail_pair(tcols, ckeys, cids, npend, cw, nq)
+        n_new = int(is_new.sum())
+        probes, _sectors = probe_work(ta, ckeys, npend)
+        del ta
+        snap, work = fpset.slot_major(tcols), fpset.slot_major(tcols)
+        claims = fpset.new_claims(cap, dev)
+        npd = torch.full((), npend, dtype=torch.int64, device=dev)
+        out = (torch.zeros(nq + 1, dtype=torch.bool, device=dev),
+               torch.empty((2, k + 2, cw), dtype=torch.int32, device=dev),
+               torch.empty(2, dtype=torch.int32, device=dev),
+               torch.empty(4, dtype=torch.int64, device=dev))
+        args = fpset.insert_tail_args(work, ckeys, cids, npd, cw, claims,
+                                      *out)
+
+        def restore():
+            for a, b in zip(work, snap):
+                a.copy_(b)
+            out[0].zero_()
+
+        notes.append(spec_record(
+            "insert_tail", f"K=3, {npend} survivors of {nq} lanes, {n_new} "
+            f"new, {st[0]} rounds",
+            cold_ms(lambda: kernels.launch(*args), 10, restore),
+            _time_each(torch, restore, lambda: kernels.launch(*args), 10),
+            _time_each(torch, restore, lambda: fpset.insert_tail_plain(
+                work, ckeys, cids, npd, cw, claims, nq), 3),
+            npend * (4 * k + 4) + probes * 4 * k + n_new * (4 * k + 1),
+            npend * 10 * k + probes * (2 + 5 * k), npend=npend))
+        del work, snap, claims, out
+        # K3 at K = 3 on the same table (the tiered path's shape in phase
+        # 17): generations 0-6 on the occupied slots, cutoff 3
+        ns = cap + 1
+        occ = ~fpset.all_sentinel(tcols) & (
+            torch.arange(ns, device=dev) < cap)
+        g = torch.where(occ, torch.randint(0, 7, (ns,), dtype=torch.int32,
+                                           device=dev, generator=gen), 0)
+        cold = occ & (g >= 1) & (g <= 3)
+        got = tiles.sieve_mask_planes(tcols, g, cold)
+        want = tiles.sieve_mask_planes_plain(tcols, g, cold)
+        for i, (a, b) in enumerate(zip(got[0] + got[1] + (got[2],),
+                                       want[0] + want[1] + (want[2],))):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"K3 K=3 plane {i}: {int((a != b).sum())} slots differ")
+        del got, want
+        out = torch.empty((2 * k + 1, ns), dtype=torch.int32, device=dev)
+        args = tiles.sieve_mask_args(tcols, g, cold, out)
+        notes.append(spec_record(
+            "sieve_mask", f"K=3 at {ns} slots, {int(cold.sum())} cold",
+            cold_ms(lambda: kernels.launch(*args), 20),
+            _time_ms(torch, lambda: kernels.launch(*args), 50),
+            _time_ms(torch, lambda: tiles.sieve_mask_planes_plain(
+                tcols, g, cold), 5),
+            ns * (4 * k + 4 + 1) + ns * (8 * k + 4), ns * (2 * k + 1),
+            slots=ns))
+        return "equal: " + "; ".join(notes)
+
+    _phase("2e K2/K1/H1/K3 at the other specs' shapes vs plain", k_spec,
+           failures)
+    torch.cuda.empty_cache()
+
     # ---- 3-6: the main path, launch counters zeroed around it
     kernels.reset_launches()
     per_phase = {}
@@ -884,13 +1156,16 @@ def main() -> int:
     # were read: this run is the profiler's, not the main path's)
     op_ms = {}  # phase -> {PyTorch op: (device ms, calls)}
 
-    def profile(hbm_budget=None, fuse="level", phase="8"):
+    def profile(hbm_budget=None, fuse="level", phase="8", model=None,
+                max_states=SCALED_TOTAL + 1):
+        """One run under ``torch.profiler``: the scaled compaction
+        config unless ``model`` is given."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tprofile
 
-        ck = DeviceChecker(CompactionModel(scaled_cfg()),
-                           max_states=SCALED_TOTAL + 1,
+        ck = DeviceChecker(model or CompactionModel(scaled_cfg()),
+                           max_states=max_states,
                            hbm_budget=hbm_budget, fuse=fuse)
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -1154,6 +1429,203 @@ def main() -> int:
     if tiered_budget:
         _phase("13 profile of the tiered scaled run",
                lambda: profile(tiered_budget[0], phase="13"), failures)
+
+    # ---- 14-17: the other three specs (the spec path), launch counters
+    # zeroed around them: the shipped cfgs, the seeded bugs and the
+    # scaled bindings through the CLI, the checker in both loops, and
+    # geo_exact tiered
+    spec_dir = os.path.join(ROOT, "build", "spec_cfgs")
+
+    def spec_cfg(spec, constants, tag):
+        """The shipped cfg of ``spec``, or a copy of it with
+        ``constants`` bound, written under build/spec_cfgs."""
+        path = os.path.join(SPECS, f"{spec}.cfg")
+        if not constants:
+            return path
+        with open(path) as f:
+            text = f.read()
+        for name, v in constants.items():
+            text, n = re.subn(rf"(\b{name}\s*=\s*)\d+", rf"\g<1>{v}", text)
+            if n != 1:
+                raise AssertionError(f"{spec}.cfg binds {name} {n} times")
+        os.makedirs(spec_dir, exist_ok=True)
+        out = os.path.join(spec_dir, f"{spec}_{tag}.cfg")
+        with open(out, "w") as f:
+            f.write(text)
+        return out
+
+    def spec_cli(spec, cfg, *flags):
+        """``cli check`` of ``spec`` at ``cfg``: (exit code, stdout, the
+        cumulative level totals of its progress log, (states, diameter)
+        of its summary)."""
+        out, err = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["check", os.path.join(SPECS, f"{spec}.tla"),
+                               "-config", cfg, *flags])
+        except SystemExit as e:
+            raise AssertionError(f"cli check {spec}: exit {e.code}") from e
+        text, log = out.getvalue(), err.getvalue()
+        totals = [int(x) for x in re.findall(r"level 1: (\d+) initial", log)]
+        totals += [int(x) for x in re.findall(r"\(total (\d+),", log)]
+        m = re.search(r"(\d+) distinct states found, search depth "
+                      r"\(diameter\) (\d+)", text)
+        return rc, text, totals, m and (int(m.group(1)), int(m.group(2)))
+
+    def spec_shipped():
+        notes = []
+        for spec, want in SPEC_SHIPPED.items():
+            rc, text, _t, got = spec_cli(spec, spec_cfg(spec, {}, ""))
+            if (rc, got) != (0, want) or "Error" in text:
+                raise AssertionError(f"{spec}: rc {rc}, {got}\n{text}")
+            notes.append(f"{spec} {got[0]}/{got[1]}: "
+                         f"{text.splitlines()[0]}")
+        return "; ".join(notes)
+
+    def spec_bugs():
+        notes = []
+        for spec, (inv, over, gid, depth, actions) in SPEC_BUGS.items():
+            cfg = spec_cfg(spec, over, "bug")
+            rc, text, _t, got = spec_cli(spec, cfg, "-invariant", inv)
+            lines = [f"Error: Invariant {inv} is violated.",
+                     "State 1: <Initial predicate>"] + [
+                f"State {i + 2}: <{a}>" for i, a in enumerate(actions)]
+            if (rc != 1 or not got or got[1] != depth
+                    or any(ln not in text for ln in lines)
+                    or f"State {depth + 1}:" in text):
+                raise AssertionError(f"{spec} {inv}: rc {rc}\n{text}")
+            # the checker: the JAX engine's gid, and a trace whose every
+            # lane was enabled when replayed
+            consts = {k: int(v)
+                      for k, v in cfgmod.load(cfg).constants.items()}
+            r = DeviceChecker(spec_model(spec, consts),
+                              invariants=(inv,)).run()
+            got = (r.violation, r.violation_gid, r.diameter, len(r.trace),
+                   r.trace_actions)
+            if got != (inv, gid, depth, depth, actions):
+                raise AssertionError(f"{spec} {inv}: {got}")
+            notes.append(f"{spec} {inv}: gid {gid}, {depth} states, "
+                         "rendered by the CLI, rc 1")
+        return "; ".join(notes)
+
+    spec_runs = {}  # scaled binding -> fused run's sizes, rows, logs, wall
+
+    def spec_scaled():
+        notes = []
+        for name, (spec, consts, max_states, sizes) in SPEC_SCALED.items():
+            pinned = list(itertools.accumulate(sizes))
+            cut = max_states < 1 << 26
+            rc, text, totals, got = spec_cli(
+                spec, spec_cfg(spec, consts, name), "-maxstates",
+                str(max_states))
+            if (rc != (3 if cut else 0) or totals[: len(pinned)] != pinned
+                    or (not cut and got != (pinned[-1], len(sizes)))):
+                raise AssertionError(
+                    f"{name} cli: rc {rc}, totals {totals} (want "
+                    f"{pinned}), {got}\n{text}")
+            model = spec_model(spec, consts)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ck = DeviceChecker(model, max_states=max_states)
+            r, card_syncs = _card_syncs(torch, ck.run)
+            st = ck.last_stats
+            if (r.level_sizes[: len(sizes)] != sizes or r.violation
+                    or r.deadlock or r.truncated != cut
+                    or (not cut and len(r.level_sizes) != len(sizes))):
+                raise AssertionError(
+                    f"{name}: levels {r.level_sizes} (want {sizes}), "
+                    f"{r.violation}, deadlock {r.deadlock}")
+            if card_syncs > st["host_syncs"] + 3:
+                raise AssertionError(
+                    f"{name}: {card_syncs} card syncs against "
+                    f"{st['host_syncs']} host reads + 3")
+            spec_runs[name] = (r.level_sizes, ck.merged_rows(),
+                               *ck.merged_logs(), r.wall_s,
+                               st["host_syncs"])
+            notes.append(
+                f"{name} (bits {model.layout.total_bits}, W {ck.W}, K "
+                f"{ck.K} {'exact' if ck.keys.exact else 'hashed'}, A "
+                f"{ck.A}): cli rc {rc}, level totals equal to the pins "
+                f"({len(pinned)} levels, {pinned[-1]}); checker "
+                f"{r.distinct_states} states, {len(r.level_sizes)} levels "
+                f"in {r.wall_s:.3f}s = {r.states_per_sec:.0f} st/s, "
+                f"host_syncs {st['host_syncs']} ({card_syncs} card syncs), "
+                f"syncs_per_level {st['syncs_per_level']}, fuse_levels "
+                f"{st['fuse_levels']}, table {st['fpset_table_cap']} "
+                f"slots, {st['fpset_flushes']} flushes, peak "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            del ck
+        return "; ".join(notes)
+
+    def spec_stage():
+        notes = []
+        for name, (spec, consts, max_states, _s) in SPEC_SCALED.items():
+            sizes, rows, par, lan, wall, syncs = spec_runs[name]
+            ck = DeviceChecker(spec_model(spec, consts),
+                               max_states=max_states, fuse="stage")
+            r = ck.run()
+            got = [ck.merged_rows(), *ck.merged_logs()]
+            if r.level_sizes != sizes or not all(
+                    a.shape == b.shape and (a == b).all()
+                    for a, b in zip(got, (rows, par, lan))):
+                raise AssertionError(f"{name}: stage differs from fused")
+            notes.append(
+                f"{name}: levels, rows and logs equal; stage "
+                f"{r.wall_s:.3f}s ({ck.last_stats['host_syncs']} syncs) "
+                f"against fused {wall:.3f}s ({syncs} syncs)")
+            del ck
+        return "; ".join(notes)
+
+    def spec_tiered():
+        spec, consts, max_states, _s = SPEC_SCALED["geo_exact"]
+        m = spec_model(spec, consts)
+        b = budget_for_table(m, SPEC_TIERED_TCAP, max_states=max_states)
+        ck = DeviceChecker(m, max_states=max_states, hbm_budget=b)
+        if ck.TCAP_MAX != SPEC_TIERED_TCAP:
+            raise AssertionError(f"budget {b}: table ceiling {ck.TCAP_MAX}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k3_before = kernels.LAUNCHES["sieve_mask"]
+        r = ck.run()
+        if ck.last_stats["spill_evictions"] < 1 or r.violation:
+            raise AssertionError(f"{spill_note(ck)}; {r.violation}")
+        same = same_run("geo_exact", spec_runs["geo_exact"][:4], ck, r)
+        return (
+            f"budget {b} ({budget_fmt(b)}), table ceiling "
+            f"{SPEC_TIERED_TCAP}, K={ck.K}: level sizes and merged {same} "
+            f"equal to phase 16's; {spill_note(ck)}; K3 launches "
+            f"{kernels.LAUNCHES['sieve_mask'] - k3_before}; "
+            f"{r.distinct_states} states in {r.wall_s:.2f}s; spill "
+            f"transfer {ck.last_stats['spill_transfer_s']}s, lookups "
+            f"{ck.tstore.stats.lookup_s:.2f}s; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+        )
+
+    kernels.reset_launches()
+    counted("14 specs: shipped cfgs (cli)", spec_shipped)
+    counted("15 specs: seeded bugs (cli + checker)", spec_bugs)
+    counted("16 specs: scaled bindings, fused level (cli + checker)",
+            spec_scaled)
+    if len(spec_runs) == len(SPEC_SCALED):
+        counted("16b specs: scaled bindings, -fuse stage, against 16",
+                spec_stage)
+        counted("17 specs tiered: geo_exact, hot table <= 2^23 slots",
+                spec_tiered)
+    spec_launches = dict(kernels.LAUNCHES)
+    print(f"[17b launches on the spec path] {spec_launches}", flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if spec_launches[name] <= 0:
+            failures.append(f"kernel {name} never launched on the spec path")
+    spec_runs.clear()
+    torch.cuda.empty_cache()
+    # ---- 18: where the time goes in the largest scaled spec binding
+    # (after the counts were read)
+    _s, consts, _m, _p = SPEC_SCALED["geo_exact"]
+    _phase("18 profile of georeplication scaled-exact",
+           lambda: profile(phase="18", model=spec_model("georeplication",
+                                                        consts),
+                           max_states=1 << 26), failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -1174,6 +1646,8 @@ def main() -> int:
         rec = record[name]
         extra = ({"launch_floor_ms": rec["launch_floor_ms"]}
                  if "launch_floor_ms" in rec else {})
+        shapes = [{k: v for k, v in e.items() if k != "kernel"}
+                  for e in spec_shapes if e["kernel"] == name]
         out.append(dict(
             name=name,
             route="cuda",
@@ -1188,6 +1662,8 @@ def main() -> int:
             bound_ms=rec["bound"][0],
             bound_by=rec["bound"][1],
             library_ms=None,
+            spec_launches=spec_launches[name],
+            **({"spec_shapes": shapes} if shapes else {}),
             **extra,
         ))
     print(smi, flush=True)

@@ -12,7 +12,7 @@ class CheckerResult:
     distinct_states: int
     diameter: int  # BFS levels; initial states = level 1 (as the oracle)
     violation: Optional[str] = None  # invariant name, or "Deadlock"
-    trace: Optional[list] = None  # list[pyeval.State]
+    trace: Optional[list] = None  # states as the model's to_pystate gives them
     trace_actions: Optional[list] = None  # action names along the trace
     deadlock: bool = False
     states_per_sec: float = 0.0

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from pulsar_tlaplus_tpu_torch.ops.packing import smap
-from pulsar_tlaplus_tpu_torch.ref import pyeval
 
 
 def build_trace(model, parent_log, lane_log, gid: int, max_depth: int):
@@ -21,7 +20,8 @@ def build_trace(model, parent_log, lane_log, gid: int, max_depth: int):
     most ``max_depth`` states) and replay its lanes through the model.
     The logs are indexed by absolute gid: int32 tensors, or numpy
     arrays (a tiered run's merged cold + window logs).  Returns
-    (pyeval.State list, action names)."""
+    (states as the model's ``to_pystate`` renders them, action
+    names)."""
     lanes = []
     g = int(gid)
     for _ in range(max_depth):
@@ -45,17 +45,15 @@ def replay_lane_trace(model, init_idx: int, lanes):
     """Replay a lane chain through the model's batched ``successors``
     (for models without a bespoke ``replay_trace``): from initial state
     ``#init_idx``, take each recorded lane in turn.  Returns (states via
-    ``to_pystate``, action names)."""
+    ``to_pystate``, action names via ``action_ids`` / ``action_names``)."""
     s = model.gen_initial(torch.tensor([init_idx], dtype=torch.int64))
-    to_py = getattr(model, "to_pystate", lambda x: x)
-    names = getattr(model, "action_names", pyeval.ACTION_NAMES)
-    aids = getattr(model, "action_ids", None)
-    states, actions = [to_py(s)], []
+    states, actions = [model.to_pystate(s)], []
     for lane in lanes:
-        succ, _valid = model.successors(s)
-        s = smap(lambda x: x[:, int(lane)], succ)
-        states.append(to_py(s))
-        actions.append(
-            names[int(aids[int(lane)])] if aids is not None else str(lane)
-        )
+        lane = int(lane)
+        succ, valid = model.successors(s)
+        if not bool(valid[0, lane]):
+            raise RuntimeError(f"lane {lane} not enabled during replay")
+        s = smap(lambda x: x[:, lane], succ)
+        states.append(model.to_pystate(s))
+        actions.append(model.action_names[int(model.action_ids[lane])])
     return states, actions

@@ -849,7 +849,7 @@ class DeviceChecker:
         elif self.fuse == "level":
             return self._run_level(t0)
 
-        # ---- level 1: initial states (compaction.tla:188-202)
+        # ---- level 1: the spec's initial states, in windows
         n_init = self.model.n_initial
         if n_init > self.SCAP:
             raise ValueError("initial-state set exceeds max_states")

@@ -1,5 +1,6 @@
 """Packed-state codec — the counterpart of ``pulsar_tlaplus_tpu/ops/packing.py``
-(``SState``, ``Layout.pack`` / ``unpack``) as batched tensor ops.
+(``SState``, ``Layout.pack`` / ``unpack``, ``StructLayout``) as batched
+tensor ops.
 
 Every state is ``W`` uint32 words (int32 bit patterns here) with the JAX
 package's bit layout, bit for bit: a field of ``n`` elements of ``width``
@@ -51,9 +52,16 @@ class SState(NamedTuple):
     consume: torch.Tensor  # i32[*B]: consumeTimes
 
 
-def smap(fn, *states: SState) -> SState:
-    """Apply ``fn`` field by field across states (a tree map)."""
-    return SState(*(fn(*fs) for fs in zip(*states)))
+def lane_planes(x: torch.Tensor, a: int) -> torch.Tensor:
+    """``[B, *S]`` -> a fresh ``[B, a, *S]``: every successor lane starts
+    as a copy of its source state's field."""
+    return x.unsqueeze(1).expand(x.shape[0], a, *x.shape[1:]).clone()
+
+
+def smap(fn, *states):
+    """Apply ``fn`` field by field across states of one NamedTuple class
+    (a tree map); the result has that class."""
+    return type(states[0])(*(fn(*fs) for fs in zip(*states)))
 
 
 class _FieldCodec:
@@ -227,3 +235,61 @@ class Layout:
             crash=sc("crash"),
             consume=sc("consume"),
         )
+
+
+class StructLayout:
+    """Bit layout over a NamedTuple state class of int32 scalars, vectors
+    and matrices (the JAX package's ``StructLayout``, bit for bit): the
+    fields in NamedTuple order, row-major within a field, each element
+    ``width`` bits.  ``specs`` maps field -> ``(shape, width_bits)``.
+    A batch of states carries its batch shape ``[*B]`` before every
+    field's own shape.  Every element must be a non-negative integer
+    below ``2**width`` (the models' canonical-form obligation), so the
+    words are unique per state."""
+
+    def __init__(self, state_cls, specs: dict):
+        self.state_cls = state_cls
+        missing = [f for f in state_cls._fields if f not in specs]
+        if missing:
+            raise ValueError(f"specs missing fields: {missing}")
+        self.shapes = {}
+        fields = []
+        for name in state_cls._fields:
+            shape, width = specs[name]
+            shape = tuple(shape)
+            n = math.prod(shape)
+            self.shapes[name] = (shape, n)
+            fields.append((name, n, width))
+        self._codec = _FieldCodec(fields)
+        self.total_bits = self._codec.total_bits
+        self.W = self._codec.W
+
+    def pack(self, s) -> torch.Tensor:
+        """States ``[*B]`` -> int32 words ``[*B, W]``."""
+        first = s[0]
+        nd = len(self.shapes[self.state_cls._fields[0]][0])
+        batch = tuple(first.shape[: first.dim() - nd])
+        n = math.prod(batch)
+        values = [getattr(s, name) for name in self.state_cls._fields]
+        words = self._codec.pack(values, n, first.device)
+        return words.reshape(*batch, self.W)
+
+    def unpack(self, words: torch.Tensor):
+        """int32 words ``[*B, W]`` -> states ``[*B]``."""
+        batch = tuple(words.shape[:-1])
+        d = self._codec.unpack(words.reshape(-1, self.W))
+        return self.state_cls(**{
+            name: d[name].reshape(*batch, *shape)
+            for name, (shape, _n) in self.shapes.items()
+        })
+
+    def from_numpy(self, fields, device="cpu"):
+        """A state of numpy (or array-like) fields, batched or not ->
+        int32 tensors on ``device``, batch shape ``[*B]`` (``[1]`` for
+        one unbatched state)."""
+        names = self.state_cls._fields
+        out = [torch.as_tensor(np.asarray(v).astype(np.int32)).to(device)
+               for v in fields]
+        if out[0].dim() == len(self.shapes[names[0]][0]):
+            out = [t[None] for t in out]
+        return self.state_cls(*out)

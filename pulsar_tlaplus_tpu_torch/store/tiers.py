@@ -121,18 +121,24 @@ class TieredStore:
             sel = (qhi >= hi[0]) & (qhi <= hi[-1]) & ~member
             if not sel.any():
                 continue
-            qh = qhi[sel]
+            qh, ql = qhi[sel], qlo[sel]
             left = np.searchsorted(hi, qh, "left")
             right = np.searchsorted(hi, qh, "right")
-            hit = np.zeros(qh.shape, bool)
-            simple = right - left == 1
-            idx = np.clip(left, 0, len(hi) - 1)
-            hit[simple] = lo[idx[simple]] == qlo[sel][simple]
-            wide = np.nonzero(right - left > 1)[0]
-            for t in wide:  # equal-hi blocks (3-column keys, ~never)
-                seg = lo[left[t]: right[t]]
-                p = np.searchsorted(seg, qlo[sel][t])
-                hit[t] = p < len(seg) and seg[p] == qlo[sel][t]
+            # within the block of equal ``hi`` (more than one key only
+            # with 3 columns: exact 3-column keys share their first two
+            # words often) ``lo`` is sorted: a binary search of all the
+            # queries' blocks at once for the first ``lo >= ql``
+            a, b = left.copy(), right.copy()
+            last = len(hi) - 1
+            while True:
+                open_ = a < b
+                if not open_.any():
+                    break
+                mid = (a + b) // 2
+                up = open_ & (lo[np.minimum(mid, last)] < ql)
+                a = np.where(up, mid + 1, a)
+                b = np.where(open_ & ~up, mid, b)
+            hit = (a < right) & (lo[np.minimum(a, last)] == ql)
             member[np.nonzero(sel)[0][hit]] = True
         self.stats.misses_resolved += int(len(qhi))
         self.stats.miss_hits += int(member.sum())

@@ -60,7 +60,7 @@ def render_state(s, c) -> str:
 
 
 def render_trace(
-    trace: List[pyeval.State],
+    trace: list,
     actions: Optional[List[str]],
     c,
 ) -> str:

@@ -8,6 +8,7 @@ is not installed:
 Tolerance: exact equality (integer work)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -18,12 +19,16 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
     DeviceChecker,
 )
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.models import registry
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec, from_jax_arrays
 from pulsar_tlaplus_tpu_torch.ref import pyeval
+from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
 pytestmark = pytest.mark.cuda
+SPECS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "specs")
 
 
 @pytest.fixture
@@ -40,12 +45,14 @@ def _rand_u32(rng, shape):
 @pytest.mark.parametrize(
     "total_bits,W,fp_bits",
     [(20, 1, None), (42, 2, None), (70, 3, None), (96, 3, 64),
-     (224, 7, 64), (618, 20, 64), (618, 20, 96)],
+     (137, 5, 64), (224, 7, 64), (618, 20, 64), (618, 20, 96)],
 )
 def test_key_plane_kernel(card, total_bits, W, fp_bits):
     """Every route of K2 (exact W = 2 unstaged, W = 20 staged, the
-    runtime-width staged kernel) with nc below one 256-row tile, not a
-    multiple of it, and at the scaled run's window (2^16 x 34 rows)."""
+    runtime-width staged kernel: exact W = 1 and 3 and hashed W = 5 as
+    the subscription, bookkeeper and georeplication specs key) with nc
+    below one 256-row tile, not a multiple of it, and at the scaled
+    run's window (2^16 x 34 rows)."""
     ks = KeySpec(total_bits, W, fp_bits)
     rng = np.random.default_rng(W)
     for nc in (1, 200, 4097, 100_003, (1 << 16) * 34):
@@ -341,6 +348,25 @@ def test_engine_on_card_equals_cpu(card, fuse):
     b = DeviceChecker(m, sub_batch=1000, device=card, fuse=fuse)
     ra, rb = a.run(), b.run()
     assert (rb.distinct_states, rb.diameter) == (45198, 20)
+    assert rb.level_sizes == ra.level_sizes
+    for k in ("rows", "parent", "lane"):
+        n = ra.distinct_states * (a.W if k == "rows" else 1)
+        assert torch.equal(b.last_bufs[k][:n].cpu(), a.last_bufs[k][:n])
+
+
+@pytest.mark.parametrize("fuse", ["level", "stage"])
+@pytest.mark.parametrize("spec,states,diameter", [
+    ("subscription", 2272, 24), ("bookkeeper", 297, 14),
+    ("georeplication", 6400, 18)])
+def test_spec_engine_on_card_equals_cpu(card, spec, states, diameter, fuse):
+    """The shipped cfgs of the other three specs on the card (exact keys
+    at W = 1, 1 and 2): the CPU run's rows and logs."""
+    tlc = cfgmod.load(os.path.join(SPECS, f"{spec}.cfg"))
+    m, _c = registry.COMPILED[spec](tlc)
+    a = DeviceChecker(m, sub_batch=200, device="cpu")
+    b = DeviceChecker(m, sub_batch=200, device=card, fuse=fuse)
+    ra, rb = a.run(), b.run()
+    assert (rb.distinct_states, rb.diameter) == (states, diameter)
     assert rb.level_sizes == ra.level_sizes
     for k in ("rows", "parent", "lane"):
         n = ra.distinct_states * (a.W if k == "rows" else 1)

@@ -36,3 +36,5 @@ def test_port_imports_no_jax():
     assert len(names) >= 20
     for mod in ("budget", "compress", "sieve", "tiers"):
         assert f"pulsar_tlaplus_tpu_torch.store.{mod}" in names
+    for mod in ("subscription", "bookkeeper", "georeplication"):
+        assert f"pulsar_tlaplus_tpu_torch.models.{mod}" in names
