@@ -32,6 +32,22 @@ each with the kernels' launch counters zeroed before and read after:
   K1, H1 and K3 (K = 3) against their plain versions on flushes these
   models make, and phase 18 profiles the K = 3 binding.
 
+- liveness (phases 19-21): ``Termination`` of the 9,445,152-state tier
+  of ``scripts/liveness_scale.py`` under ``wf_next`` and ``none``, its
+  edge count, out-degree histogram, edge digest and verdicts held to the
+  JAX engine's pins (``LIVENESS_PINS``, ``scripts/liveness_pins.py``)
+  and its edges to an independent recount of 65,536 sampled states;
+  then the 253,361-state config (API, ``cli check -property``, and
+  tiered at a tight budget), the ``consumer_on`` lasso oracle and the
+  other three specs' shipped cfgs, each to its pins.  Phase 22 holds K2
+  against its plain version at the sweep's chunk shape (2^23 lanes).
+- simulation (phases 23-24): one round of 4,096 and of 65,536 walkers at
+  depth 64 on the scaled config, the card's syncs counted against one a
+  segment; both seeded compaction bugs found at the shipped cfg, each
+  trace verified and replayed on the oracle, and the same seed's run on
+  the CPU identical (trace and counters).  Phase 25 profiles the 9m
+  liveness run and the 65,536-walker simulation.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -119,6 +135,68 @@ SPEC_SCALED = {
         903584, 2158489, 4911548]),
 }
 SPEC_TIERED_TCAP = 1 << 23  # phase 17's hot-table ceiling (geo_exact)
+# liveness: the 9m tier of scripts/liveness_scale.py (MessageSentLimit 4,
+# |K| 2, |V| 2, CompactionTimesLimit 3, MaxCrashTimes 2, producer
+# modeled), its state count by the native checker, and the knobs of its
+# run (windows of 2^16 states, sweep chunks of 2^19 states = 2^23 lanes)
+TIER9M_STATES = 9_445_152
+LIVENESS_9M_KW = dict(frontier_chunk=1 << 16, visited_cap=1 << 24,
+                      max_states=12_000_000, sweep_chunk=1 << 19)
+# the JAX LivenessChecker's results on the CPU (scripts/liveness_pins.py):
+# edge count, bincount of the out-degrees, SHA-256 of the edge list
+# (engine/liveness.edge_digest), and per fairness (holds, reason, lasso
+# prefix, lasso cycle)
+_HOLDS = (True, "all fair behaviors reach the goal", None, None)
+_UNFAIR = (False, "stuttering counterexample: initial state #0 may "
+           "stutter forever without reaching the goal (no fairness "
+           "assumed)", [0], [0])
+LIVENESS_PINS = {
+    "9m": dict(
+        distinct=TIER9M_STATES, edges=17194979,
+        out_deg_hist=[1148175, 4179357, 3542940, 0, 0, 0, 0, 0, 0, 61543,
+                      268652, 244485],
+        edges_sha256="3ff36be381682d3193d0f5490c9bc056"
+        "fdad74c19b70573ef95c3d2374c3b0e2",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+    "full": dict(
+        distinct=253361, edges=420805,
+        out_deg_hist=[23328, 155358, 60507, 0, 0, 0, 0, 0, 0, 1171, 9073,
+                      3924],
+        edges_sha256="88103a3ee5b79a9cdd17af9e01a23319"
+        "bcad75ea204c3a3ebaac6ff0a275c6b7",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+    "consumer_on": dict(
+        distinct=1654, edges=2597,
+        out_deg_hist=[176, 848, 480, 0, 13, 85, 52],
+        edges_sha256="50fb1f60d460f8c171e7314c62467516"
+        "c925b31175992f1c6e47b33b15780de1",
+        verdicts={
+            "wf_next": (False, "fair stuttering at a not-goal state with "
+                        "no var-changing successor",
+                        [0, 1, 6, 30, 86, 162, 270, 394, 522, 678, 834,
+                         995, 1187], [1187]),
+            "none": _UNFAIR}),
+    "subscription": dict(
+        distinct=2272, edges=6256, out_deg_hist=[8, 136, 648, 1096, 384],
+        edges_sha256="7e44a2a0bb33ad3703aab7d802f13130"
+        "64b0854feedf4011fa17d3df88d16c64",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+    "bookkeeper": dict(
+        distinct=297, edges=926, out_deg_hist=[8, 56, 91, 41, 12, 33, 40, 16],
+        edges_sha256="6ec4546fa2eff5958b023c1db919161f"
+        "3d45d783cebc74c17de9976db8ef72d5",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+    "georeplication": dict(
+        distinct=6400, edges=26940,
+        out_deg_hist=[7, 93, 498, 1359, 1995, 1533, 576, 156, 102, 53, 21, 6,
+                      1],
+        edges_sha256="21ef24318a31aa0697cabaa8701516e8"
+        "4c7f7dfcd3708d8d5c452142e9333429",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+}
+# card syncs a simulation may make beyond one a segment: the result's
+# synchronize and first-use constant uploads
+SIM_SYNC_SLACK = 4
 
 
 def _phase(name, fn, failures):
@@ -196,10 +274,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
+        import numpy as np
+
         from pulsar_tlaplus_tpu_torch import cli
         from pulsar_tlaplus_tpu_torch.engine.device_bfs import (
             HBM_HEADROOM,
             DeviceChecker,
+        )
+        from pulsar_tlaplus_tpu_torch.engine.liveness import (
+            LivenessChecker,
+            edge_digest,
         )
         from pulsar_tlaplus_tpu_torch.kernels import build as kernels
         from pulsar_tlaplus_tpu_torch.models.compaction import (
@@ -210,6 +294,7 @@ def main() -> int:
         from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
         from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
         from pulsar_tlaplus_tpu_torch.ref import pyeval
+        from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
         from pulsar_tlaplus_tpu_torch.store.budget import (
             fmt_bytes as budget_fmt,
         )
@@ -1005,17 +1090,13 @@ def main() -> int:
 
     counted("4 producer on, RetainNullKey=FALSE", full)
 
-    def check_trace(c, inv, depth, r):
-        """The run found ``inv`` violated at ``depth`` with a trace that
-        replays step by step on the oracle."""
-        if (r.violation, r.diameter, len(r.trace or ())) != (
-            inv, depth, depth
-        ):
-            raise AssertionError(f"{inv}: {r.violation} depth {r.diameter}")
+    def trace_ok(c, inv, trace, actions):
+        """The trace starts at Init, replays step by step on the oracle,
+        and only its last state violates ``inv``."""
         ok = pyeval.INVARIANTS[inv]
-        if r.trace[0] not in set(pyeval.initial_states(c)):
+        if trace[0] not in set(pyeval.initial_states(c)):
             raise AssertionError(f"{inv}: trace starts off Init")
-        for s, act, t in zip(r.trace, r.trace_actions, r.trace[1:]):
+        for s, act, t in zip(trace, actions, trace[1:]):
             if not any(
                 pyeval.ACTION_NAMES[a] == act and u == t
                 for a, u in pyeval.successors(c, s)
@@ -1023,8 +1104,17 @@ def main() -> int:
                 raise AssertionError(f"{inv}: {act} does not replay")
             if not ok(c, s):
                 raise AssertionError(f"{inv}: violated before the end")
-        if ok(c, r.trace[-1]):
+        if ok(c, trace[-1]):
             raise AssertionError(f"{inv}: last state does not violate")
+
+    def check_trace(c, inv, depth, r):
+        """The run found ``inv`` violated at ``depth`` with a trace that
+        replays step by step on the oracle."""
+        if (r.violation, r.diameter, len(r.trace or ())) != (
+            inv, depth, depth
+        ):
+            raise AssertionError(f"{inv}: {r.violation} depth {r.diameter}")
+        trace_ok(c, inv, r.trace, r.trace_actions)
         return f"{inv} length {depth} replays (gid {r.violation_gid})"
 
     def bugs():
@@ -1626,6 +1716,395 @@ def main() -> int:
            lambda: profile(phase="18", model=spec_model("georeplication",
                                                         consts),
                            max_states=1 << 26), failures)
+    torch.cuda.empty_cache()
+
+    # ---- 19-21: liveness, launch counters zeroed around it
+    kernels.reset_launches()
+    live = {}
+
+    def live_check(what, lc, pin, fairness):
+        """The checker's verdict for ``fairness`` (and, once the sweep
+        ran, its edge list) against the JAX engine's pins; returns the
+        result."""
+        lc.fairness = fairness
+        r = lc.run()
+        got = (r.holds, r.reason, r.lasso_prefix, r.lasso_cycle)
+        if r.distinct_states != pin["distinct"]:
+            raise AssertionError(f"{what}: {r.distinct_states} states")
+        if got != pin["verdicts"][fairness]:
+            raise AssertionError(f"{what} {fairness}: {got} != pin "
+                                 f"{pin['verdicts'][fairness]}")
+        if fairness == "wf_next":
+            src, dst, out_deg = lc._edge_cache
+            edges = dict(edges=len(src),
+                         out_deg_hist=np.bincount(out_deg).tolist(),
+                         edges_sha256=edge_digest(src, dst))
+            for k, v in edges.items():
+                if v != pin[k]:
+                    raise AssertionError(f"{what}: {k} {v} != pin {pin[k]}")
+        return r
+
+    def edge_invariants(what, lc, n):
+        """Every dst in [0, n), no self-loop, out-degrees summing to the
+        edge count."""
+        src, dst, out_deg = lc._edge_cache
+        if len(dst) and (dst.min() < 0 or dst.max() >= n):
+            raise AssertionError(f"{what}: dst out of [0, {n})")
+        if (src == dst).any() or int(out_deg.sum()) != len(src):
+            raise AssertionError(f"{what}: self-loop or out-degree sum")
+
+    def recount(lc, n_sample=1 << 16):
+        """An independent recount of the var-changing successors of
+        ``n_sample`` sampled states: ``model.successors`` of each, its
+        key (plain ``KeySpec.make``) looked up by ``torch.searchsorted``
+        in the sorted int64 keys of all rows, against the sweep's edge
+        list (out-degree and dst in lane order).  Returns (states,
+        edges) checked."""
+        m, rows = lc.model, lc._rows
+        n = rows.shape[0]
+        if lc.K != 2:
+            raise AssertionError(f"recount needs K = 2 keys, not {lc.K}")
+        sk, gid = torch.sort(tiles._key64(*lc.keys.make(rows)))
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        samp = torch.unique(torch.randint(0, n, (n_sample,), device=dev,
+                                          generator=g))
+        succ, valid = m.successors(m.layout.unpack(rows[samp]))
+        qk = tiles._key64(*lc.keys.make(
+            m.layout.pack(succ).reshape(-1, m.layout.W)))
+        pos = torch.searchsorted(sk, qk).clamp(max=n - 1)
+        vq = valid.reshape(-1)
+        if not bool(((sk[pos] == qk) | ~vq).all()):
+            raise AssertionError("recount: a successor missed the table")
+        dst = gid[pos]
+        keep = vq & (dst != samp.repeat_interleave(m.A))
+        want_dst = dst[keep].cpu().numpy()
+        want_cnt = keep.reshape(-1, m.A).sum(1).cpu().numpy()
+        s_np = samp.cpu().numpy()
+        esrc, edst, out_deg = lc._edge_cache
+        cnt = out_deg[s_np]
+        if not np.array_equal(cnt, want_cnt):
+            raise AssertionError("recount: out-degrees differ")
+        lo = np.searchsorted(esrc, s_np)
+        idx = np.repeat(lo, cnt) + (np.arange(cnt.sum())
+                                    - np.repeat(np.cumsum(cnt) - cnt, cnt))
+        if not np.array_equal(edst[idx], want_dst):
+            raise AssertionError("recount: successor gids differ")
+        return len(s_np), int(cnt.sum())
+
+    tier9m = pyeval.Constants(
+        message_sent_limit=4, compaction_times_limit=3, num_keys=2,
+        num_values=2, retain_null_key=True, max_crash_times=2,
+        model_producer=True, model_consumer=False,
+    )
+
+    def liveness_9m():
+        torch.cuda.reset_peak_memory_stats(dev)
+        lc = LivenessChecker(CompactionModel(tier9m), fairness="wf_next",
+                             **LIVENESS_9M_KW)
+        t = time.time()
+        r = lc.run()
+        wall = time.time() - t
+        n = r.distinct_states
+        if n != TIER9M_STATES:
+            raise AssertionError(f"{n} states, want {TIER9M_STATES}")
+        edge_invariants("9m", lc, n)
+        st = dict(lc.last_stats)
+        src, dst, out_deg = lc._edge_cache
+        pin = LIVENESS_PINS.get("9m")
+        if pin is not None:
+            live_check("9m", lc, pin, "wf_next")
+            pinned = "edges, out-degree histogram, edge digest and " \
+                "verdicts equal to the JAX pins"
+        else:
+            pinned = "no JAX pin for this tier (edge invariants checked)"
+        n_s, n_e = recount(lc)
+        t = time.time()
+        r0 = (live_check("9m", lc, pin, "none") if pin is not None
+              else lc.run())
+        wall0 = time.time() - t
+        live["9m"] = lc
+        lasso = (f"lasso prefix {len(r.lasso_prefix)}, cycle "
+                 f"{len(r.lasso_cycle)}" if r.lasso_cycle else "no lasso")
+        return (
+            f"{n} states, diameter {st['diameter']}; wf_next: "
+            f"{'holds' if r.holds else 'VIOLATED'} ({r.reason}; {lasso}) "
+            f"in {wall:.2f}s = explore {st['explore_s']:.2f}s + goal "
+            f"{st['goal_s']:.2f}s + sweep {st['sweep_s']:.2f}s + analysis "
+            f"{st['analysis_s']:.2f}s; {st['edges']} edges, out_deg sum "
+            f"{int(out_deg.sum())}, histogram "
+            f"{np.bincount(out_deg).tolist()}; sweep {st['sweep_chunks']} "
+            f"chunks of {lc.SF} states, group {st['sweep_group']}, "
+            f"{st['sweep_reads']} host reads, peak device memory "
+            f"{st['sweep_peak_bytes'] / 2**30:.2f} GiB; {pinned}; recount "
+            f"of {n_s} sampled states ({n_e} edges) equal; none: "
+            f"{'holds' if r0.holds else 'VIOLATED'} ({r0.reason}; lasso "
+            f"prefix {len(r0.lasso_prefix or ())}, cycle "
+            f"{len(r0.lasso_cycle or ())}) in {wall0:.2f}s"
+        )
+
+    def liveness_pinned():
+        notes = []
+        full = dataclasses.replace(
+            pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
+        )
+        lc = LivenessChecker(CompactionModel(full), fairness="wf_next",
+                             frontier_chunk=4096, visited_cap=1 << 18)
+        for fairness in ("wf_next", "none"):
+            live_check("253361-state config", lc, LIVENESS_PINS["full"],
+                       fairness)
+        notes.append(f"253361-state config: {lc.last_stats['edges']} edges "
+                     "and both verdicts equal to the pins")
+        # the same through the CLI
+        with open(os.path.join(SPECS, "compaction.cfg")) as f:
+            text = f.read()
+        for a, b in (("ModelProducer = FALSE", "ModelProducer = TRUE"),
+                     ("RetainNullKey = TRUE", "RetainNullKey = FALSE")):
+            if a not in text:
+                raise AssertionError(f"compaction.cfg lacks {a!r}")
+            text = text.replace(a, b)
+        cfg = os.path.join(spec_dir, "compaction_full.cfg")
+        os.makedirs(spec_dir, exist_ok=True)
+        with open(cfg, "w") as f:
+            f.write(text)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                           "-config", cfg, "-property", "Termination",
+                           "-fairness", "wf_next"])
+        out = buf.getvalue()
+        want = ("Temporal property Termination (fairness=wf_next): "
+                "satisfied — all fair behaviors reach the goal")
+        if rc != 0 or want not in out or "253361 distinct" not in out:
+            raise AssertionError(f"cli -property: rc {rc}\n{out}")
+        notes.append("cli check -property Termination -fairness wf_next: "
+                     "satisfied, rc 0")
+        # tiered exploration at a tight budget: the same edges
+        probe = LivenessChecker(CompactionModel(full), hbm_budget="1T",
+                                frontier_chunk=4096, visited_cap=1 << 18)
+        budget = tight_budget(probe._checker)
+        lt = LivenessChecker(CompactionModel(full), fairness="wf_next",
+                             frontier_chunk=4096, visited_cap=1 << 18,
+                             hbm_budget=budget)
+        live_check("253361-state config tiered", lt, LIVENESS_PINS["full"],
+                   "wf_next")
+        ck = lt._checker
+        if not ck._row_base or not ck.last_stats["spill_evictions"]:
+            raise AssertionError("the tiered run spilled nothing")
+        notes.append(
+            f"tiered at budget {budget} ({ck.last_stats['spill_evictions']} "
+            f"evictions, {ck._row_base} rows spilled): the same edges")
+        cons = dataclasses.replace(
+            pyeval.SHIPPED_CFG, message_sent_limit=2,
+            compaction_times_limit=2, num_keys=1, num_values=1,
+            model_producer=True, model_consumer=True,
+        )
+        lc = LivenessChecker(CompactionModel(cons), fairness="wf_next",
+                             frontier_chunk=256, sweep_chunk=256,
+                             visited_cap=1 << 13)
+        for fairness in ("wf_next", "none"):
+            live_check("consumer_on", lc, LIVENESS_PINS["consumer_on"],
+                       fairness)
+        notes.append("consumer_on: violated, lasso gids "
+                     f"{LIVENESS_PINS['consumer_on']['verdicts']['wf_next'][2:]}"
+                     " as the JAX engine's")
+        for spec in ("subscription", "bookkeeper", "georeplication"):
+            model, _c = registry.COMPILED[spec](
+                cfgmod.load(os.path.join(SPECS, f"{spec}.cfg")))
+            lc = LivenessChecker(model, fairness="wf_next",
+                                 frontier_chunk=512, visited_cap=1 << 13)
+            for fairness in ("wf_next", "none"):
+                live_check(spec, lc, LIVENESS_PINS[spec], fairness)
+            notes.append(f"{spec}: {lc.last_stats['edges']} edges, both "
+                         "verdicts equal to the pins")
+        return "; ".join(notes)
+
+    counted("19 liveness: the 9m tier, Termination under wf_next and none",
+            liveness_9m)
+    counted("20 liveness: the pinned sizes (253361-state config, cli, "
+            "tiered, consumer_on, the other three specs)", liveness_pinned)
+    live_launches = dict(kernels.LAUNCHES)
+    print(f"[21 launches on the liveness path] {live_launches}", flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if live_launches[name] <= 0:
+            failures.append(f"kernel {name} never launched on the liveness "
+                            "path")
+
+    sweep_shape = {}
+
+    def k2_sweep():
+        """K2 at the sweep's chunk shape: the 9m tier's first chunk of
+        successor lanes, against its plain version and its bound."""
+        lc = live.pop("9m")
+        m = lc.model
+        succ, valid = m.successors(m.layout.unpack(lc._rows[: lc.SF]))
+        packed = m.layout.pack(succ).reshape(-1, m.layout.W)
+        vq = valid.reshape(-1)
+        ks, nc = lc.keys, packed.shape[0]
+        got = tiles.key_plane(ks, packed, vq)
+        want = tiles.key_plane_plain(ks, packed, vq)
+        err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(got, want))
+        if err:
+            raise AssertionError(f"K2 at the sweep shape: err {err}")
+        out = torch.empty((ks.ncols, nc), dtype=torch.int32, device=dev)
+        args = tiles.key_plane_args(ks, packed, vq, out)
+        nbytes = nc * (ks.W * 4 + 1 + ks.ncols * 4)
+        bound = _bound(nbytes, nc * ks.ncols)  # one select a column
+        sweep_shape.update(
+            shape=f"exact W={ks.W} K={ks.ncols}: the 9m tier's first "
+            f"sweep chunk, {lc.SF} states x A={m.A} = {nc} lanes",
+            ms=_time_ms(torch, lambda: tiles.key_plane(ks, packed, vq), 20),
+            device_ms=_time_ms(torch, lambda: kernels.launch(*args), 50),
+            plain_ms=_time_ms(
+                torch, lambda: tiles.key_plane_plain(ks, packed, vq), 5),
+            bound_ms=bound[0], bound_by=bound[1], bytes=nbytes,
+            max_abs_err=err,
+        )
+        del lc
+        return f"equal; {sweep_shape}"
+
+    _phase("22 K2 at the liveness sweep's chunk shape vs plain", k2_sweep,
+           failures)
+    torch.cuda.empty_cache()
+
+    # ---- 23-24: simulation
+    def sim_width(b):
+        """One round of ``b`` walkers at depth 64 on the scaled config,
+        its card syncs counted."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        sim = StreamingSimulator(CompactionModel(scaled_cfg()), n_walkers=b,
+                                 depth=64, seed=SEED)
+        r, card_syncs = _card_syncs(torch, sim.run)
+        st = r.stats
+        if (r.violation, r.steps, r.states_visited, r.walks) != (
+                None, b * 64, b * 65, b):
+            raise AssertionError(
+                f"{b} walkers: {r.violation}, {r.steps} steps, "
+                f"{r.states_visited} states, {r.walks} walks")
+        if card_syncs > r.segments + SIM_SYNC_SLACK:
+            raise AssertionError(
+                f"{card_syncs} card syncs for {r.segments} segments")
+        return (
+            f"{b} walkers x depth 64 ({r.segments} segments of {sim.L} "
+            f"steps): {r.wall_s:.3f}s, {r.steps_per_sec:.0f} steps/s, "
+            f"{r.walks_per_sec:.0f} walks/s, {r.states_per_sec:.0f} "
+            f"states/s; {st['sim_stutter_steps']} stutter steps, "
+            f"{st['sim_enabled_lanes']} enabled lanes, sampled duplicate "
+            f"ratio {r.dup_ratio_est}; {card_syncs} card syncs in sync "
+            f"debug mode for {r.segments} segments (host reads "
+            f"{st['host_syncs']}); peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+        )
+
+    def sim_widths():
+        return "; ".join(sim_width(b) for b in (4096, 65536))
+
+    _phase("23 simulation: scaled config, 4096 and 65536 walkers",
+           sim_widths, failures)
+
+    def sim_bugs():
+        notes = []
+        c = pyeval.SHIPPED_CFG
+        for inv in ("CompactedLedgerLeak", "DuplicateNullKeyMessage"):
+            runs = {}
+            for where in ("cuda", "cpu"):
+                runs[where] = StreamingSimulator(
+                    CompactionModel(c), invariants=(inv,), n_walkers=1024,
+                    depth=64, seed=0, max_rounds=20, device=where,
+                ).run()
+            r = runs["cuda"]
+            if r.violation != inv or r.verified is not True:
+                raise AssertionError(f"{inv}: {r.violation}, verified "
+                                     f"{r.verified}")
+            trace_ok(c, inv, r.trace, r.trace_actions)
+            for f in ("trace", "trace_actions", "steps", "states_visited",
+                      "violation_walker", "violation_step"):
+                if getattr(r, f) != getattr(runs["cpu"], f):
+                    raise AssertionError(f"{inv}: {f} differs on the CPU")
+            keys = [k for k in r.stats if "per_sec" not in k]
+            if [r.stats[k] for k in keys] != [runs["cpu"].stats[k]
+                                              for k in keys]:
+                raise AssertionError(f"{inv}: counters differ on the CPU")
+            notes.append(
+                f"{inv}: found at step {r.violation_step} by walker "
+                f"{r.violation_walker} after {r.steps} steps, trace of "
+                f"{len(r.trace)} states verified and valid, identical on "
+                "the CPU (trace and counters)")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["simulate", "compaction", "-invariant",
+                           "DuplicateNullKeyMessage", "-sim-steps",
+                           "1000000"])
+        out = buf.getvalue()
+        if rc != 1 or "Error: Invariant DuplicateNullKeyMessage is " \
+                "violated." not in out or "WARNING" in out:
+            raise AssertionError(f"cli simulate: rc {rc}\n{out}")
+        notes.append("cli simulate: DuplicateNullKeyMessage, rc 1")
+        return "; ".join(notes)
+
+    _phase("24 simulation: the seeded bugs, card against CPU", sim_bugs,
+           failures)
+    torch.cuda.empty_cache()
+
+    # ---- 25: where the time goes (after the counts were read)
+    def where_time(fn):
+        """``fn()`` under ``torch.profiler``: wall, device busy and idle,
+        and the PyTorch ops with the most device time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA],
+                      acc_events=True) as prof:
+            t = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t
+        allev = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+
+        busy = sum(dev_us(e) for e in allev
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        if busy <= 0:
+            return (f"wall {wall:.2f}s; torch.profiler reported no device "
+                    "time on this machine")
+        ops = sorted((e for e in allev if e.device_type == DeviceType.CPU
+                      and dev_us(e) > 0), key=dev_us, reverse=True)[:10]
+        ours = {k: sum(dev_us(e) for e in allev if k in e.key) / 1e3
+                for k in ("key_plane_kernel", "member_kernel",
+                          "insert_tail_kernel")}
+        return (
+            f"wall {wall:.2f}s under the profiler; device busy {busy:.3f}s "
+            f"(idle {100 * (1 - busy / wall):.1f}%); our kernels (ms) "
+            f"{ {k: round(v, 2) for k, v in ours.items()} }; top ops by "
+            "device ms: " + ", ".join(
+                f"{e.key} {dev_us(e) / 1e3:.1f} (x{e.count})" for e in ops)
+        )
+
+    def profile_live():
+        """The 9m tier's exploration, then its sweep, each profiled."""
+        lc = LivenessChecker(CompactionModel(tier9m), fairness="wf_next",
+                             **LIVENESS_9M_KW)
+        explore = where_time(lc._explore)
+        sweep = where_time(lambda: lc._edges(lc._explored[0]))
+        return f"explore: {explore}; sweep: {sweep}"
+
+    def profile_sim():
+        sim = StreamingSimulator(CompactionModel(scaled_cfg()),
+                                 n_walkers=65536, depth=64, seed=SEED)
+        return "65536 walkers x depth 64: " + where_time(sim.run)
+
+    _phase("25a profile of the 9m-tier liveness run", profile_live,
+           failures)
+    torch.cuda.empty_cache()
+    _phase("25b profile of the 65536-walker simulation", profile_sim,
+           failures)
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -1663,6 +2142,9 @@ def main() -> int:
             bound_by=rec["bound"][1],
             library_ms=None,
             spec_launches=spec_launches[name],
+            liveness_launches=live_launches[name],
+            **({"sweep_shape": sweep_shape}
+               if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),
             **extra,
         ))

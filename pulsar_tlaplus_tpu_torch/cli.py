@@ -1,17 +1,27 @@
-"""Command-line interface — the ``check`` subcommand of
+"""Command-line interface — the ``check`` and ``simulate`` subcommands of
 ``pulsar_tlaplus_tpu/cli.py`` on the PyTorch/CUDA engine:
 
     python -m pulsar_tlaplus_tpu_torch.cli check SPEC.tla [-config FILE.cfg]
         [-invariant NAME ...] [-nodeadlock] [-maxstates N] [-cpu]
         [-fuse level|stage] [-fuse-group G]
         [-hbm-budget BYTES [-no-spill-compress]]
+        [-property NAME [-fairness none|wf_next] [-sweep-group G]]
+        [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
+    python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
+        [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
+        [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
 
-It runs exhaustive BFS of the named spec on the GPU (``-cpu``: on the
-CPU) and prints a TLC-style summary: distinct states, diameter, and a
+``check`` runs exhaustive BFS of the named spec on the GPU (``-cpu``: on
+the CPU) and prints a TLC-style summary: distinct states, diameter, and a
 counterexample trace on an invariant violation or a deadlock; with
-``-hbm-budget``, one more line sums up what spilled to host RAM.  Exit code
-0 when the search completes clean, 1 on a violation or deadlock (or an
-error), 3 when the state budget truncated the search.
+``-hbm-budget``, one more line sums up what spilled to host RAM.  After a
+clean pass it checks the cfg's ``PROPERTIES`` (``<>goal`` properties).
+``-property`` checks one liveness property instead of the invariants,
+``-simulate`` runs random walks instead of the exhaustive search, as
+``simulate`` does (SPEC is a module name or a ``.tla`` path).  Exit code
+0 when the search completes clean (or the property holds, or the walks
+found nothing), 1 on a violation, a deadlock or a violated property (or
+an error), 3 when the state budget truncated the search.
 """
 
 from __future__ import annotations
@@ -20,6 +30,9 @@ import argparse
 import os
 import sys
 import time
+
+# exploration window of a liveness check (the JAX CLI's -chunk default)
+LIVENESS_CHUNK = 4096
 
 
 def _report(r, constants, wall: float) -> int:
@@ -58,13 +71,134 @@ def _report(r, constants, wall: float) -> int:
     return 0
 
 
-def _check(args) -> int:
-    from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+def _verdict(prop, args, lres) -> None:
+    verdict = "satisfied" if lres.holds else "VIOLATED"
+    print(
+        f"Temporal property {prop} (fairness={args.fairness}): "
+        f"{verdict} — {lres.reason}"
+    )
+
+
+def _report_liveness(prop, args, lres) -> int:
+    """Liveness verdict report; returns the exit code (0 holds, 1
+    violated)."""
+    _verdict(prop, args, lres)
+    print(f"{lres.distinct_states} distinct states examined.")
+    return 0 if lres.holds else 1
+
+
+def _report_simulation(sres, constants) -> int:
+    """TLC ``-simulate``-shaped report; returns the exit code (0 clean,
+    1 violation)."""
+    from pulsar_tlaplus_tpu_torch.utils.render import render_trace
+
+    if sres.violation:
+        print(f"Error: Invariant {sres.violation} is violated.")
+        print("The behavior up to this point is:")
+        print(render_trace(sres.trace, sres.trace_actions, constants))
+        if sres.verified is False:
+            print(
+                "WARNING: the replayed behavior FAILED independent "
+                "re-verification — report this as an engine bug."
+            )
+    print(
+        f"Simulation: {sres.n_walkers} walkers of depth {sres.depth} "
+        f"({sres.states_visited} states visited, {sres.steps} steps, "
+        f"{sres.walks} completed walks)."
+    )
+    print(
+        f"Finished in {sres.wall_s:.1f}s ({sres.steps_per_sec:,.0f} "
+        f"steps/sec, {sres.walks_per_sec:,.1f} walks/sec)"
+        + (
+            f"; sampled duplicate ratio ~{sres.dup_ratio_est:.1%}."
+            if sres.dup_ratio_est is not None
+            else "."
+        )
+    )
+    if sres.violation:
+        return 1
+    print(
+        "No violation found within the simulation budget "
+        f"(stop reason: {sres.stop_reason}); simulation is NOT "
+        "exhaustive — absence of violations is inconclusive."
+    )
+    return 0
+
+
+def _liveness(args, model, goal):
+    from pulsar_tlaplus_tpu_torch.engine.liveness import LivenessChecker
+
+    return LivenessChecker(
+        model,
+        goal=goal,
+        fairness=args.fairness,
+        frontier_chunk=LIVENESS_CHUNK,
+        max_states=args.maxstates,
+        sweep_group=args.sweep_group,
+        hbm_budget=args.hbm_budget,
+        spill_compress=False if args.no_spill_compress else None,
+        device="cpu" if args.cpu else None,
+        progress=True,
+    )
+
+
+def _check_properties(args, model, properties, rc: int) -> int:
+    """Check the cfg's PROPERTIES after a clean safety pass, over one
+    exploration; a property that is not a ``<>goal`` of the model only
+    warns."""
+    lck = None
+    for prop in properties:
+        if prop not in getattr(model, "liveness_goals", {}):
+            print(
+                f"tpu-tlc: WARNING: cfg PROPERTIES entry {prop} is not "
+                "checkable here (only <>(predicate) properties are "
+                "supported); safety verdict unaffected"
+            )
+            continue
+        try:
+            if lck is None:
+                lck = _liveness(args, model, prop)
+                lres = lck.run()
+            else:
+                lres = lck.run_goal(prop)
+        except (ValueError, RuntimeError) as e:
+            sys.exit(f"tpu-tlc: {e}")
+        _verdict(prop, args, lres)
+        if not lres.holds:
+            rc = 1
+    return rc
+
+
+def _simulate(args, model, constants, invariants, n_walkers: int,
+              time_budget=None, header=None) -> int:
+    from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
+
+    try:
+        sim = StreamingSimulator(
+            model,
+            invariants=invariants,
+            n_walkers=n_walkers,
+            depth=args.depth,
+            segment_len=args.segment,
+            seed=args.sim_seed,
+            max_steps=args.sim_steps,
+            time_budget_s=time_budget,
+            device="cpu" if args.cpu else None,
+            progress=True,
+        )
+        if header is not None:
+            _header(*header, sim.device, model, invariants)
+        sres = sim.run()
+    except (ValueError, RuntimeError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+    return _report_simulation(sres, constants)
+
+
+def _load_model(module: str, cfg_path: str):
+    """(model, constants, parsed cfg) of a registry module at a cfg."""
     from pulsar_tlaplus_tpu_torch.models import registry
     from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
-    module = os.path.splitext(os.path.basename(args.spec))[0]
-    cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
     if not os.path.exists(cfg_path):
         sys.exit(f"tpu-tlc: config file not found: {cfg_path}")
     tlc_cfg = cfgmod.load(cfg_path)
@@ -77,10 +211,43 @@ def _check(args) -> int:
         model, constants = registry.COMPILED[module](tlc_cfg)
     except ValueError as e:
         sys.exit(f"tpu-tlc: {e}")
+    return model, constants, tlc_cfg
+
+
+def _invariants(args, model, tlc_cfg):
     invariants = tuple(args.invariant or tlc_cfg.invariants)
     unknown = [i for i in invariants if i not in model.invariants]
     if unknown:
         sys.exit(f"tpu-tlc: unknown invariant(s): {unknown}")
+    return invariants
+
+
+def _header(module, cfg_path, device, model, invariants) -> None:
+    print(
+        f"tpu-tlc: checking {module} @ {cfg_path} on {device} "
+        f"(state width {model.layout.total_bits} bits, "
+        f"{model.A} successor lanes; invariants: {list(invariants) or 'none'})"
+    )
+
+
+def _check(args) -> int:
+    from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+
+    module = os.path.splitext(os.path.basename(args.spec))[0]
+    cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
+    model, constants, tlc_cfg = _load_model(module, cfg_path)
+    invariants = _invariants(args, model, tlc_cfg)
+    if args.liveness_property:
+        try:
+            lck = _liveness(args, model, args.liveness_property)
+            _header(module, cfg_path, lck.device, model, invariants)
+            lres = lck.run()
+        except (ValueError, RuntimeError) as e:
+            sys.exit(f"tpu-tlc: {e}")
+        return _report_liveness(args.liveness_property, args, lres)
+    if args.simulate:
+        return _simulate(args, model, constants, invariants, args.simulate,
+                         header=(module, cfg_path))
     try:
         ck = DeviceChecker(
             model,
@@ -96,11 +263,7 @@ def _check(args) -> int:
         )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
-    print(
-        f"tpu-tlc: checking {module} @ {cfg_path} on {ck.device} "
-        f"(state width {model.layout.total_bits} bits, "
-        f"{model.A} successor lanes; invariants: {list(invariants) or 'none'})"
-    )
+    _header(module, cfg_path, ck.device, model, invariants)
     t0 = time.time()
     try:
         r = ck.run()
@@ -109,7 +272,34 @@ def _check(args) -> int:
     rc = _report(r, constants, time.time() - t0)
     if ck.tiered:
         _report_spill(ck)
+    if rc == 0 and tlc_cfg.properties:
+        rc = _check_properties(args, model, tlc_cfg.properties, rc)
     return rc
+
+
+def _cmd_simulate(args) -> int:
+    """The ``simulate`` subcommand: SPEC is a registry module name or a
+    ``.tla`` path; the cfg defaults to ``specs/<module>.cfg`` (a path:
+    its ``.cfg`` sibling)."""
+    spec = args.spec
+    module = os.path.splitext(os.path.basename(spec))[0]
+    cfg_path = args.config
+    if cfg_path is None:
+        if spec.endswith(".tla"):
+            cfg_path = os.path.splitext(spec)[0] + ".cfg"
+        else:
+            cfg_path = os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                "specs", f"{module}.cfg",
+            )
+    model, constants, tlc_cfg = _load_model(module, cfg_path)
+    invariants = _invariants(args, model, tlc_cfg)
+    print(
+        f"tpu-tlc: simulating {module} ({args.walkers} walkers, depth "
+        f"{args.depth}; invariants: {list(invariants) or 'none'})"
+    )
+    return _simulate(args, model, constants, invariants, args.walkers,
+                     time_budget=args.time_budget)
 
 
 def _report_spill(ck) -> None:
@@ -129,6 +319,22 @@ def _report_spill(ck) -> None:
            if ck._budget_overridden else "")
         + "."
     )
+
+
+def _sim_args(p) -> None:
+    """The options ``check -simulate`` and ``simulate`` share."""
+    p.add_argument("-depth", type=int, default=64,
+                   help="steps per behavior before walkers restart "
+                   "(TLC -simulate depth; default 64)")
+    p.add_argument("-segment", type=int, default=None, metavar="STEPS",
+                   help="steps per host read (clamped to a divisor of "
+                   "-depth; default min(depth, 32))")
+    p.add_argument("-sim-seed", dest="sim_seed", type=int,
+                   default=0, help="seed of the walk stream, which is "
+                   "deterministic given it (default 0)")
+    p.add_argument("-sim-steps", dest="sim_steps", type=int,
+                   default=None, help="total step budget across the "
+                   "swarm (default: one depth round)")
 
 
 def main(argv=None) -> int:
@@ -174,8 +380,41 @@ def main(argv=None) -> int:
         help="spill raw planes instead of delta+zlib (trades link bytes "
         "for encode CPU)",
     )
+    pc.add_argument("-property", dest="liveness_property", metavar="NAME",
+                    help="check a liveness property (e.g. Termination) "
+                    "instead of invariants")
+    pc.add_argument("-fairness", choices=("none", "wf_next"),
+                    default="none",
+                    help="fairness assumption for -property and the cfg's "
+                    "PROPERTIES (default: none, like the raw Spec)")
+    pc.add_argument("-sweep-group", dest="sweep_group", type=int,
+                    default=None, metavar="G",
+                    help="liveness edge sweep: chunks per host read "
+                    "(default: up to 8, within 2^22 lanes)")
+    pc.add_argument("-simulate", type=int, default=0, metavar="N",
+                    help="simulation mode: N random walkers instead of "
+                    "exhaustive BFS")
+    _sim_args(pc)
+
+    ps = sub.add_parser("simulate", help="walker-swarm simulation (TLC "
+                        "-simulate) under a step or time budget")
+    ps.add_argument("spec", help="registry module name (e.g. compaction) "
+                    "or a .tla path")
+    ps.add_argument("-config", default=None,
+                    help=".cfg constant bindings (default: "
+                    "specs/<spec>.cfg)")
+    ps.add_argument("-invariant", action="append", default=None,
+                    help="invariant to check (repeatable; default: the "
+                    "cfg's INVARIANTS)")
+    ps.add_argument("-walkers", type=int, default=1024, metavar="N",
+                    help="walker swarm width (default 1024)")
+    _sim_args(ps)
+    ps.add_argument("-time-budget", dest="time_budget", type=float,
+                    default=None, metavar="SEC", help="wall-clock budget")
+    ps.add_argument("-cpu", action="store_true",
+                    help="run on the CPU instead of the GPU")
     args = p.parse_args(argv)
-    return _check(args)
+    return _cmd_simulate(args) if args.cmd == "simulate" else _check(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,552 @@
+"""Liveness checking: ``<>goal`` properties over the reachable state
+graph, e.g. ``Termination`` (compaction.tla:303-307) — the counterpart of
+``pulsar_tlaplus_tpu/engine/liveness.py`` (``LivenessResult``,
+``LivenessChecker``).
+
+The device builds the behavior graph, the host analyses it:
+
+- **explore**: one exhaustive BFS on the port's ``DeviceChecker`` (no
+  invariants, no deadlock check); every packed row stays on the device
+  in gid order (a tiered run streams its cold rows back and appends the
+  device window).  The explorer's table and logs are then freed.
+- **table**: the keys of all ``n`` rows (``tiles.key_plane``: K2 on the
+  card, from the KeySpec the explorer deduplicated with), sorted in
+  unsigned lexicographic order with the gid as payload.
+- **sweep**: per chunk of ``SF`` states, unpack -> ``successors`` ->
+  pack -> key plane (K2) -> one merged sort of (table, query keys) in
+  which table entries order before equal-key queries (the JAX engine's
+  TAG payload bit: here stable sorts of the table, then the queries in
+  lane order) -> the capped doubling-shift gid propagation through
+  equal-key runs -> back to lane order (a scatter through the sort's
+  permutation) -> ``dst = -2`` for a valid lane whose key missed -> the
+  compaction of the valid non-stutter lanes.  ``G`` chunks share one
+  host read of their kept counts and one of their kept prefixes.  Edges
+  come out source-major, lanes in order within a source: the JAX order.
+- **analysis** (host numpy, the JAX engine's code as it is): the not-
+  goal restriction, reachability from the not-goal initial states,
+  states with no var-changing successor, and Kahn peeling for cycles.
+
+Semantics (the oracle's, ``ref/pyeval.check_eventually``):
+``fairness="none"`` holds iff every initial state satisfies the goal
+(otherwise: stutter forever at a violating initial state);
+``fairness="wf_next"`` (``Spec /\\ WF_vars(Next)``) is violated iff some
+not-goal path from an initial state reaches a not-goal state with no
+var-changing successor, or a cycle of var-changing not-goal steps.
+
+Sharded exploration, checkpoints and telemetry are not ported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+from pulsar_tlaplus_tpu_torch.ops import tiles
+from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
+from pulsar_tlaplus_tpu_torch.ops.dedup import u32
+
+
+@dataclass
+class LivenessResult:
+    holds: bool
+    reason: str
+    distinct_states: int
+    # a lasso skeleton when violated (state gids)
+    lasso_prefix: Optional[List[int]] = None
+    lasso_cycle: Optional[List[int]] = None
+    # expected key collisions at this state count (0.0 for exact keys):
+    # a hashed-key collision could alias two states in the edge join
+    fp_collision_prob: float = 0.0
+
+
+def edge_digest(src, dst) -> str:
+    """SHA-256 of an edge list: ``src`` then ``dst`` as int32
+    little-endian, in the engine's order (``scripts/liveness_pins.py``
+    states the JAX engine's the same way)."""
+    h = hashlib.sha256()
+    h.update(np.asarray(src, "<i4").tobytes())
+    h.update(np.asarray(dst, "<i4").tobytes())
+    return h.hexdigest()
+
+
+def lex_order(cols) -> torch.Tensor:
+    """The stable permutation sorting int32 key columns in unsigned
+    lexicographic order (SENTINEL = 0xFFFFFFFF last): stable sorts from
+    the least significant column, the first two as one int64 key."""
+    perm = None
+    for c in reversed(cols[2:]):
+        v = u32(c if perm is None else c[perm])
+        o = torch.sort(v, stable=True).indices
+        perm = o if perm is None else perm[o]
+    k = tiles._key64(cols[0], cols[1])
+    if perm is not None:
+        k = k[perm]
+    o = torch.sort(k, stable=True).indices
+    return o if perm is None else perm[o]
+
+
+class LivenessChecker:
+    """Checks ``<>goal`` for a batched model's named goal predicate
+    (``model.liveness_goals``) on one device (``cuda`` unless ``device``
+    names another; raises when CUDA is wanted and absent).
+
+    ``frontier_chunk`` rows form an exploration window (at least 256)
+    and a goal-evaluation chunk; ``sweep_chunk`` states (rounded up to a
+    multiple of it, default ``max(frontier_chunk, 2^14)``) form a sweep
+    chunk of ``sweep_chunk * A`` successor lanes; ``sweep_group`` chunks
+    share a host read (default: up to 8, while their lanes stay within
+    2^22).  ``max_run`` caps the gid propagation's doubling shifts: a
+    key with more than ``2p - 1`` equal-key queries in one chunk (``p``
+    the largest power of two <= ``max_run``) fails loudly.
+    ``hbm_budget`` runs the exploration tiered.
+    """
+
+    def __init__(
+        self,
+        model,
+        goal: str = "Termination",
+        fairness: str = "none",
+        frontier_chunk: int = 2048,
+        visited_cap: int = 1 << 14,
+        max_states: int = 50_000_000,
+        sweep_chunk: Optional[int] = None,
+        sweep_group: Optional[int] = None,
+        hbm_budget=None,
+        spill_compress: Optional[bool] = None,
+        max_run: int = 1 << 14,
+        device=None,
+        progress: bool = False,
+    ):
+        goals = getattr(model, "liveness_goals", {})
+        if goal not in goals:
+            raise ValueError(
+                f"unknown liveness property: {goal} "
+                f"(model defines: {sorted(goals) or 'none'})"
+            )
+        if fairness not in ("none", "wf_next"):
+            raise ValueError(f"unknown fairness: {fairness}")
+        if sweep_group is not None and sweep_group < 1:
+            raise ValueError(f"sweep_group must be >= 1: {sweep_group}")
+        if max_run < 1:
+            raise ValueError(f"max_run must be positive: {max_run}")
+        self.model = model
+        self.goal_name = goal
+        self.goal_fn = goals[goal]
+        self.fairness = fairness
+        self.F = frontier_chunk
+        self.SF = sweep_chunk or max(frontier_chunk, 1 << 14)
+        self.SF = -(-self.SF // self.F) * self.F
+        self.sweep_group = sweep_group
+        self.max_run = max_run
+        p = 1
+        while p * 2 <= min(max_run, self.SF * model.A):
+            p *= 2
+        self._run_cover = 2 * p - 1
+        self.progress = progress
+        kw = {} if spill_compress is None else {
+            "spill_compress": spill_compress}
+        self._checker = DeviceChecker(
+            model,
+            invariants=(),
+            check_deadlock=False,
+            sub_batch=max(256, frontier_chunk),
+            visited_cap=visited_cap,
+            max_states=max_states,
+            device=device,
+            progress=progress,
+            hbm_budget=hbm_budget,
+            **kw,
+        )
+        self.device = self._checker.device
+        self.keys = self._checker.keys  # the explorer's KeySpec
+        self.K = self.keys.ncols
+        self._explored = None  # (n, n_init)
+        self._rows: Optional[torch.Tensor] = None  # int32 [n, W]
+        self._edge_cache = None  # (src, dst, out_deg): goal-independent
+        self.last_stats: Dict[str, object] = {}
+
+    def _log(self, msg: str) -> None:
+        if self.progress:
+            import sys
+
+            print(f"  {msg}", file=sys.stderr, flush=True)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------ exploration
+
+    def _explore(self):
+        """One exhaustive BFS, cached so that several properties share
+        it."""
+        if self._explored is not None:
+            return self._explored
+        t0 = time.time()
+        ck = self._checker
+        res = ck.run()
+        if res.truncated:
+            why = res.stop_reason or "unknown"
+            raise RuntimeError(
+                "liveness exploration truncated before the state "
+                f"space was exhausted (stop_reason={why}); "
+                + (
+                    "raise max_states"
+                    if why == "max_states"
+                    else "the verdict needs the full graph — rerun "
+                    "with more memory/time or a smaller model"
+                )
+            )
+        if res.violation is not None:
+            raise RuntimeError(
+                "exploration stopped early on a violation "
+                f"({res.violation}); liveness requires the full state "
+                "graph — fix the safety violation first"
+            )
+        n, W = res.distinct_states, ck.W
+        if ck.tiered and ck._row_base > 0:
+            # the aged rows live in the cold tiers: stream them back in
+            # gid order, then the device window
+            rows = torch.from_numpy(
+                ck.merged_rows().view(np.int32).reshape(n, W)
+            ).to(self.device)
+        else:
+            rows = ck._rows[:n]
+        # the sweep reads only the rows: free the explorer's table, logs
+        # and scratch before its join
+        for attr in ("_tcols", "_claims", "_parent", "_lane", "_rows",
+                     "_gen"):
+            if hasattr(ck, attr):
+                setattr(ck, attr, None)
+        ck.last_bufs = {}
+        self._rows = rows
+        self._explored = (n, res.level_sizes[0])
+        self._sync()
+        self.last_stats.update(explore_s=time.time() - t0,
+                               distinct_states=n, diameter=res.diameter)
+        return self._explored
+
+    def run_goal(self, goal: str) -> LivenessResult:
+        """Check another named goal over the same explored state space."""
+        goals = getattr(self.model, "liveness_goals", {})
+        if goal not in goals:
+            raise ValueError(f"unknown liveness property: {goal}")
+        self.goal_name = goal
+        self.goal_fn = goals[goal]
+        return self.run()
+
+    # ------------------------------------------------------ device work
+
+    def _table(self, n: int):
+        """The key->gid table: (K key columns, gid int64), sorted."""
+        rows = self._rows
+        kc = tiles.key_plane(
+            self.keys, rows,
+            torch.ones((n,), dtype=torch.bool, device=self.device),
+        )
+        order = lex_order(kc)
+        return tuple(c[order] for c in kc), order
+
+    def _goal(self, n: int) -> np.ndarray:
+        """bool[n] goal-predicate values, in chunks of ``SF`` states."""
+        unpack = self.model.layout.unpack
+        parts = [
+            self.goal_fn(unpack(self._rows[a: a + self.SF]))
+            for a in range(0, n, self.SF)
+        ]
+        return torch.cat(parts).cpu().numpy()
+
+    def _sweep_chunk(self, off: int, n: int, tcols, tgid):
+        """The compacted ``<Next>_vars`` edges of states ``[off, off +
+        SF)``: ``(n_kept 0-d, lane index [NQ], dst [NQ])``, of which
+        the first ``n_kept`` entries are meaningful."""
+        m, A = self.model, self.model.A
+        rows = self._rows[off: off + self.SF]
+        sf = rows.shape[0]
+        nq = sf * A
+        succ, valid = m.successors(m.layout.unpack(rows))
+        vq = valid.reshape(nq)
+        packed = m.layout.pack(succ).reshape(nq, m.layout.W)
+        qcols = tiles.key_plane(self.keys, packed, vq)
+        cols = [torch.cat([t, q]) for t, q in zip(tcols, qcols)]
+        # table entries (sorted, stable in gid) come first, queries in
+        # lane order: a stable sort puts each key's table entry before
+        # its queries, and the queries in lane order
+        order = lex_order(cols)
+        scols = [c[order] for c in cols]
+        gid = torch.cat([
+            tgid, torch.full((nq,), -1, dtype=torch.int64,
+                             device=self.device)
+        ])[order]
+        # equal-key runs as one int64 key (plus the third column)
+        skey = [tiles._key64(scols[0], scols[1]), *scols[2:]]
+        cap = min(self.SF * A, self.max_run)
+        d = 1
+        while d <= cap:
+            same = skey[0][d:] == skey[0][:-d]
+            for c in skey[1:]:
+                same = same & (c[d:] == c[:-d])
+            fill = (gid[d:] < 0) & same
+            gid = torch.cat([gid[:d], torch.where(fill, gid[:-d], gid[d:])])
+            d <<= 1
+        back = torch.empty_like(gid)
+        back[order] = gid
+        dst = back[n:]
+        dst = torch.where(vq, torch.where(dst < 0, -2, dst), -1)
+        lane = torch.arange(nq, dtype=torch.int64, device=self.device)
+        keep = (dst != -1) & (dst != off + lane // A)
+        (idxc, dstc), _ = compact_by_flag(~keep, (lane, dst))
+        return keep.sum(), idxc, dstc
+
+    def _sweep_group_size(self) -> int:
+        """Chunks a host read covers: the ctor's ``sweep_group``, else as
+        many as keep ``G * SF * A`` within 2^22 lanes, at most 8."""
+        if self.sweep_group is not None:
+            return int(self.sweep_group)
+        nq = self.SF * self.model.A
+        return max(1, min(8, (1 << 22) // max(nq, 1)))
+
+    def _edges(self, n: int):
+        """The goal-independent ``<Next>_vars`` edge list as numpy int64
+        ``(src, dst)``, and the out-degree of every state."""
+        if self._edge_cache is not None:
+            return self._edge_cache
+        t0 = time.time()
+        dev = self.device
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        A, SF = self.model.A, self.SF
+        G = self._sweep_group_size()
+        tcols, tgid = self._table(n)
+        starts = list(range(0, n, SF))
+        src_parts, dst_parts = [], []
+        reads = 0
+        for g0 in range(0, len(starts), G):
+            outs = [self._sweep_chunk(starts[i], n, tcols, tgid)
+                    for i in range(g0, min(g0 + G, len(starts)))]
+            kept = torch.stack([o[0] for o in outs]).tolist()
+            reads += 1
+            if not sum(kept):
+                continue
+            flat = torch.cat([
+                torch.stack([o[1][:k], o[2][:k]])
+                for o, k in zip(outs, kept)
+            ], dim=1).cpu().numpy()
+            reads += 1
+            pos = 0
+            for j, k in enumerate(kept):
+                idx, dst = flat[0, pos: pos + k], flat[1, pos: pos + k]
+                pos += k
+                if (dst == -2).any():
+                    raise RuntimeError(
+                        "edge sweep could not resolve a successor gid: "
+                        "either BFS exploration was incomplete, or one "
+                        "state has more than "
+                        f"{self._run_cover} equal-key predecessors inside "
+                        "a single sweep chunk — shrink sweep_chunk or "
+                        f"raise max_run (currently {self.max_run})"
+                    )
+                src_parts.append(starts[g0 + j] + idx // A)
+                dst_parts.append(dst)
+        src = (np.concatenate(src_parts) if src_parts
+               else np.zeros(0, np.int64))
+        dst = (np.concatenate(dst_parts) if dst_parts
+               else np.zeros(0, np.int64))
+        out_deg = np.bincount(src, minlength=n).astype(np.int64)
+        self._edge_cache = (src, dst, out_deg)
+        sweep_s = time.time() - t0
+        self._log(f"edge sweep: {len(src)} <Next>_vars edges of {n} states "
+                  f"in {sweep_s:.2f}s ({len(starts)} chunks, {reads} host "
+                  "reads)")
+        self.last_stats.update(
+            sweep_s=sweep_s,
+            edges=len(src),
+            sweep_chunks=len(starts),
+            sweep_group=G,
+            sweep_reads=reads,
+            sweep_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        )
+        return self._edge_cache
+
+    # -------------------------------------------------------------- run
+
+    def run(self) -> LivenessResult:
+        """Check the current goal under the current fairness."""
+        n, n_init = self._explore()
+        t0 = time.time()
+        goal = self._goal(n)
+        self.last_stats["goal_s"] = time.time() - t0
+        if self.fairness == "wf_next":
+            self._edges(n)
+        t0 = time.time()
+        res = self._check(n, n_init, goal)
+        self.last_stats["analysis_s"] = time.time() - t0
+        return res
+
+    def _check(self, n: int, n_init: int, goal: np.ndarray) -> LivenessResult:
+        cprob = self.keys.collision_prob(n)
+        if self.fairness == "none":
+            bad = np.nonzero(~goal[:n_init])[0]
+            if len(bad):
+                return LivenessResult(
+                    False,
+                    "stuttering counterexample: initial state "
+                    f"#{int(bad[0])} may stutter forever without reaching "
+                    "the goal (no fairness assumed)",
+                    n,
+                    lasso_prefix=[int(bad[0])],
+                    lasso_cycle=[int(bad[0])],
+                    fp_collision_prob=cprob,
+                )
+            return LivenessResult(
+                True, "every initial state satisfies the goal", n,
+                fp_collision_prob=cprob,
+            )
+
+        # ---- wf_next: the edge list (cached across goals) ----
+        src, dst, out_deg = self._edges(n)
+
+        # restrict to not-goal -> not-goal edges; CSR over sources
+        keep = ~goal[src] & ~goal[dst]
+        rsrc, rdst = src[keep], dst[keep]
+        order_adj = np.argsort(rsrc, kind="stable")
+        rsrc, rdst = rsrc[order_adj], rdst[order_adj]
+        starts = np.searchsorted(rsrc, np.arange(n + 1))
+
+        # reach R from not-goal initial states: vectorized BFS sweeps
+        in_r = np.zeros((n,), bool)
+        parent = np.full((n,), -1, np.int64)
+        frontier = np.nonzero(~goal[:n_init])[0]
+        in_r[frontier] = True
+        while len(frontier):
+            # all out-edges of the frontier, via CSR ranges
+            cnt = starts[frontier + 1] - starts[frontier]
+            total = int(cnt.sum())
+            if total == 0:
+                break
+            base = np.repeat(starts[frontier], cnt)
+            offs = np.arange(total) - np.repeat(
+                np.cumsum(cnt) - cnt, cnt
+            )
+            eidx = base + offs
+            vs = rdst[eidx]
+            us = rsrc[eidx]
+            fresh = ~in_r[vs]
+            if not fresh.any():
+                break
+            vf = vs[fresh]
+            uf = us[fresh]
+            # any parent is a valid predecessor for the lasso prefix
+            parent[vf] = uf
+            in_r[vf] = True
+            frontier = np.unique(vf)
+        r_nodes = np.nonzero(in_r)[0]
+        if len(r_nodes) == 0:
+            return LivenessResult(
+                True, "all fair behaviors reach the goal", n,
+                fp_collision_prob=cprob,
+            )
+        dead = r_nodes[out_deg[r_nodes] == 0]
+        if len(dead):
+            g = int(dead[0])
+            return LivenessResult(
+                False,
+                "fair stuttering at a not-goal state with no var-changing "
+                "successor",
+                n,
+                lasso_prefix=self._path_to(parent, g, n_init),
+                lasso_cycle=[g],
+                fp_collision_prob=cprob,
+            )
+        # Kahn peel within R — wave-vectorized
+        indeg = np.zeros((n,), np.int64)
+        both = in_r[rsrc] & in_r[rdst]
+        np.add.at(indeg, rdst[both], 1)
+        alive = in_r.copy()
+        wave = r_nodes[indeg[r_nodes] == 0]
+        while len(wave):
+            alive[wave] = False
+            cnt = starts[wave + 1] - starts[wave]
+            total = int(cnt.sum())
+            if total == 0:
+                break
+            base = np.repeat(starts[wave], cnt)
+            offs = np.arange(total) - np.repeat(
+                np.cumsum(cnt) - cnt, cnt
+            )
+            vs = rdst[base + offs]
+            am = alive[vs]
+            np.subtract.at(indeg, vs[am], 1)
+            cand = np.unique(vs[am])
+            wave = cand[(indeg[cand] == 0) & alive[cand]]
+        cyc_nodes = np.nonzero(alive)[0]
+        if len(cyc_nodes):
+            # Kahn peeling (in-degree) can leave acyclic tail nodes that
+            # dangle off a cycle; one backward Kahn pass on OUT-degree
+            # (via the reverse adjacency) removes them so every
+            # surviving node has an alive successor and the
+            # cycle-recovery walk is total.
+            both = alive[rsrc] & alive[rdst]
+            odeg = np.zeros((n,), np.int64)
+            np.add.at(odeg, rsrc[both], 1)
+            rorder = np.argsort(rdst, kind="stable")
+            bsrc, bdst = rsrc[rorder], rdst[rorder]
+            bstarts = np.searchsorted(bdst, np.arange(n + 1))
+            wave = cyc_nodes[odeg[cyc_nodes] == 0]
+            while len(wave):
+                alive[wave] = False
+                cnt = bstarts[wave + 1] - bstarts[wave]
+                total = int(cnt.sum())
+                if total == 0:
+                    break
+                base = np.repeat(bstarts[wave], cnt)
+                offs = np.arange(total) - np.repeat(
+                    np.cumsum(cnt) - cnt, cnt
+                )
+                ps = bsrc[base + offs]
+                am = alive[ps]
+                np.subtract.at(odeg, ps[am], 1)
+                cand = np.unique(ps[am])
+                wave = cand[(odeg[cand] == 0) & alive[cand]]
+            cyc_nodes = np.nonzero(alive)[0]
+        if len(cyc_nodes):
+            # recover one cycle: walk alive-successors until a repeat
+            u = int(cyc_nodes[0])
+            seen_at = {}
+            walk = []
+            while u not in seen_at:
+                seen_at[u] = len(walk)
+                walk.append(u)
+                nxt = [
+                    int(v)
+                    for v in rdst[starts[u]: starts[u + 1]]
+                    if alive[v]
+                ]
+                u = nxt[0]
+            cycle = walk[seen_at[u]:]
+            return LivenessResult(
+                False,
+                "cycle of not-goal states is fairly traversable",
+                n,
+                lasso_prefix=self._path_to(parent, cycle[0], n_init),
+                lasso_cycle=cycle,
+                fp_collision_prob=cprob,
+            )
+        return LivenessResult(
+            True, "all fair behaviors reach the goal", n,
+            fp_collision_prob=cprob,
+        )
+
+    @staticmethod
+    def _path_to(parent, g, n_init) -> List[int]:
+        path = [g]
+        while path[-1] >= n_init and parent[path[-1]] >= 0:
+            path.append(int(parent[path[-1]]))
+        return list(reversed(path))

@@ -153,6 +153,44 @@ class CompactionModel:
             consume=z,
         )
 
+    @property
+    def sample_width(self) -> int:
+        """Random words :meth:`sample_initial` takes per state."""
+        return self.M
+
+    def sample_initial(self, u: torch.Tensor) -> SState:
+        """Uniform random initial states (the simulator's protocol):
+        ``u`` is int64 ``[B, M]`` of uint32 words, and position ``i``'s
+        (key, value) digit is ``(u[:, i] * |KeySet|*|ValueSet|) >> 32``,
+        uniform over the Init fanout without ``n_initial``, which
+        overflows at large MessageSentLimit.  With ModelProducer the one
+        initial state."""
+        b = u.shape[0]
+        base = self.gen_initial(torch.zeros((b,), dtype=torch.int64,
+                                            device=u.device))
+        if self.c.model_producer:
+            return base
+        d = ((u * self.kv) >> 32).to(torch.int32)
+        return base._replace(
+            keys=d // (self.c.num_values + 1),
+            vals=d % (self.c.num_values + 1),
+        )
+
+    def fingerprint_leaves(self, s: SState) -> List[torch.Tensor]:
+        """The state's fields as the JAX model's pytree leaves, in order
+        (the simulator's duplicate estimator hashes them): the ledger
+        bits as the JAX model's ``led_mask`` words, uint32 ``[*B, C,
+        ceil(M / 32)]`` held in int64."""
+        mw = max(1, -(-self.M // 32))
+        bits = s.led_bits.to(torch.int64)
+        pad = mw * 32 - self.M
+        if pad:
+            bits = torch.nn.functional.pad(bits, (0, pad))
+        shift = torch.arange(32, dtype=torch.int64, device=bits.device)
+        words = (bits.reshape(*bits.shape[:-1], mw, 32) << shift).sum(-1)
+        return [words if f == "led_bits" else v
+                for f, v in s._asdict().items()]
+
     # --------------------------------------- actions (216-231), batched
 
     def _phase_one(self, s: SState):
@@ -384,6 +422,11 @@ class CompactionModel:
                 self.compaction_horizon_correctness,
             "DuplicateNullKeyMessage": self.duplicate_null_key_message,
         }
+
+    @property
+    def liveness_goals(self) -> Dict[str, Callable[[SState], torch.Tensor]]:
+        """Named ``<>goal`` predicates (``engine/liveness.py``)."""
+        return {"Termination": self.termination_goal}
 
     # ------------------------------------------------------ trace replay
 

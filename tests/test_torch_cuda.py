@@ -371,3 +371,73 @@ def test_spec_engine_on_card_equals_cpu(card, spec, states, diameter, fuse):
     for k in ("rows", "parent", "lane"):
         n = ra.distinct_states * (a.W if k == "rows" else 1)
         assert torch.equal(b.last_bufs[k][:n].cpu(), a.last_bufs[k][:n])
+
+
+def test_key_plane_kernel_at_the_sweep_shape(card):
+    """K2 on a liveness sweep chunk's successor lanes (2^14 states of
+    the 253,361-state config x A = 16, exact W = 2, invalid lanes
+    masked): equal to its plain version."""
+    from pulsar_tlaplus_tpu_torch.engine.liveness import LivenessChecker
+
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, model_producer=True,
+                            retain_null_key=False)
+    lc = LivenessChecker(CompactionModel(c), frontier_chunk=4096,
+                         visited_cap=1 << 18, device=card)
+    lc._explore()
+    m = lc.model
+    succ, valid = m.successors(m.layout.unpack(lc._rows[: lc.SF]))
+    packed = m.layout.pack(succ).reshape(-1, m.layout.W)
+    vq = valid.reshape(-1)
+    got = tiles.key_plane(lc.keys, packed, vq)
+    want = tiles.key_plane_plain(lc.keys, packed, vq)
+    assert packed.shape[0] == lc.SF * m.A
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("fairness", ["none", "wf_next"])
+def test_liveness_on_card_equals_cpu(card, fairness):
+    """The liveness checker on the card: the CPU run's verdict, lasso
+    and edge list, at several sweep chunks and groups."""
+    from pulsar_tlaplus_tpu_torch.engine.liveness import LivenessChecker
+
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, message_sent_limit=2,
+                            compaction_times_limit=2, num_keys=1,
+                            num_values=1, model_producer=True,
+                            model_consumer=True)
+    runs = {}
+    for dev in (card, "cpu"):
+        lc = LivenessChecker(CompactionModel(c), fairness=fairness,
+                             frontier_chunk=256, sweep_chunk=256,
+                             sweep_group=3, visited_cap=1 << 13, device=dev)
+        r = lc.run()
+        runs[str(dev)] = (r.holds, r.reason, r.lasso_prefix, r.lasso_cycle,
+                          lc._edge_cache)
+    a, b = runs.values()
+    assert a[:4] == b[:4]
+    if fairness == "wf_next":
+        for x, y in zip(a[4], b[4]):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("inv", ["CompactedLedgerLeak",
+                                 "DuplicateNullKeyMessage"])
+def test_simulation_on_card_equals_cpu(card, inv):
+    """The same seed walks the same on the card and on the CPU: trace,
+    counters, violation."""
+    from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
+
+    runs = [
+        StreamingSimulator(CompactionModel(pyeval.SHIPPED_CFG),
+                           invariants=(inv,), n_walkers=512, depth=64,
+                           seed=1, max_rounds=40, device=dev).run()
+        for dev in (card, "cpu")
+    ]
+    a, b = runs
+    assert a.violation == b.violation == inv
+    assert a.verified is b.verified is True
+    for f in ("trace", "trace_actions", "steps", "states_visited",
+              "violation_walker", "violation_step"):
+        assert getattr(a, f) == getattr(b, f), f
+    keys = [k for k in a.stats if "per_sec" not in k]
+    assert [a.stats[k] for k in keys] == [b.stats[k] for k in keys]

@@ -38,3 +38,6 @@ def test_port_imports_no_jax():
         assert f"pulsar_tlaplus_tpu_torch.store.{mod}" in names
     for mod in ("subscription", "bookkeeper", "georeplication"):
         assert f"pulsar_tlaplus_tpu_torch.models.{mod}" in names
+    for mod in ("engine.liveness", "engine.simulate", "sim", "sim.engine",
+                "sim.rng"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
