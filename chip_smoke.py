@@ -48,6 +48,19 @@ each with the kernels' launch counters zeroed before and read after:
   the CPU identical (trace and counters).  Phase 25 profiles the 9m
   liveness run and the 65,536-walker simulation.
 
+- the spec->kernel compiler (phases 26-30, launch counters zeroed
+  around them): ``cli check -force-compile`` of the four shipped cfgs
+  and the 253,361-state config, both compaction counterexamples
+  replayed step by step through the compiled ``successors`` on the card
+  and the interpreter; compiled compaction.tla at the 9m binding in the
+  fused level and the stage loop in turns, level sizes equal to the
+  hand model's, profiled, with the host seconds per window; the four
+  scaled bindings to their pins; a tiered run equal to its untiered
+  run; liveness to the ``compiled_full`` pins and the seeded bugs by
+  simulation for seeds 0-2.  Phase 2f holds K2 (hashed W = 5 and 7),
+  K1 and H1 against their plain versions on compiled models' flushes;
+  ``[30c graphs]`` prints each compiled model's graph statistics.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -61,8 +74,10 @@ no CUDA device is available or the port cannot be imported.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -140,6 +155,10 @@ SPEC_TIERED_TCAP = 1 << 23  # phase 17's hot-table ceiling (geo_exact)
 # modeled), its state count by the native checker, and the knobs of its
 # run (windows of 2^16 states, sweep chunks of 2^19 states = 2^23 lanes)
 TIER9M_STATES = 9_445_152
+TIER9M_LEVELS = [1, 10, 100, 999, 9918, 38601, 68733, 119133, 187335,
+                 233496, 332586, 477576, 501867, 667935, 862983, 843660,
+                 948429, 1243917, 507969, 810423, 1150785, 138348, 103518,
+                 196830]
 LIVENESS_9M_KW = dict(frontier_chunk=1 << 16, visited_cap=1 << 24,
                       max_states=12_000_000, sweep_chunk=1 << 19)
 # the JAX LivenessChecker's results on the CPU (scripts/liveness_pins.py):
@@ -185,6 +204,16 @@ LIVENESS_PINS = {
         distinct=297, edges=926, out_deg_hist=[8, 56, 91, 41, 12, 33, 40, 16],
         edges_sha256="6ec4546fa2eff5958b023c1db919161f"
         "3d45d783cebc74c17de9976db8ef72d5",
+        verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
+    # the same config on the spec->kernel compiler's model (the JAX
+    # compiled LivenessChecker, scripts/liveness_pins.py compiled_full):
+    # its edges come out as the hand model's
+    "compiled_full": dict(
+        distinct=253361, edges=420805,
+        out_deg_hist=[23328, 155358, 60507, 0, 0, 0, 0, 0, 0, 1171, 9073,
+                      3924],
+        edges_sha256="88103a3ee5b79a9cdd17af9e01a23319"
+        "bcad75ea204c3a3ebaac6ff0a275c6b7",
         verdicts={"wf_next": _HOLDS, "none": _UNFAIR}),
     "georeplication": dict(
         distinct=6400, edges=26940,
@@ -840,15 +869,15 @@ def main() -> int:
             cfgmod.TLCConfig(constants=dict(constants)))
         return model
 
-    def spec_flush(spec, constants, pins=None, level=None):
+    def spec_flush(spec, constants, pins=None, level=None, model=None):
         """A checker stopped at the end of BFS level ``level`` (its
         table holds exactly levels 1..level, whose sizes ``pins``
         gives; None: the whole run) and
         the lanes of the flush that would come next: the first window of
         the frontier (the widest level when ``level`` is None), expanded
         and keyed as the engine does.  Returns (checker, packed, valid,
-        key cols, window rows)."""
-        model = spec_model(spec, constants)
+        key cols, window rows).  ``model`` replaces the registry's."""
+        model = model or spec_model(spec, constants)
         if level is None:
             ck = DeviceChecker(model, invariants=())
             sizes = ck.run().level_sizes
@@ -926,44 +955,27 @@ def main() -> int:
             live = live & ~(fpset.all_sentinel(sv) | hit)
         return int(probes.sum())
 
-    def k_spec():
+    def spec_k1_h1(ck, valid, kcols, what):
+        """K1 on a flush's key plane against the checker's table, then H1
+        on K1's survivors, each against its plain version and timed;
+        ``what`` names the shape.  Returns two notes."""
         notes = []
-        # K2 at w = 1: the shipped subscription cfg's widest window
-        consts = {k: int(v) for k, v in cfgmod.load(
-            os.path.join(SPECS, "subscription.cfg")).constants.items()}
-        ck, packed, valid, kcols, n = spec_flush("subscription", consts)
-        notes.append(spec_k2(ck, packed, valid, kcols,
-                             f"exact w=1 K=2 ({n} rows x A={ck.A})"))
-        # K2 at w = 5: geo_hashed's flush after level 12
-        _s, consts, _m, pins = SPEC_SCALED["geo_hashed"]
-        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
-                                                 pins, 12)
-        notes.append(spec_k2(ck, packed, valid, kcols,
-                             f"hashed w=5 K=2 ({n} rows x A={ck.A})"))
-        del ck, packed, valid, kcols
-        # K2 at w = 3, K1 and H1 at K = 3: geo_exact's flush after level
-        # 20, on its table then (levels 1-20)
-        _s, consts, _m, pins = SPEC_SCALED["geo_exact"]
-        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
-                                                 pins, 20)
-        notes.append(spec_k2(ck, packed, valid, kcols,
-                             f"exact w=3 K=3 ({n} rows x A={ck.A})"))
-        tcols, k, nq = ck._tcols, ck.K, packed.shape[0]
+        tcols, k, nq = ck._tcols, ck.K, kcols[0].shape[0]
         cap = tcols[0].shape[0] - 1
         rounds = max(tiles.TILE_R, fpset.DENSE_ROUNDS)
         vl = valid & ~fpset.all_sentinel(kcols)
         got = tiles.member_block(tcols, kcols, vl, rounds)
         want = tiles.member_block_plain(tcols, kcols, vl, rounds)
-        for g, w, what in zip(got, want, ("member", "resolved")):
+        for g, w, part in zip(got, want, ("member", "resolved")):
             if not torch.equal(g, w):
                 raise AssertionError(
-                    f"K1 K=3 {what}: {int((g != w).sum())} lanes differ")
+                    f"K1 {what} {part}: {int((g != w).sum())} lanes differ")
         n_probes = probe_count(tcols, kcols, vl, rounds)
         flags = [torch.empty((nq,), dtype=torch.bool, device=dev)
                  for _ in range(2)]
         args = tiles.member_block_args(tcols, kcols, vl, *flags, rounds)
         notes.append(spec_record(
-            "member_block", f"K=3, nq={nq} on a 2^{cap.bit_length() - 1}"
+            "member_block", f"{what}, nq={nq} on a 2^{cap.bit_length() - 1}"
             f"-slot table holding {ck._nv} keys",
             cold_ms(lambda: kernels.launch(*args), 50),
             _time_ms(torch, lambda: kernels.launch(*args), 100),
@@ -1000,7 +1012,7 @@ def main() -> int:
             out[0].zero_()
 
         notes.append(spec_record(
-            "insert_tail", f"K=3, {npend} survivors of {nq} lanes, {n_new} "
+            "insert_tail", f"{what}, {npend} survivors of {nq} lanes, {n_new} "
             f"new, {st[0]} rounds",
             cold_ms(lambda: kernels.launch(*args), 10, restore),
             _time_each(torch, restore, lambda: kernels.launch(*args), 10),
@@ -1009,6 +1021,33 @@ def main() -> int:
             npend * (4 * k + 4) + probes * 4 * k + n_new * (4 * k + 1),
             npend * 10 * k + probes * (2 + 5 * k), npend=npend))
         del work, snap, claims, out
+        return notes
+
+    def k_spec():
+        notes = []
+        # K2 at w = 1: the shipped subscription cfg's widest window
+        consts = {k: int(v) for k, v in cfgmod.load(
+            os.path.join(SPECS, "subscription.cfg")).constants.items()}
+        ck, packed, valid, kcols, n = spec_flush("subscription", consts)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"exact w=1 K=2 ({n} rows x A={ck.A})"))
+        # K2 at w = 5: geo_hashed's flush after level 12
+        _s, consts, _m, pins = SPEC_SCALED["geo_hashed"]
+        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
+                                                 pins, 12)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"hashed w=5 K=2 ({n} rows x A={ck.A})"))
+        del ck, packed, valid, kcols
+        # K2 at w = 3, K1 and H1 at K = 3: geo_exact's flush after level
+        # 20, on its table then (levels 1-20)
+        _s, consts, _m, pins = SPEC_SCALED["geo_exact"]
+        ck, packed, valid, kcols, n = spec_flush("georeplication", consts,
+                                                 pins, 20)
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"exact w=3 K=3 ({n} rows x A={ck.A})"))
+        notes += spec_k1_h1(ck, valid, kcols, "K=3")
+        tcols, k = ck._tcols, ck.K
+        cap = tcols[0].shape[0] - 1
         # K3 at K = 3 on the same table (the tiered path's shape in phase
         # 17): generations 0-6 on the occupied slots, cutoff 3
         ns = cap + 1
@@ -2105,6 +2144,385 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase("25b profile of the 65536-walker simulation", profile_sim,
            failures)
+    # ---- 26-30, 2f: the spec->kernel compiler's models (the compiled
+    # path), launch counters zeroed around phases 26-30
+    from pulsar_tlaplus_tpu_torch.frontend import interp as finterp
+    from pulsar_tlaplus_tpu_torch.frontend.codegen import CompiledSpec
+    from pulsar_tlaplus_tpu_torch.frontend.loader import bind_cfg
+    from pulsar_tlaplus_tpu_torch.frontend.parser import parse_file
+
+    compiled_models = []  # the CompiledSpecs of the running phase
+    graph_notes = []  # graph statistics of every CompiledSpec built
+
+    def drain_models():
+        """Note the graph statistics of the models a phase built and let
+        them go: each holds thousands of graph nodes, and many alive at
+        once slow every later phase's host (Python's garbage collector
+        walks them all)."""
+        graph_notes.extend(
+            f"{cs.spec.module.name} {cs.layout.total_bits} bits: "
+            f"{graph_note(cs)}" for cs in compiled_models)
+        compiled_models.clear()
+        gc.collect()
+
+    def compile_spec(spec, invariants=None, **overrides):
+        """The compiled model of specs/SPEC.tla at its cfg with
+        ``overrides`` (and the interpreter's Spec of the same binding)."""
+        tlc = cfgmod.load(os.path.join(SPECS, f"{spec}.cfg"))
+        ast = parse_file(os.path.join(SPECS, f"{spec}.tla"))
+        consts = bind_cfg(ast, tlc)
+        consts.pop("__string_interning__")
+        consts.update(overrides)
+        fspec = finterp.Spec(ast, consts)
+        cs = CompiledSpec(fspec, invariants=tuple(
+            tlc.invariants if invariants is None else invariants))
+        compiled_models.append(cs)
+        return cs, fspec
+
+    def bool_cfg(spec, constants, tag):
+        """specs/SPEC.cfg with boolean CONSTANTS rebound, written under
+        build/spec_cfgs."""
+        with open(os.path.join(SPECS, f"{spec}.cfg")) as f:
+            text = f.read()
+        for name, v in constants.items():
+            text, n = re.subn(rf"(\b{name}\s*=\s*)(TRUE|FALSE)",
+                              rf"\g<1>{'TRUE' if v else 'FALSE'}", text)
+            if n != 1:
+                raise AssertionError(f"{spec}.cfg binds {name} {n} times")
+        os.makedirs(spec_dir, exist_ok=True)
+        out = os.path.join(spec_dir, f"{spec}_{tag}.cfg")
+        with open(out, "w") as f:
+            f.write(text)
+        return out
+
+    def graph_note(cs):
+        succ = [g.n_nodes for k, g in cs._graphs.items()
+                if k[0] == ("succ",)]
+        return (f"{cs.graph_builds} graphs ({len(succ)} of successors, "
+                f"{max(succ, default=0)} nodes) recorded in "
+                f"{cs.graph_build_s:.2f}s, {cs.graph_calls} replays enqueued "
+                f"in {cs.graph_replay_s:.2f}s of host time")
+
+    class HostTimed:
+        """A model whose successors and invariants add up the host
+        seconds they take to enqueue (the hand model's counterpart of a
+        compiled model's ``graph_replay_s``)."""
+
+        def __init__(self, model):
+            self.model, self.host_s = model, 0.0
+
+        def __getattr__(self, name):
+            return getattr(self.model, name)
+
+        def _timed(self, fn):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                self.host_s += time.perf_counter() - t
+                return out
+            return call
+
+        def successors(self, states):
+            return self._timed(self.model.successors)(states)
+
+        @property
+        def invariants(self):
+            return {n: self._timed(f)
+                    for n, f in self.model.invariants.items()}
+
+    full_over = dict(ModelProducer=True, RetainNullKey=False)
+    tier9m_over = dict(MessageSentLimit=4, MaxCrashTimes=2,
+                       ModelProducer=True)
+    kept = {}  # compiled models phase 2f reuses (graphs recorded)
+
+    def c_shipped():
+        notes = []
+        want = {"compaction": ({}, (45198, 20)),
+                "compaction_full": (full_over, (253361, 23)),
+                **{s: ({}, v) for s, v in SPEC_SHIPPED.items()}}
+        for name, (over, counts) in want.items():
+            spec = name.split("_")[0]
+            cfg = (bool_cfg(spec, over, "full") if over
+                   else spec_cfg(spec, {}, ""))
+            rc, text, _t, got = spec_cli(spec, cfg, "-force-compile")
+            head = text.splitlines()[0] if text else ""
+            if ((rc, got) != (0, counts) or "Error" in text
+                    or "declined" in text
+                    or "via the spec->kernel compiler" not in head):
+                raise AssertionError(f"{name}: rc {rc}, {got}\n{text}")
+            notes.append(f"{name} {got[0]}/{got[1]} ({head[head.index('('):]})")
+        return "; ".join(notes)
+
+    def c_bugs():
+        """Both seeded compaction bugs on the compiled model: depth, and
+        a trace replayed step by step through ``successors`` on the card
+        whose every step the interpreter takes and whose last state alone
+        violates the invariant."""
+        from pulsar_tlaplus_tpu_torch.ops.packing import smap
+
+        notes = []
+        for inv, depth in (("CompactedLedgerLeak", 12),
+                           ("DuplicateNullKeyMessage", 4)):
+            cs, fspec = compile_spec("compaction", invariants=(inv,))
+            ck = DeviceChecker(cs)
+            r = ck.run()
+            if (r.violation, r.diameter, len(r.trace or ())) != (
+                    inv, depth, depth):
+                raise AssertionError(f"{inv}: {r.violation} depth "
+                                     f"{r.diameter}")
+            par, lan = ck.merged_logs()
+            chain, g = [], r.violation_gid
+            while g >= 0:
+                chain.append(g)
+                g = int(par[g])
+            chain.reverse()
+            s = cs.gen_initial(torch.tensor([-1 - g], device=dev))
+            finterp.install_defs(fspec)
+            ok = cs.invariants[inv]
+            for i, gid in enumerate(chain):
+                if i:
+                    lane = int(lan[gid])
+                    succ, valid = cs.successors(s)
+                    if not bool(valid[0, lane]):
+                        raise AssertionError(f"{inv}: lane {lane} off")
+                    prev = cs.decode_state(s)
+                    s = smap(lambda x: x[:, lane], succ)
+                    nxt = cs.decode_state(s)
+                    if tuple(nxt[v] for v in fspec.vars) not in {
+                        t for _a, t in fspec.successors(
+                            tuple(prev[v] for v in fspec.vars))
+                    }:
+                        raise AssertionError(f"{inv}: step {i} is not a "
+                                             "step of the interpreter")
+                if cs.to_pystate(s) != r.trace[i]:
+                    raise AssertionError(f"{inv}: state {i} differs")
+                if bool(ok(s)[0]) == (i == depth - 1):
+                    raise AssertionError(f"{inv}: verdict at state {i}")
+            notes.append(f"{inv} length {depth} replays (gid "
+                         f"{r.violation_gid})")
+        return "; ".join(notes)
+
+    def c_full_width():
+        """Compiled compaction.tla at the 9m binding: the fused level and
+        the stage loop in turns, level sizes equal to the hand model's
+        on the same engine, then a profile of the fused run.  The hand
+        model's kernel launches are kept out of the compiled path's
+        counts (``hand_launches``)."""
+        cs, _f = compile_spec("compaction", **tier9m_over)
+        kept["9m"] = cs
+        hm = HostTimed(CompactionModel(tier9m))
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.time()
+        hand = DeviceChecker(hm, sub_batch=1 << 16,
+                             max_states=12_000_000).run()
+        torch.cuda.synchronize()
+        hand_wall = time.time() - t
+        for k, v in kernels.LAUNCHES.items():
+            hand_launches[k] += v - before[k]
+        if hand.level_sizes != TIER9M_LEVELS:
+            raise AssertionError(f"hand model: {hand.level_sizes}")
+        windows = sum(1 for _ in range(0, TIER9M_STATES, 1 << 16))
+        gc_s = [0.0, 0.0, 0]  # seconds in Python's collector, start, runs
+
+        def gc_clock(stage, _info):
+            if stage == "start":
+                gc_s[1] = time.perf_counter()
+            else:
+                gc_s[0] += time.perf_counter() - gc_s[1]
+                gc_s[2] += 1
+
+        walls = []
+        gc.callbacks.append(gc_clock)
+        try:
+            for fuse in ("level", "stage"):
+                ck = DeviceChecker(cs, sub_batch=1 << 16, fuse=fuse,
+                                   max_states=12_000_000)
+                calls, replay = cs.graph_calls, cs.graph_replay_s
+                gc0, gcn = gc_s[0], gc_s[2]
+                mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
+                torch.cuda.synchronize()
+                t = time.time()
+                if fuse == "level":
+                    r = ck.run()
+                else:
+                    # the level run recorded the graphs, and constants
+                    # were uploaded before any recording: a replayed
+                    # window uploads nothing, so the card syncs are the
+                    # checker's own (phase 6's slack)
+                    r, n_sync = _card_syncs(torch, ck.run)
+                    if n_sync > ck.last_stats["host_syncs"] + 3:
+                        raise AssertionError(
+                            f"{n_sync} card syncs, host_syncs "
+                            f"{ck.last_stats['host_syncs']}")
+                torch.cuda.synchronize()
+                walls.append((fuse, time.time() - t, cs.graph_calls - calls,
+                              cs.graph_replay_s - replay,
+                              ck.last_stats["host_syncs"], gc_s[0] - gc0,
+                              gc_s[2] - gcn,
+                              torch.cuda.memory_stats().get(
+                                  "num_device_alloc", 0) - mallocs))
+                if r.level_sizes != hand.level_sizes or r.violation:
+                    raise AssertionError(f"{fuse}: levels {r.level_sizes}")
+        finally:
+            gc.callbacks.remove(gc_clock)
+        # the profile covers levels 1-12 (1,500,000 states): the
+        # profiler's tables over the whole run's ~4M events take minutes
+        prof = where_time(lambda: DeviceChecker(
+            cs, sub_batch=1 << 16, max_states=1_500_000).run())
+        return (f"{TIER9M_STATES} states, diameter 24, level sizes equal "
+                f"to the hand model's (state width {cs.layout.total_bits} "
+                f"bits, {cs.A} lanes; hand model {hand_wall:.2f}s fused, "
+                f"{hm.host_s:.2f}s host in its successors and invariants, "
+                f"{hm.host_s / windows * 1e3:.1f}ms a window); "
+                "walls in turns "
+                + ", ".join(f"{f} {w:.2f}s ({n} replays, {h:.2f}s host, "
+                            f"{h / windows * 1e3:.1f}ms host a window, "
+                            f"{s} syncs, {g:.2f}s in {m} garbage "
+                            f"collections, {a} cudaMalloc)"
+                            for f, w, n, h, s, g, m, a in walls)
+                + f"; the stage run made {n_sync} card syncs; "
+                f"{graph_note(cs)}; profile of the fused run to "
+                f"1,500,000 states: {prof}")
+
+    def c_scaled():
+        notes = []
+        for name, (spec, consts, max_states, pins) in SPEC_SCALED.items():
+            cs, _f = compile_spec(spec, **consts)
+            if name == "geo_hashed":
+                kept[name] = cs
+            t = time.time()
+            r = DeviceChecker(cs, max_states=max_states).run()
+            got = r.level_sizes[: len(pins)]
+            if got != pins or (name != "geo_hashed" and (
+                    r.truncated or len(r.level_sizes) != len(pins))):
+                raise AssertionError(f"{name}: levels {r.level_sizes}")
+            notes.append(f"{name} {sum(pins)} over {len(pins)} levels in "
+                         f"{time.time() - t:.2f}s ({cs.layout.total_bits} "
+                         f"bits, W {cs.layout.W}, A {cs.A}; {graph_note(cs)})")
+        return "pins held: " + "; ".join(notes)
+
+    def c_tiered():
+        """Compiled compaction at 253,361 states under a budget just
+        above its initial tiers: equal state for state to the untiered
+        run; K3 launches."""
+        cs, _f = compile_spec("compaction", **full_over)
+        ck = DeviceChecker(cs, invariants=())
+        r = ck.run()
+        if (r.distinct_states, r.diameter) != (253361, 23):
+            raise AssertionError(f"untiered: {r.distinct_states}")
+        want = (r.level_sizes, ck.merged_rows(), *ck.merged_logs())
+        # windows small enough to evict, as phase 9's
+        kw = dict(invariants=(), sub_batch=4096, visited_cap=1 << 12)
+        budget = tight_budget(DeviceChecker(cs, hbm_budget="1T", **kw))
+        k3 = kernels.LAUNCHES["sieve_mask"]
+        tk = DeviceChecker(cs, hbm_budget=budget, **kw)
+        tr = tk.run()
+        same_run("compiled 253361", want, tk, tr)
+        if not (tk.last_stats["spill_evictions"] >= 1
+                and tk.last_stats["spill_rows_evicted"] > 0
+                and tk.last_stats["spill_misses_resolved"] > 0):
+            raise AssertionError(f"the budget forced no spill: "
+                                 f"{spill_note(tk)}")
+        n_k3 = kernels.LAUNCHES["sieve_mask"] - k3
+        if n_k3 <= 0:
+            raise AssertionError("K3 did not launch")
+        return (f"253361 states, rows and logs equal the untiered run at "
+                f"a {budget_fmt(budget)} budget; {spill_note(tk)}; K3 "
+                f"launches {n_k3}")
+
+    def c_live_sim():
+        cs, _f = compile_spec("compaction", invariants=(), **full_over)
+        lc = LivenessChecker(cs, goal="Termination", fairness="wf_next",
+                             frontier_chunk=4096)
+        pin = LIVENESS_PINS["compiled_full"]
+        notes = []
+        for fairness in ("wf_next", "none"):
+            lc.fairness = fairness
+            t = time.time()
+            res = lc.run()
+            got = (res.holds, res.reason, res.lasso_prefix, res.lasso_cycle)
+            if (res.distinct_states, got) != (pin["distinct"],
+                                              pin["verdicts"][fairness]):
+                raise AssertionError(f"{fairness}: {got}")
+            notes.append(f"{fairness} {res.holds} in {time.time() - t:.2f}s")
+        src, dst, out_deg = lc._edge_cache
+        if (len(src), np.bincount(out_deg).tolist(),
+                edge_digest(src, dst)) != (pin["edges"], pin["out_deg_hist"],
+                                           pin["edges_sha256"]):
+            raise AssertionError("edges differ from the pins")
+        for inv in ("CompactedLedgerLeak", "DuplicateNullKeyMessage"):
+            cs, _f = compile_spec("compaction", invariants=(inv,))
+            for seed in (0, 1, 2):
+                s = StreamingSimulator(cs, invariants=(inv,),
+                                       n_walkers=1024, depth=64, seed=seed,
+                                       max_rounds=20).run()
+                if (s.violation, s.verified) != (inv, True):
+                    raise AssertionError(f"{inv} seed {seed}: "
+                                         f"{s.violation} {s.verified}")
+            notes.append(f"{inv} found and verified for seeds 0-2 "
+                         f"({len(s.trace)} states at seed 2)")
+        return (f"Termination: {pin['distinct']} states, {pin['edges']} "
+                "edges, the pins' digest; " + "; ".join(notes))
+
+    hand_launches = collections.Counter()  # phase 27's hand model's
+    kernels.reset_launches()
+    _phase("26 compiled: shipped cfgs (cli -force-compile), counterexamples",
+           lambda: c_shipped() + "; " + c_bugs(), failures)
+    drain_models()
+    _phase("27 compiled: compaction at the 9m binding, against the hand "
+           "model", c_full_width, failures)
+    drain_models()
+    torch.cuda.empty_cache()
+    _phase("28 compiled: the scaled bindings to their pins", c_scaled,
+           failures)
+    drain_models()
+    torch.cuda.empty_cache()
+    _phase("29 compiled tiered: 253361 states at a tight budget", c_tiered,
+           failures)
+    drain_models()
+    _phase("30 compiled: liveness and simulation", c_live_sim, failures)
+    drain_models()
+    compiled_launches = {k: v - hand_launches[k]
+                         for k, v in kernels.LAUNCHES.items()}
+    print(f"[30b launches on the compiled path] {compiled_launches} "
+          f"(phase 27's hand model's left out: {dict(hand_launches)})",
+          flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if compiled_launches[name] <= 0:
+            failures.append(f"30b: {name} never launched on the compiled "
+                            "path")
+
+    def c_kernels():
+        """2f: K2 hashed at W = 5 (compiled compaction at the 9m binding)
+        and W = 7 (compiled geo_hashed), K1 and H1 at K = 2, each on a
+        flush the compiled model makes (the models of phases 27 and 28,
+        their graphs recorded), against its plain version; after the
+        compiled path's counts were read."""
+        notes = []
+        ck, packed, valid, kcols, n = spec_flush(None, None, TIER9M_LEVELS,
+                                                 12, model=kept["9m"])
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"compiled hashed w={ck.W} K=2 ({n} rows x "
+                             f"A={ck.A})"))
+        notes += spec_k1_h1(ck, valid, kcols, "compiled 9m K=2")
+        del ck, packed, valid, kcols
+        pins = SPEC_SCALED["geo_hashed"][3]
+        ck, packed, valid, kcols, n = spec_flush(None, None, pins, 12,
+                                                 model=kept["geo_hashed"])
+        notes.append(spec_k2(ck, packed, valid, kcols,
+                             f"compiled hashed w={ck.W} K=2 ({n} rows x "
+                             f"A={ck.A})"))
+        return "equal: " + "; ".join(notes)
+
+    _phase("2f K2/K1/H1 at the compiled models' shapes vs plain", c_kernels,
+           failures)
+    torch.cuda.empty_cache()
+
+    print("[30c graphs] " + "; ".join(graph_notes), flush=True)
+    kept.clear()
+    torch.cuda.empty_cache()
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -2143,6 +2561,7 @@ def main() -> int:
             library_ms=None,
             spec_launches=spec_launches[name],
             liveness_launches=live_launches[name],
+            compiled_launches=compiled_launches[name],
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

@@ -3,6 +3,7 @@
 
     python -m pulsar_tlaplus_tpu_torch.cli check SPEC.tla [-config FILE.cfg]
         [-invariant NAME ...] [-nodeadlock] [-maxstates N] [-cpu]
+        [-interp | -force-compile]
         [-fuse level|stage] [-fuse-group G]
         [-hbm-budget BYTES [-no-spill-compress]]
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
@@ -12,7 +13,12 @@
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
 
 ``check`` runs exhaustive BFS of the named spec on the GPU (``-cpu``: on
-the CPU) and prints a TLC-style summary: distinct states, diameter, and a
+the CPU) and prints a TLC-style summary.  A module of the registry runs
+its hand-written model; any other module (or any module under
+``-force-compile``) goes through the spec->kernel compiler
+(``frontend/codegen.py``), which falls back to the generic interpreter
+(``engine/interp_check.py``, a host BFS) when it declines the spec;
+``-interp`` forces the interpreter.  The summary: distinct states, diameter, and a
 counterexample trace on an invariant violation or a deadlock; with
 ``-hbm-budget``, one more line sums up what spilled to host RAM.  After a
 clean pass it checks the cfg's ``PROPERTIES`` (``<>goal`` properties).
@@ -39,7 +45,12 @@ def _report(r, constants, wall: float) -> int:
     """TLC-style result report; returns the process exit code."""
     from pulsar_tlaplus_tpu_torch.utils.render import render_trace
 
-    if r.violation and r.violation != "Deadlock":
+    if r.violation == "__EvalError__":
+        print(
+            "Error: evaluating the spec on this state is undefined "
+            "(TLC would report an evaluation error here)."
+        )
+    elif r.violation and r.violation != "Deadlock":
         print(f"Error: Invariant {r.violation} is violated.")
     elif r.deadlock:
         print("Error: Deadlock reached.")
@@ -54,18 +65,20 @@ def _report(r, constants, wall: float) -> int:
         f"Finished in {wall:.1f}s "
         f"({r.states_per_sec:.0f} distinct states/sec)."
     )
-    if r.fp_collision_prob:
+    fp_p = getattr(r, "fp_collision_prob", 0.0)
+    if fp_p:
         print(
             "The calculated (optimistic) probability of a fingerprint "
-            f"collision at this state count is {r.fp_collision_prob:.3g}."
+            f"collision at this state count is {fp_p:.3g}."
         )
     if r.violation or r.deadlock:
         return 1
     if r.truncated:
+        reason = getattr(r, "stop_reason", None)
         print(
             "WARNING: search truncated by the state budget — the state "
             "space was NOT exhausted; absence of violations is "
-            f"inconclusive. (stop reason: {r.stop_reason})"
+            "inconclusive." + (f" (stop reason: {reason})" if reason else "")
         )
         return 3
     return 0
@@ -187,7 +200,7 @@ def _simulate(args, model, constants, invariants, n_walkers: int,
             progress=True,
         )
         if header is not None:
-            _header(*header, sim.device, model, invariants)
+            header(sim.device)
         sres = sim.run()
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
@@ -231,27 +244,147 @@ def _header(module, cfg_path, device, model, invariants) -> None:
 
 
 def _check(args) -> int:
-    from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+    from pulsar_tlaplus_tpu_torch.models import registry
+    from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
+    for flag in ("checkpoint", "recover", "sharded"):
+        if getattr(args, flag):
+            sys.exit(f"tpu-tlc: -{flag} is not ported to the PyTorch "
+                     "engine yet")
     module = os.path.splitext(os.path.basename(args.spec))[0]
     cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
+    if args.interp or args.force_compile or module not in registry.COMPILED:
+        if not os.path.exists(cfg_path):
+            sys.exit(f"tpu-tlc: config file not found: {cfg_path}")
+        tlc_cfg = cfgmod.load(cfg_path)
+        invariants = tuple(args.invariant or tlc_cfg.invariants)
+        if args.interp:
+            return _check_interp(args, module, tlc_cfg, invariants)
+        return _check_compiled_spec(args, module, tlc_cfg, invariants)
     model, constants, tlc_cfg = _load_model(module, cfg_path)
     invariants = _invariants(args, model, tlc_cfg)
+    return _dispatch_engines(
+        args, model, constants, invariants, tlc_cfg,
+        lambda dev: _header(module, cfg_path, dev, model, invariants),
+    )
+
+
+def _parse_spec(args, tlc_cfg):
+    """(spec, interned strings) of ``args.spec`` bound to the cfg."""
+    from pulsar_tlaplus_tpu_torch.frontend.interp import Spec
+    from pulsar_tlaplus_tpu_torch.frontend.loader import bind_cfg
+    from pulsar_tlaplus_tpu_torch.frontend.parser import parse_file
+
+    ast = parse_file(args.spec)
+    consts = bind_cfg(ast, tlc_cfg)
+    interned = consts.pop("__string_interning__", None) or {}
+    return Spec(ast, consts), interned
+
+
+def _print_interned(interned) -> None:
+    for cname, mapping in interned.items():
+        pairs = ", ".join(f'"{s}" -> {i}' for s, i in mapping.items())
+        print(f"tpu-tlc: note: {cname} strings interned as naturals: {pairs}")
+
+
+def _check_compiled_spec(args, module, tlc_cfg, invariants) -> int:
+    """The spec->kernel compiler path: parse and bind the spec, compile
+    Init/Next/invariants to a batched model (``frontend/codegen.py``)
+    and run it through the same engines as a registry model.  Falls
+    back to the generic interpreter when the spec uses a construct
+    outside the compilable subset."""
+    from pulsar_tlaplus_tpu_torch.frontend.codegen import CompiledSpec
+    from pulsar_tlaplus_tpu_torch.frontend.codegen_ir import CodegenError
+
+    try:
+        spec, interned = _parse_spec(args, tlc_cfg)
+    except (ValueError, OSError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+    try:
+        cs = CompiledSpec(spec, invariants=invariants,
+                          device="cpu" if args.cpu else None)
+    except CodegenError as e:
+        print(
+            f"tpu-tlc: note: spec->kernel compiler declined ({e}); "
+            "falling back to the generic interpreter"
+        )
+        return _check_interp(args, module, tlc_cfg, invariants)
+    except (ValueError, RuntimeError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+
+    def header(_dev):
+        print(
+            f"tpu-tlc: checking {module} @ {args.spec} via the spec->kernel "
+            f"compiler (state width {cs.layout.total_bits} bits, {cs.A} "
+            f"successor lanes; invariants: {list(invariants) or 'none'})"
+        )
+        _print_interned(interned)
+
+    return _dispatch_engines(args, cs, None, invariants, tlc_cfg, header,
+                             checker_invariants=cs.default_invariants)
+
+
+def _check_interp(args, module, tlc_cfg, invariants) -> int:
+    """The generic-interpreter path: any spec in the supported subset,
+    exhaustive BFS on the host."""
+    from pulsar_tlaplus_tpu_torch.engine.interp_check import InterpChecker
+
+    if args.simulate or args.liveness_property:
+        sys.exit(
+            "tpu-tlc: -simulate/-property need a compiled model "
+            f"and the generic-interpreter path was selected for '{module}' "
+            f"({'-interp forced' if args.interp else 'module not in the compiled registry'}); "
+            "the interpreter path is exhaustive BFS only"
+        )
+    if tlc_cfg.properties:
+        print(
+            "tpu-tlc: WARNING: cfg PROPERTIES "
+            f"{list(tlc_cfg.properties)} are NOT checked on the "
+            "generic-interpreter path (safety only)"
+        )
+    t0 = time.time()
+    try:
+        spec, interned = _parse_spec(args, tlc_cfg)
+        spec.check_assumes()
+        print(
+            f"tpu-tlc: checking {module} @ {args.spec} via the generic "
+            f"interpreter (invariants: {list(invariants) or 'none'})"
+        )
+        _print_interned(interned)
+        r = InterpChecker(
+            spec,
+            invariants=invariants,
+            check_deadlock=not args.nodeadlock,
+            max_states=args.maxstates,
+        ).run()
+    except (ValueError, OSError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+    return _report(r, None, time.time() - t0)
+
+
+def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
+                      checker_invariants=None) -> int:
+    """Engine selection shared by the registry and compiler paths:
+    a liveness property, simulation, or the device checker, all over
+    the batched model protocol.  ``header(device)`` prints the run's
+    first line."""
+    from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+
     if args.liveness_property:
         try:
             lck = _liveness(args, model, args.liveness_property)
-            _header(module, cfg_path, lck.device, model, invariants)
+            header(lck.device)
             lres = lck.run()
         except (ValueError, RuntimeError) as e:
             sys.exit(f"tpu-tlc: {e}")
         return _report_liveness(args.liveness_property, args, lres)
     if args.simulate:
         return _simulate(args, model, constants, invariants, args.simulate,
-                         header=(module, cfg_path))
+                         header=header)
     try:
         ck = DeviceChecker(
             model,
-            invariants=invariants,
+            invariants=checker_invariants or invariants,
             check_deadlock=not args.nodeadlock,
             max_states=args.maxstates,
             device="cpu" if args.cpu else None,
@@ -263,7 +396,7 @@ def _check(args) -> int:
         )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
-    _header(module, cfg_path, ck.device, model, invariants)
+    header(ck.device)
     t0 = time.time()
     try:
         r = ck.run()
@@ -352,6 +485,17 @@ def main(argv=None) -> int:
     pc.add_argument("-maxstates", type=int, default=200_000_000)
     pc.add_argument("-cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
+    pc.add_argument("-interp", action="store_true",
+                    help="check with the generic interpreter (host BFS) "
+                    "instead of a compiled model")
+    pc.add_argument("-force-compile", "-compile", dest="force_compile",
+                    action="store_true",
+                    help="compile the spec even when the registry has a "
+                    "hand-written model for it")
+    # the JAX CLI's checkpoint and mesh flags: not ported yet (refused)
+    pc.add_argument("-checkpoint", default=None, help=argparse.SUPPRESS)
+    pc.add_argument("-recover", action="store_true", help=argparse.SUPPRESS)
+    pc.add_argument("-sharded", type=int, default=0, help=argparse.SUPPRESS)
     pc.add_argument(
         "-fuse", choices=("level", "stage"), default="level",
         help="level (default): the fused level — a level's windows run "

@@ -59,9 +59,28 @@ def lane_planes(x: torch.Tensor, a: int) -> torch.Tensor:
 
 
 def smap(fn, *states):
-    """Apply ``fn`` field by field across states of one NamedTuple class
-    (a tree map); the result has that class."""
-    return type(states[0])(*(fn(*fs) for fs in zip(*states)))
+    """Apply ``fn`` leaf by leaf across equally shaped state trees (a
+    tree map): the hand models' NamedTuples of tensors, and the compiled
+    models' dicts and tuples of tensors.  The result has the trees'
+    structure and classes."""
+    s = states[0]
+    if isinstance(s, dict):
+        return {k: smap(fn, *(x[k] for x in states)) for k in s}
+    if isinstance(s, tuple) and hasattr(s, "_fields"):
+        return type(s)(*(smap(fn, *fs) for fs in zip(*states)))
+    if isinstance(s, (tuple, list)):
+        return type(s)(smap(fn, *fs) for fs in zip(*states))
+    return fn(*states)
+
+
+def tree_leaves(state) -> list:
+    """The leaves of a state tree, dict keys sorted (the JAX pytree
+    order) and NamedTuple / tuple items in order."""
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in tree_leaves(state[k])]
+    if isinstance(state, (tuple, list)):
+        return [x for t in state for x in tree_leaves(t)]
+    return [state]
 
 
 class _FieldCodec:

@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from pulsar_tlaplus_tpu_torch.ops.dedup import U32, mul32
-from pulsar_tlaplus_tpu_torch.ops.packing import smap
+from pulsar_tlaplus_tpu_torch.ops.packing import smap, tree_leaves
 from pulsar_tlaplus_tpu_torch.sim import rng
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
@@ -57,6 +57,12 @@ CTR_VINV = 4      # invariant index of the min key
 CTR_DUP_HITS = 5  # duplicate-estimator hits (tag already present)
 CTR_N = 6
 CLEAN = 2**62
+
+
+def _same(a, b) -> bool:
+    """Two state trees hold equal tensors."""
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 @dataclass
@@ -224,7 +230,7 @@ class StreamingSimulator:
         n = leaves[0].shape[0]
         h = torch.zeros((n,), dtype=torch.int64, device=leaves[0].device)
         for leaf in leaves:
-            x = leaf.reshape(n, -1).to(torch.int64) & U32
+            x = leaf.reshape(n, leaf[0].numel()).to(torch.int64) & U32
             k = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
             mult = ((2 * k + 1) * 0x9E3779B9) & U32
             prod = ((((x * (mult >> 16)) & 0xFFFF) << 16)
@@ -417,14 +423,14 @@ class StreamingSimulator:
         for j in range(n_steps):
             lane, nxt = lanes[j], seq[j + 1]
             if lane >= self.A:
-                if not all(torch.equal(a, b) for a, b in zip(cur, nxt)):
+                if not _same(cur, nxt):
                     return False
                 continue
             succ, valid = m.successors(cur)
             if not bool(valid[0, lane]):
                 return False
             want = smap(lambda x: x[:, lane], succ)
-            if not all(torch.equal(a, b) for a, b in zip(want, nxt)):
+            if not _same(want, nxt):
                 return False
             cur = nxt
         if not self._inv_fns:

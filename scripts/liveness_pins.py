@@ -6,8 +6,10 @@ PyTorch port to.
 
 NAME is one or more of the cases of ``_cases`` below (default: all):
 the 9,445,152-state tier of ``scripts/liveness_scale.py`` (912 s on 8
-CPU cores, 3 GB of RAM), the 253,361-state config, the ``consumer_on``
-lasso oracle, and the other three specs at their shipped cfgs.  For
+CPU cores, 3 GB of RAM), the 253,361-state config (on the hand model
+and, ``compiled_full``, on the spec->kernel compiler's model), the
+``consumer_on`` lasso oracle, and the other three specs at their
+shipped cfgs.  For
 each it prints one JSON line: the constants, the distinct and initial
 state counts, the ``<Next>_vars`` edge count, the out-degree histogram
 (``bincount(out_deg)``), the SHA-256 of the edge list (``src`` then
@@ -83,7 +85,32 @@ def _cases():
     for spec in ("subscription", "bookkeeper", "georeplication"):
         cases[spec] = (shipped(spec),
                        dict(frontier_chunk=512, visited_cap=1 << 13))
+    # the 253,361-state config on the spec->kernel compiler's model of
+    # specs/compaction.tla (other lanes than the hand model: other edges)
+    cases["compiled_full"] = (
+        compiled("compaction", ModelProducer=True, RetainNullKey=False),
+        dict(frontier_chunk=4096, visited_cap=1 << 18))
     return cases
+
+
+def compiled(spec, **overrides):
+    """A factory of the JAX ``CompiledSpec`` of specs/SPEC.tla at its
+    cfg with ``overrides``."""
+    def make():
+        from pulsar_tlaplus_tpu.frontend.codegen import CompiledSpec
+        from pulsar_tlaplus_tpu.frontend.interp import Spec
+        from pulsar_tlaplus_tpu.frontend.loader import bind_cfg
+        from pulsar_tlaplus_tpu.frontend.parser import parse_file
+        from pulsar_tlaplus_tpu.utils import cfg as cfgmod
+
+        ast = parse_file(os.path.join(ROOT, "specs", f"{spec}.tla"))
+        consts = bind_cfg(
+            ast, cfgmod.load(os.path.join(ROOT, "specs", f"{spec}.cfg")))
+        consts.pop("__string_interning__")
+        consts.update(overrides)
+        return CompiledSpec(Spec(ast, consts))
+
+    return make
 
 
 def main(names) -> int:
@@ -106,7 +133,10 @@ def main(names) -> int:
         n, n_init = lc._explored
         src, dst, out_deg = lc._edge_cache
         print(json.dumps(dict(
-            name=name, constants=repr(model.c), distinct=n,
+            name=name,
+            constants=repr(getattr(model, "c", None)
+                           or model.spec.constants),
+            distinct=n,
             n_init=n_init, edges=int(len(src)),
             out_deg_sum=int(out_deg.sum()),
             out_deg_hist=np.bincount(out_deg).tolist(),

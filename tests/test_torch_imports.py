@@ -41,3 +41,8 @@ def test_port_imports_no_jax():
     for mod in ("engine.liveness", "engine.simulate", "sim", "sim.engine",
                 "sim.rng"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("frontend", "frontend.tla_ast", "frontend.lexer",
+                "frontend.parser", "frontend.interp", "frontend.loader",
+                "frontend.codegen_ir", "frontend.codegen", "frontend.record",
+                "engine.interp_check"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
