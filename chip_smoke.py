@@ -61,6 +61,24 @@ each with the kernels' launch counters zeroed before and read after:
   K1 and H1 against their plain versions on compiled models' flushes;
   ``[30c graphs]`` prints each compiled model's graph statistics.
 
+Phases 31-35 are runs that survive, at the scaled binding unless said:
+31 kills a checkpointed fused run in a process of its own
+(``PTT_FAULT=kill@level:6``, frames every 2 levels) and resumes it in a
+fresh one to phase 6's level totals (frame bytes, stall, restore, card
+syncs); 32 recovers from the ``oom@level:7`` drill with a frame, then
+caps the caching allocator after the level-5 frame so that level 6
+really fails to allocate (recovered, or ``hbm`` with exact counts), and
+the same cap with no frame ends ``hbm``; 33 runs the frontier row
+window to phase 6's totals and logs (peak memory beside phase 6's); 34
+runs phase 11's budget with a durable spill, preempted by
+``sigterm@level:6`` after the fused handoff and resumed equal to phase
+6's logs, then ``enospc@spill:1`` ends ``spill_enospc``; 35 kills the
+9m-tier liveness sweep and the 65,536-walker simulation in processes
+of their own and resumes them to the pins and the same walk digest,
+and the seeded bug across a preemption gives the same trace.  Frames go
+to a temporary directory that phase 35 removes; ``[35b ...]`` prints
+the launch counts of phases 31-35.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -83,8 +101,10 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -226,6 +246,65 @@ LIVENESS_PINS = {
 # card syncs a simulation may make beyond one a segment: the result's
 # synchronize and first-use constant uploads
 SIM_SYNC_SLACK = 4
+# phase 33's frontier window: level 6 (17,150,616 states) and level 5's
+# frontier while level 6 is built, then level 6 with one append window
+FRONTIER_ROWS = 18_000_000
+# the processes of phases 31 and 35 (a kill ends the process, so it runs
+# in one of its own): the scaled config's checker with frames at argv[1]
+# every argv[2] levels (argv[3] == "1": resume), max_states argv[4]; the
+# 9m liveness checker with sweep frames every 4 chunks; the 65,536-walker
+# simulation with frames every segment.  Each prints one JSON line.
+SCALED_DRIVER = r"""
+import json, sys, warnings, torch
+from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+from pulsar_tlaplus_tpu_torch.ref import pyeval
+c = pyeval.Constants(message_sent_limit=64, compaction_times_limit=3,
+                     num_keys=8, num_values=2, retain_null_key=True,
+                     max_crash_times=3, model_producer=True,
+                     model_consumer=False)
+path, every, resume, cap = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1", int(sys.argv[4])
+ck = DeviceChecker(CompactionModel(c), max_states=cap, checkpoint_path=path,
+                   checkpoint_every=every)
+torch.cuda.set_sync_debug_mode("warn")
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    r = ck.run(resume=resume)
+torch.cuda.set_sync_debug_mode("default")
+st = ck.last_stats
+print(json.dumps(dict(
+    level_sizes=r.level_sizes, stop=r.stop_reason, wall=r.wall_s,
+    host_syncs=st["host_syncs"],
+    card_syncs=sum("synchroniz" in str(w.message) for w in caught),
+    **{k: v for k, v in st.items() if k.startswith(("ckpt", "restore"))})))
+"""
+LIVE_DRIVER = r"""
+import sys
+from pulsar_tlaplus_tpu_torch.engine.liveness import LivenessChecker
+from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+from pulsar_tlaplus_tpu_torch.ref import pyeval
+c = pyeval.Constants(message_sent_limit=4, compaction_times_limit=3,
+                     num_keys=2, num_values=2, retain_null_key=True,
+                     max_crash_times=2, model_producer=True,
+                     model_consumer=False)
+LivenessChecker(CompactionModel(c), fairness="wf_next",
+                frontier_chunk=1 << 16, visited_cap=1 << 24,
+                max_states=12_000_000, sweep_chunk=1 << 19,
+                checkpoint_path=sys.argv[1], checkpoint_every=4).run()
+"""
+SIM_DRIVER = r"""
+import sys
+from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+from pulsar_tlaplus_tpu_torch.ref import pyeval
+from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
+c = pyeval.Constants(message_sent_limit=64, compaction_times_limit=3,
+                     num_keys=8, num_values=2, retain_null_key=True,
+                     max_crash_times=3, model_producer=True,
+                     model_consumer=False)
+StreamingSimulator(CompactionModel(c), n_walkers=65536, depth=64,
+                   seed=%d, max_rounds=2, checkpoint_path=sys.argv[1],
+                   checkpoint_every=1).run()
+"""
 
 
 def _phase(name, fn, failures):
@@ -328,6 +407,7 @@ def main() -> int:
             fmt_bytes as budget_fmt,
         )
         from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
+        from pulsar_tlaplus_tpu_torch.utils import faults
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1198,6 +1278,9 @@ def main() -> int:
         untiered["scaled_wall"] = r.wall_s
         nv = r.distinct_states
         untiered["scaled_rows"] = ck.last_bufs["rows"][: nv * ck.W].clone()
+        untiered["scaled_peak"] = torch.cuda.max_memory_allocated(dev)
+        untiered["scaled_store"] = sum(
+            t.numel() * 4 for t in (ck._rows, ck._parent, ck._lane))
         st = ck.last_stats
         if card_syncs > st["host_syncs"] + 3:
             raise AssertionError(
@@ -1761,12 +1844,12 @@ def main() -> int:
     kernels.reset_launches()
     live = {}
 
-    def live_check(what, lc, pin, fairness):
+    def live_check(what, lc, pin, fairness, resume=False):
         """The checker's verdict for ``fairness`` (and, once the sweep
         ran, its edge list) against the JAX engine's pins; returns the
         result."""
         lc.fairness = fairness
-        r = lc.run()
+        r = lc.run(resume=resume)
         got = (r.holds, r.reason, r.lasso_prefix, r.lasso_cycle)
         if r.distinct_states != pin["distinct"]:
             raise AssertionError(f"{what}: {r.distinct_states} states")
@@ -2523,6 +2606,326 @@ def main() -> int:
     kept.clear()
     torch.cuda.empty_cache()
 
+    # ---- 31-35: runs that survive (frames, resume, recovery, the
+    # frontier window, the fused tiered handoff, the durable spill),
+    # launch counters zeroed around them; frames go to a temporary
+    # directory removed at the end
+    kernels.reset_launches()
+    surv_dir = tempfile.mkdtemp(prefix="ptt_frames_")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("PTT_FAULT", None)
+
+    def frame_note(st):
+        return (f"{st.get('ckpt_frames', 0)} frame(s), last "
+                f"{st.get('ckpt_bytes', 0)} B in all, last stall "
+                f"{st.get('ckpt_last_stall_s')}s (D2H "
+                f"{st.get('ckpt_last_d2h_s')}s), restore "
+                f"{st.get('restore_s')}s")
+
+    def drive(code, *args, fault=None, timeout=600):
+        """``python -c code args`` from the checkout (the card's own
+        process), ``PTT_FAULT=fault``: (exit code, its last stdout line
+        as JSON or None, stderr's end)."""
+        e = dict(env, **({"PTT_FAULT": fault} if fault else {}))
+        p = subprocess.run([sys.executable, "-c", code, *map(str, args)],
+                           cwd=ROOT, env=e, capture_output=True, text=True,
+                           timeout=timeout)
+        lines = p.stdout.strip().splitlines()
+        out = json.loads(lines[-1]) if p.returncode == 0 and lines else None
+        return p.returncode, out, p.stderr[-2000:]
+
+    def set_fault(spec):
+        if spec is None:
+            os.environ.pop("PTT_FAULT", None)
+        else:
+            os.environ["PTT_FAULT"] = spec
+        faults.reset()
+
+    def totals(sizes):
+        return list(itertools.accumulate(sizes))
+
+    def scaled_prefix(r):
+        """The run's complete levels are the pinned ones."""
+        cum = totals(r.level_sizes)
+        pins = totals(untiered["scaled"][0])
+        n = len(cum) - (1 if r.truncated else 0)
+        if cum[:n] != pins[:n]:
+            raise AssertionError(f"level totals {cum} not a prefix of "
+                                 f"{pins}")
+        return cum
+
+    def kill_resume():
+        path = os.path.join(surv_dir, "scaled.npz")
+        rc, _out, err = drive(SCALED_DRIVER, path, 2, 0,
+                              SCALED_TOTAL + 1, fault="kill@level:6")
+        if rc != 137 or not os.path.exists(path):
+            raise AssertionError(f"killed run: rc {rc}, frame "
+                                 f"{os.path.exists(path)}\n{err}")
+        rc, out, err = drive(SCALED_DRIVER, path, 100, 1, SCALED_TOTAL + 1)
+        if rc != 0:
+            raise AssertionError(f"resumed run: rc {rc}\n{err}")
+        cum = totals(out["level_sizes"])
+        if cum[4:6] != [SCALED_PREV_TOTAL, SCALED_TOTAL]:
+            raise AssertionError(f"resumed level totals {cum}")
+        frames = out["ckpt_frames"]
+        extra = out["card_syncs"] - out["host_syncs"] - 3
+        return (
+            f"kill@level:6 with frames every 2 levels: rc 137, frame "
+            f"on disk; a fresh process's resume: level totals {cum}, "
+            f"{out['stop']}; {frame_note(out)}; {out['card_syncs']} card "
+            f"syncs against {out['host_syncs']} host reads + 3: "
+            f"{extra} for {frames} frame(s) + the restore; wall "
+            f"{out['wall']:.2f}s (cumulative over both processes)"
+        )
+
+    def oom_drill():
+        set_fault("oom@level:7")
+        try:
+            ck = DeviceChecker(CompactionModel(scaled_cfg()),
+                               max_states=SCALED_TOTAL + 1,
+                               checkpoint_path=os.path.join(surv_dir,
+                                                            "oom.npz"),
+                               checkpoint_every=1)
+            r = ck.run()
+        finally:
+            set_fault(None)
+        cum = scaled_prefix(r)
+        if (r.hbm_recovered, r.stop_reason) != (1, "max_states") or \
+                cum[4:6] != [SCALED_PREV_TOTAL, SCALED_TOTAL]:
+            raise AssertionError(f"{r.hbm_recovered} {r.stop_reason} {cum}")
+        return (f"(a) oom@level:7, frames every level: hbm_recovered 1, "
+                f"level totals {cum}; {frame_note(ck.last_stats)} (the "
+                "restore: the level-6 frame at full width)")
+
+    def real_oom(with_frame):
+        """A real allocator failure: the caching allocator capped at what
+        it holds after level 5 (its frame, when there is one), so level
+        6's full-width windows cannot allocate."""
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(dev).total_memory
+        base = torch.cuda.memory_reserved(dev)
+        kw = dict(max_states=SCALED_TOTAL + 1)
+        if with_frame:
+            kw.update(checkpoint_path=os.path.join(surv_dir, "real.npz"),
+                      checkpoint_every=1)
+        ck = DeviceChecker(CompactionModel(scaled_cfg()), **kw)
+        if with_frame:
+            save = ck._save_frame
+
+            def capped(level_sizes, *a):
+                ok = save(level_sizes, *a)
+                if ok and len(level_sizes) == 5:
+                    held = torch.cuda.memory_reserved(dev)
+                    oom_cap["need5"] = held - base
+                    torch.cuda.set_per_process_memory_fraction(
+                        held / total, dev)
+                return ok
+
+            ck._save_frame = capped
+        else:
+            torch.cuda.set_per_process_memory_fraction(
+                (base + oom_cap["need5"]) / total, dev)
+        try:
+            r = ck.run()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+            torch.cuda.empty_cache()
+        if ck.device.type != "cuda":
+            raise AssertionError("the run left the card")
+        cum = scaled_prefix(r)
+        if with_frame:
+            ok = (r.hbm_recovered >= 1 and (
+                r.stop_reason == "hbm" or cum[4:6] == [SCALED_PREV_TOTAL,
+                                                      SCALED_TOTAL]))
+        else:
+            ok = r.stop_reason == "hbm" and r.hbm_recovered == 0
+        if not ok:
+            raise AssertionError(f"{r.stop_reason}, hbm_recovered "
+                                 f"{r.hbm_recovered}, totals {cum}")
+        return (f"cap at {oom_cap['need5'] / 2**30:.2f} GiB over the "
+                f"start: {r.stop_reason or 'complete'}, hbm_recovered "
+                f"{r.hbm_recovered}, level totals {cum}")
+
+    oom_cap = {}
+
+    def device_memory():
+        notes = [oom_drill()]
+        notes.append("(b) real, after a frame: " + real_oom(True))
+        notes.append("(c) the same cap, no frame: " + real_oom(False))
+        return "; ".join(notes)
+
+    def frontier():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        path = os.path.join(surv_dir, "frontier.npz")
+        ck = DeviceChecker(CompactionModel(scaled_cfg()),
+                           max_states=SCALED_TOTAL + 1,
+                           rows_window="frontier",
+                           row_cap_states=FRONTIER_ROWS,
+                           checkpoint_path=path, checkpoint_every=100)
+        r = ck.run()
+        peak = torch.cuda.max_memory_allocated(dev)
+        cum = scaled_prefix(r)
+        if cum[4:6] != [SCALED_PREV_TOTAL, SCALED_TOTAL] or r.violation:
+            raise AssertionError(f"level totals {cum}")
+        par, lan = ck.merged_logs()
+        sizes, want_par, want_lan = untiered["scaled"]
+        if not (np.array_equal(par, want_par)
+                and np.array_equal(lan, want_lan)):
+            raise AssertionError("parent/lane logs differ from phase 6's")
+        rows_lo = int(np.load(path)["rows_lo"])
+        store = sum(t.numel() * 4 for t in (ck._rows, ck._parent, ck._lane))
+        return (
+            f"rows_window=frontier, row_cap_states {FRONTIER_ROWS} "
+            f"(window {ck.LCAP} rows): level totals {cum} and logs equal "
+            f"to phase 6's, {r.stop_reason}, {r.wall_s:.2f}s, host_syncs "
+            f"{ck.last_stats['host_syncs']}; peak device memory "
+            f"{peak / 2**30:.2f} GiB against the all-rows run's "
+            f"{untiered.get('scaled_peak', 0) / 2**30:.2f} GiB (phase 6), "
+            f"its row window and logs {store / 2**30:.2f} GiB against "
+            f"{untiered.get('scaled_store', 0) / 2**30:.2f} GiB; "
+            f"the truncation frame from gid {rows_lo}: "
+            f"{frame_note(ck.last_stats)}"
+        )
+
+    def tiered_durable():
+        m = CompactionModel(scaled_cfg())
+        b = budget_for_table(m, TIERED_TCAP, max_states=SCALED_TOTAL + 1)
+        path = os.path.join(surv_dir, "tiered.npz")
+        k3 = kernels.LAUNCHES["sieve_mask"]
+        torch.cuda.empty_cache()
+        set_fault("sigterm@level:6")
+        try:
+            ck = DeviceChecker(m, max_states=SCALED_TOTAL + 1, hbm_budget=b,
+                               checkpoint_path=path)
+            r1 = ck.run()
+        finally:
+            set_fault(None)
+        st1 = dict(ck.last_stats)
+        if r1.stop_reason != "preempted" or "spill_manifest" not in \
+                np.load(path).files:
+            raise AssertionError(f"{r1.stop_reason}: no frame/manifest")
+        scaled_prefix(r1)
+        n_files = len(os.listdir(path + ".spill"))
+        ck = DeviceChecker(m, max_states=SCALED_TOTAL + 1, hbm_budget=b,
+                           checkpoint_path=path)
+        r2 = ck.run(resume=True)
+        same = same_run("scaled", untiered["scaled"], ck, r2)
+        k3 = kernels.LAUNCHES["sieve_mask"] - k3
+        if k3 <= 0:
+            raise AssertionError("K3 never launched")
+        note = (
+            f"budget {b}: sigterm@level:6 -> preempted after level "
+            f"{len(r1.level_sizes)} in {r1.wall_s:.2f}s (handoff latched "
+            f"at level {st1['handoff_level']} after "
+            f"{st1['fused_levels_before_handoff']} fused levels; "
+            f"{st1['spill_evictions']} evictions, {st1['spill_rows_evicted']}"
+            f" rows spilled, {n_files} spill files; "
+            f"{frame_note(st1)}); resumed: {r2.stop_reason} at "
+            f"{r2.distinct_states} states, wall {r2.wall_s:.2f}s "
+            f"cumulative against 7.18 s of the stage-from-start path (PR "
+            f"6), {frame_note(ck.last_stats)}; merged {same} equal to "
+            f"phase 6's; K3 launches {k3}"
+        )
+        shutil.rmtree(path + ".spill", ignore_errors=True)
+        set_fault("enospc@spill:1")
+        try:
+            ck = DeviceChecker(m, max_states=SCALED_TOTAL + 1, hbm_budget=b,
+                               checkpoint_path=os.path.join(surv_dir,
+                                                            "enospc.npz"))
+            r3 = ck.run()
+        finally:
+            set_fault(None)
+        cum = scaled_prefix(r3)
+        if r3.stop_reason != "spill_enospc" or \
+                not ck.last_stats["spill_degraded"]:
+            raise AssertionError(f"enospc: {r3.stop_reason}")
+        return (note + f"; enospc@spill:1: {r3.stop_reason} at level "
+                f"totals {cum}, spill_degraded True")
+
+    def live_sim_resume():
+        notes = []
+        path = os.path.join(surv_dir, "live.npz")
+        rc, _o, err = drive(LIVE_DRIVER, path, fault="kill@sweep:10")
+        if rc != 137 or not os.path.exists(path):
+            raise AssertionError(f"liveness kill: rc {rc}\n{err}")
+        lc = LivenessChecker(CompactionModel(tier9m), checkpoint_path=path,
+                             **LIVENESS_9M_KW)
+        t = time.time()
+        live_check("9m resumed", lc, LIVENESS_PINS["9m"], "wf_next",
+                   resume=True)
+        notes.append(
+            f"9m wf_next killed at sweep chunk 10 (frames every 4 "
+            f"chunks), resumed in {time.time() - t:.2f}s with no "
+            f"re-exploration: verdict, lasso and "
+            f"{lc.last_stats['edges']} edges equal to the pins")
+        del lc
+        torch.cuda.empty_cache()
+        path = os.path.join(surv_dir, "sim.npz")
+        kw = dict(n_walkers=65536, depth=64, seed=SEED, max_rounds=2)
+        full = StreamingSimulator(CompactionModel(scaled_cfg()), **kw).run()
+        rc, _o, err = drive(SIM_DRIVER % SEED, path,
+                             fault="kill@segment:3")
+        if rc != 137 or not os.path.exists(path):
+            raise AssertionError(f"simulation kill: rc {rc}\n{err}")
+        res = StreamingSimulator(CompactionModel(scaled_cfg()),
+                                 checkpoint_path=path, **kw).run(resume=True)
+        for f in ("steps", "states_visited", "walks", "violation"):
+            if getattr(res, f) != getattr(full, f):
+                raise AssertionError(f"simulation resume: {f} differs")
+        if res.stats["sim_walk_digest"] != full.stats["sim_walk_digest"]:
+            raise AssertionError("simulation resume: walk digest differs")
+        notes.append(
+            f"65536 walkers x depth 64, 2 rounds ({full.segments} "
+            f"segments): killed at segment 3, resumed: walk digest "
+            f"{full.stats['sim_walk_digest'][:16]} and counters equal")
+        # the seeded bug across a preemption (at 65,536 walkers it shows
+        # in the first segment, before any frame: a 64-walker swarm)
+        c = pyeval.SHIPPED_CFG
+        kw = dict(n_walkers=64, depth=16, segment_len=4, seed=0,
+                  max_rounds=8, invariants=("CompactedLedgerLeak",))
+        full = StreamingSimulator(CompactionModel(c), **kw).run()
+        path = os.path.join(surv_dir, "sim_bug.npz")
+        set_fault(f"sigterm@segment:{max(1, full.segments - 3)}")
+        try:
+            a = StreamingSimulator(CompactionModel(c), checkpoint_path=path,
+                                   checkpoint_every=2, **kw).run()
+        finally:
+            set_fault(None)
+        b = StreamingSimulator(CompactionModel(c), checkpoint_path=path,
+                               **kw).run(resume=True)
+        if a.stop_reason != "preempted" or (b.trace, b.violation_step,
+                                            b.verified) != (
+                full.trace, full.violation_step, True):
+            raise AssertionError("simulation bug across a frame differs")
+        trace_ok(c, "CompactedLedgerLeak", b.trace, b.trace_actions)
+        notes.append(
+            f"CompactedLedgerLeak seed 0 (64 walkers): preempted at "
+            f"segment {a.segments}, resumed: the same trace of "
+            f"{len(b.trace)} states at step {b.violation_step}, verified")
+        return "; ".join(notes)
+
+    _phase("31 kill and resume, fused level, scaled cfg", kill_resume,
+           failures)
+    _phase("32 device-memory recovery: drill, real cap with and without "
+           "a frame", device_memory, failures)
+    torch.cuda.empty_cache()
+    _phase("33 frontier row window, scaled cfg", frontier, failures)
+    torch.cuda.empty_cache()
+    _phase("34 tiered: fused handoff, durable spill, preempt, resume, "
+           "ENOSPC", tiered_durable, failures)
+    torch.cuda.empty_cache()
+    _phase("35 liveness and simulation resume", live_sim_resume, failures)
+    shutil.rmtree(surv_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    surv_launches = dict(kernels.LAUNCHES)
+    print(f"[35b launches on the survivability path] {surv_launches}",
+          flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if surv_launches[name] <= 0:
+            failures.append(f"35b: {name} never launched on the "
+                            "survivability path")
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -2562,6 +2965,7 @@ def main() -> int:
             spec_launches=spec_launches[name],
             liveness_launches=live_launches[name],
             compiled_launches=compiled_launches[name],
+            survivability_launches=surv_launches[name],
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

@@ -8,9 +8,11 @@
         [-hbm-budget BYTES [-no-spill-compress]]
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
         [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
+        [-checkpoint PATH [-recover]]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
+        [-checkpoint PATH [-recover]]
 
 ``check`` runs exhaustive BFS of the named spec on the GPU (``-cpu``: on
 the CPU) and prints a TLC-style summary.  A module of the registry runs
@@ -24,10 +26,15 @@ counterexample trace on an invariant violation or a deadlock; with
 clean pass it checks the cfg's ``PROPERTIES`` (``<>goal`` properties).
 ``-property`` checks one liveness property instead of the invariants,
 ``-simulate`` runs random walks instead of the exhaustive search, as
-``simulate`` does (SPEC is a module name or a ``.tla`` path).  Exit code
-0 when the search completes clean (or the property holds, or the walks
-found nothing), 1 on a violation, a deadlock or a violated property (or
-an error), 3 when the state budget truncated the search.
+``simulate`` does (SPEC is a module name or a ``.tla`` path).
+``-checkpoint PATH`` writes resumable frames there (the device checker
+every 5 levels and at any truncation, the liveness sweep every 5
+chunks, the simulator every 8 segments), and SIGTERM/SIGINT then stops
+the run with a frame; ``-recover`` continues from the frame (and refuses
+when there is none).  Exit code 0 when the search completes clean (or
+the property holds, or the walks found nothing), 1 on a violation, a
+deadlock or a violated property (or an error), 3 when a budget, device
+memory or a preemption truncated the search (no verdict).
 """
 
 from __future__ import annotations
@@ -41,22 +48,30 @@ import time
 LIVENESS_CHUNK = 4096
 
 
-def _report(r, constants, wall: float) -> int:
+def _report(r, constants, wall: float, checkpoint=None) -> int:
     """TLC-style result report; returns the process exit code."""
     from pulsar_tlaplus_tpu_torch.utils.render import render_trace
+
+    def print_trace():
+        if r.trace is None:
+            print("(trace unavailable: run was truncated before the "
+                  "counterexample could be reconstructed)")
+        else:
+            print("The behavior up to this point is:")
+            print(render_trace(r.trace, r.trace_actions, constants))
 
     if r.violation == "__EvalError__":
         print(
             "Error: evaluating the spec on this state is undefined "
             "(TLC would report an evaluation error here)."
         )
+        print_trace()
     elif r.violation and r.violation != "Deadlock":
         print(f"Error: Invariant {r.violation} is violated.")
+        print_trace()
     elif r.deadlock:
         print("Error: Deadlock reached.")
-    if r.violation:
-        print("The behavior up to this point is:")
-        print(render_trace(r.trace, r.trace_actions, constants))
+        print_trace()
     print(
         f"{r.distinct_states} distinct states found, "
         f"search depth (diameter) {r.diameter}."
@@ -71,15 +86,37 @@ def _report(r, constants, wall: float) -> int:
             "The calculated (optimistic) probability of a fingerprint "
             f"collision at this state count is {fp_p:.3g}."
         )
+    hbm_rec = getattr(r, "hbm_recovered", 0)
+    if hbm_rec:
+        print(
+            f"Note: recovered from device-memory exhaustion {hbm_rec} "
+            "time(s) by rebuilding from the checkpoint at degraded "
+            "capacity."
+        )
     if r.violation or r.deadlock:
         return 1
     if r.truncated:
         reason = getattr(r, "stop_reason", None)
-        print(
-            "WARNING: search truncated by the state budget — the state "
-            "space was NOT exhausted; absence of violations is "
-            "inconclusive." + (f" (stop reason: {reason})" if reason else "")
-        )
+        if reason == "preempted":
+            if checkpoint and os.path.exists(checkpoint):
+                print(
+                    "WARNING: search preempted (SIGTERM/SIGINT) — a "
+                    "resumable checkpoint frame is on disk; continue "
+                    "with -recover."
+                )
+            else:
+                print(
+                    "WARNING: search preempted (SIGTERM/SIGINT) before "
+                    "any checkpoint frame could be written — the run "
+                    "is NOT resumable."
+                )
+        else:
+            print(
+                "WARNING: search truncated by the state/time budget — the "
+                "state space was NOT exhausted; absence of violations is "
+                "inconclusive."
+                + (f" (stop reason: {reason})" if reason else "")
+            )
         return 3
     return 0
 
@@ -94,15 +131,36 @@ def _verdict(prop, args, lres) -> None:
 
 def _report_liveness(prop, args, lres) -> int:
     """Liveness verdict report; returns the exit code (0 holds, 1
-    violated)."""
+    violated, 3 preempted or truncated: no verdict)."""
+    if lres.truncated:
+        if lres.stop_reason == "preempted":
+            if args.checkpoint and os.path.exists(args.checkpoint):
+                print(
+                    f"Temporal property {prop}: run preempted "
+                    "(SIGTERM/SIGINT) — no verdict.  A resumable "
+                    "frame is on disk; continue with -recover."
+                )
+            else:
+                print(
+                    f"Temporal property {prop}: run preempted "
+                    "(SIGTERM/SIGINT) before any frame could be "
+                    "written — no verdict, and the run is NOT "
+                    "resumable."
+                )
+        else:
+            print(
+                f"Temporal property {prop}: run truncated "
+                f"({lres.stop_reason or 'unknown'}) — no verdict."
+            )
+        return 3
     _verdict(prop, args, lres)
     print(f"{lres.distinct_states} distinct states examined.")
     return 0 if lres.holds else 1
 
 
-def _report_simulation(sres, constants) -> int:
+def _report_simulation(sres, constants, checkpoint=None) -> int:
     """TLC ``-simulate``-shaped report; returns the exit code (0 clean,
-    1 violation)."""
+    1 violation, 3 preempted: the walk resumes with -recover)."""
     from pulsar_tlaplus_tpu_torch.utils.render import render_trace
 
     if sres.violation:
@@ -130,6 +188,22 @@ def _report_simulation(sres, constants) -> int:
     )
     if sres.violation:
         return 1
+    if sres.truncated:
+        if sres.stop_reason == "preempted" and checkpoint and (
+            os.path.exists(checkpoint)
+        ):
+            print(
+                "WARNING: simulation preempted (SIGTERM/SIGINT) — a "
+                "resumable frame is on disk; continue the identical "
+                "walk stream with -recover."
+            )
+        else:
+            print(
+                "WARNING: simulation interrupted "
+                f"({sres.stop_reason or 'unknown'}) — the walk "
+                "stream did not reach its budget."
+            )
+        return 3
     print(
         "No violation found within the simulation budget "
         f"(stop reason: {sres.stop_reason}); simulation is NOT "
@@ -152,6 +226,14 @@ def _liveness(args, model, goal):
         spill_compress=False if args.no_spill_compress else None,
         device="cpu" if args.cpu else None,
         progress=True,
+        checkpoint_path=args.checkpoint,
+    )
+
+
+def _no_frame(args) -> None:
+    sys.exit(
+        "tpu-tlc: -recover needs an existing -checkpoint file "
+        f"(got: {args.checkpoint})"
     )
 
 
@@ -176,6 +258,9 @@ def _check_properties(args, model, properties, rc: int) -> int:
                 lres = lck.run_goal(prop)
         except (ValueError, RuntimeError) as e:
             sys.exit(f"tpu-tlc: {e}")
+        if lres.truncated:
+            # no verdict: the remaining properties are not checked
+            return _report_liveness(prop, args, lres)
         _verdict(prop, args, lres)
         if not lres.holds:
             rc = 1
@@ -198,13 +283,16 @@ def _simulate(args, model, constants, invariants, n_walkers: int,
             time_budget_s=time_budget,
             device="cpu" if args.cpu else None,
             progress=True,
+            checkpoint_path=args.checkpoint,
         )
         if header is not None:
             header(sim.device)
-        sres = sim.run()
+        sres = sim.run(resume=args.recover)
+    except FileNotFoundError:
+        _no_frame(args)
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
-    return _report_simulation(sres, constants)
+    return _report_simulation(sres, constants, args.checkpoint)
 
 
 def _load_model(module: str, cfg_path: str):
@@ -247,12 +335,15 @@ def _check(args) -> int:
     from pulsar_tlaplus_tpu_torch.models import registry
     from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
-    for flag in ("checkpoint", "recover", "sharded"):
-        if getattr(args, flag):
-            sys.exit(f"tpu-tlc: -{flag} is not ported to the PyTorch "
-                     "engine yet")
+    if args.sharded:
+        sys.exit("tpu-tlc: -sharded is not ported to the PyTorch engine "
+                 "yet")
     module = os.path.splitext(os.path.basename(args.spec))[0]
     cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
+    if args.recover and not args.interp and (
+        not args.checkpoint or not os.path.exists(args.checkpoint)
+    ):
+        _no_frame(args)
     if args.interp or args.force_compile or module not in registry.COMPILED:
         if not os.path.exists(cfg_path):
             sys.exit(f"tpu-tlc: config file not found: {cfg_path}")
@@ -336,6 +427,11 @@ def _check_interp(args, module, tlc_cfg, invariants) -> int:
             f"({'-interp forced' if args.interp else 'module not in the compiled registry'}); "
             "the interpreter path is exhaustive BFS only"
         )
+    if args.checkpoint or args.recover:
+        sys.exit(
+            "tpu-tlc: -checkpoint/-recover are not supported on the "
+            "generic-interpreter path yet"
+        )
     if tlc_cfg.properties:
         print(
             "tpu-tlc: WARNING: cfg PROPERTIES "
@@ -374,7 +470,9 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
         try:
             lck = _liveness(args, model, args.liveness_property)
             header(lck.device)
-            lres = lck.run()
+            lres = lck.run(resume=args.recover)
+        except FileNotFoundError:
+            _no_frame(args)
         except (ValueError, RuntimeError) as e:
             sys.exit(f"tpu-tlc: {e}")
         return _report_liveness(args.liveness_property, args, lres)
@@ -393,16 +491,17 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
             spill_compress=not args.no_spill_compress,
             fuse=args.fuse,
             fuse_group=args.fuse_group,
+            checkpoint_path=args.checkpoint,
         )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
     header(ck.device)
     t0 = time.time()
     try:
-        r = ck.run()
+        r = ck.run(resume=args.recover)
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
-    rc = _report(r, constants, time.time() - t0)
+    rc = _report(r, constants, time.time() - t0, checkpoint=args.checkpoint)
     if ck.tiered:
         _report_spill(ck)
     if rc == 0 and tlc_cfg.properties:
@@ -470,6 +569,14 @@ def _sim_args(p) -> None:
                    "swarm (default: one depth round)")
 
 
+def _ckpt_args(p) -> None:
+    p.add_argument("-checkpoint", default=None, metavar="PATH",
+                   help="write resumable checkpoint frames to PATH "
+                   "(SIGTERM/SIGINT then stops the run with a frame)")
+    p.add_argument("-recover", action="store_true",
+                   help="resume the run from the -checkpoint frame")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpu-tlc-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -492,9 +599,8 @@ def main(argv=None) -> int:
                     action="store_true",
                     help="compile the spec even when the registry has a "
                     "hand-written model for it")
-    # the JAX CLI's checkpoint and mesh flags: not ported yet (refused)
-    pc.add_argument("-checkpoint", default=None, help=argparse.SUPPRESS)
-    pc.add_argument("-recover", action="store_true", help=argparse.SUPPRESS)
+    _ckpt_args(pc)
+    # the JAX CLI's mesh flag: not ported yet (refused)
     pc.add_argument("-sharded", type=int, default=0, help=argparse.SUPPRESS)
     pc.add_argument(
         "-fuse", choices=("level", "stage"), default="level",
@@ -557,6 +663,7 @@ def main(argv=None) -> int:
                     default=None, metavar="SEC", help="wall-clock budget")
     ps.add_argument("-cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
+    _ckpt_args(ps)
     args = p.parse_args(argv)
     return _cmd_simulate(args) if args.cmd == "simulate" else _check(args)
 

@@ -18,8 +18,18 @@ class CheckerResult:
     states_per_sec: float = 0.0
     wall_s: float = 0.0
     level_sizes: List[int] = field(default_factory=list)
-    truncated: bool = False  # stopped by the state budget, not exhaustion
-    stop_reason: Optional[str] = None  # "max_states" when truncated
+    truncated: bool = False  # stopped by a budget or a stop, not exhaustion
+    # why a truncated run stopped: "max_states" | "time_budget" | "hbm"
+    # (device memory ran out and no frame could rebuild the run) |
+    # "row_window" (the frontier row window lost rows of a level that
+    # must be expanded) | "preempted" (SIGTERM/SIGINT: a resumable stop)
+    # | "spill_enospc" (the durable spill tier hit a full disk); None
+    # when not truncated
+    stop_reason: Optional[str] = None
+    # how many times the run rebuilt its device state from the last
+    # checkpoint frame after device memory ran out, and went on at
+    # degraded capacity
+    hbm_recovered: int = 0
     # gid of the violating/deadlocked state (discovery order)
     violation_gid: Optional[int] = None
     # expected fingerprint collisions at this state count (birthday

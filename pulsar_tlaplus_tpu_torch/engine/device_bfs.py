@@ -68,11 +68,18 @@ overflow and the invariants, and it checks the stop conditions
 (violation, deadlock, ``max_states``) after every flush.  The visited
 table, row store and logs grow by doubling.
 
-**Tiered mode** (``hbm_budget``; the JAX engine's tiered state store,
-RAM tier) runs the stage loop whatever ``fuse`` says, as if the JAX
-engine's ``_tiered_pressure`` handoff to its stage path had happened at
-the start: the device keeps a budgeted hot tier and the host keeps the
-rest in a ``store/tiers.TieredStore``.
+**Tiered mode** (``hbm_budget``; the JAX engine's tiered state store)
+keeps a budgeted hot tier on the device and the rest in a
+``store/tiers.TieredStore`` on the host.  It starts in the fused level
+(or the stage loop, as ``fuse`` says) and hands the level loop to the
+stage loop once spilling must begin (the JAX engine's
+``_tiered_pressure``): at a level boundary when the hot table plus two
+windows would pass its ceiling, or the row/log window would be short,
+or mid-level when a fused window no longer fits the capped tiers —
+then the host's counters are exact (the sync that found no room read
+them) and the stage loop takes the level over from that window, so
+discovery order equals the untiered run's.  The latch stays for the
+rest of the run (and is restored from a frame's manifest).
 
 - The budget fixes tier ceilings once, by round-robin doubling of the
   table and the row/log window from their initial sizes while
@@ -87,18 +94,57 @@ rest in a ``store/tiers.TieredStore``.
   table grow past the budget, once logged as a WARNING.
 - After every flush, the lanes the hot table calls new are resolved
   against the cold runs on the host, and the false-new ones are cleared
-  before the compaction that assigns gids: discovery order equals the
-  untiered run's, state for state.
+  before the compaction that assigns gids.
 - Rows and trace logs live in a window ``[row_base, ...)``: ranges
   older than the frontier spill to the host at level boundaries once
   eviction has begun, or when the window is full.  Gids stay absolute;
-  traces walk the merged cold + window logs.
+  traces walk the merged cold + window logs.  A checkpointed run's
+  store is durable: every spilled run and segment is also written to
+  ``spill_dir`` (default ``<checkpoint_path>.spill``), and a frame
+  embeds its manifest.
 
-The durable spill tier and checkpoint frames are not ported.
+**The frontier row window** (``rows_window="frontier"``): the rows are
+a window of ``LCAP = max(row_cap_states, NQ) + NQ`` rows (one blind
+append window past the cap) holding the frontier and as much of the
+level being built as fits; at each level start the frontier slides to
+offset 0 and older rows are dropped.  The parent/lane logs keep every
+state (traces need no rows).  When the level being built outgrows the
+window, its rows are dropped and the run goes on deduplicating,
+counting and checking invariants to the end of the level; it stops
+with ``stop_reason="row_window"`` only if that level must be expanded.
+A fused pass runs one level (no ramp: the slide is the host's).
+Exclusive with ``hbm_budget``.
+
+**Budgets and stops.**  ``time_budget_s`` stops the run at the next
+check past it (``time_budget``; a resumed run gets a fresh budget); a
+budgeted fused level syncs at least every :data:`TIMED_SYNC_EVERY`
+windows so the check is not blunted to whole levels.
+
+**Checkpoints** (``checkpoint_path``, every ``checkpoint_every``
+levels; ``utils/ckpt.py``): a frame holds the state count, the level
+sizes, the frontier, the visited table's occupied slots, the rows (all
+of them; the window from the frontier in frontier mode; the device
+window in tiered mode, with the spill manifest) and the parent/lane
+logs, and ``run(resume=True)`` continues from it state for state.  A
+ramp batch ends on a due frame level.  A truncated run (a budget,
+device memory, preemption) leaves a frame at its last level boundary:
+a mid-level stop rewinds to it, and the partial level re-derives on
+resume by dedup idempotence.  SIGTERM/SIGINT (``utils/ckpt.
+PreemptionWatcher``) writes a frame at the next level boundary and
+stops with ``preempted``.  When device memory runs out
+(``torch.OutOfMemoryError``, or the ``PTT_FAULT`` oom drill) with a
+valid frame on disk, the run frees its tensors, rebuilds from the frame
+and goes on at degraded capacity (growth headroom one window,
+``hbm_recovered``); without one it stops with ``hbm``.  The fault
+sites of ``utils/faults.py`` (``level``, ``flush``, ``frame``,
+``spill``) are polled on the host.  With no ``checkpoint_path`` the
+level loop reads the device no more often than without these features.
 """
 
 from __future__ import annotations
 
+import gc
+import json
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -115,6 +161,7 @@ from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
 from pulsar_tlaplus_tpu_torch.store import budget as store_budget
 from pulsar_tlaplus_tpu_torch.store import sieve
 from pulsar_tlaplus_tpu_torch.store.tiers import TieredStore
+from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, recovery
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
 BIG = 2**31 - 1
@@ -132,6 +179,12 @@ GROW_AHEAD = 5
 # 3.35 TB/s, one launch), so padding it to the bound, or running it as
 # a no-op, costs no more than the sync it saves
 RAMP_SPEC_LANES = 1 << 16
+# a time-budgeted fused level reads the device at least this often (in
+# windows): the JAX engine's max(8 * group, 32) flush groups
+TIMED_SYNC_EVERY = 32
+# the frame format's engine revision (a frame of another engine, the
+# JAX package's included, is refused)
+ENGINE_SIG = "device_bfs_torch_r1"
 
 
 def _pow2_at_least(n: int, floor: int = 1 << 10) -> int:
@@ -147,6 +200,15 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+def _grown(t: torch.Tensor, new_len: int) -> torch.Tensor:
+    """``t`` in a zero-filled buffer of ``new_len`` rows (contents
+    kept)."""
+    out = torch.zeros((new_len, *t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    out[: t.shape[0]] = t
+    return out
+
+
 class DeviceChecker:
     """BFS checker for a batched model on one device (``cuda`` unless
     ``device`` names another; raises when CUDA is wanted and absent).
@@ -154,7 +216,8 @@ class DeviceChecker:
     ``sub_batch`` frontier rows form one expand window of
     ``sub_batch * A`` candidate lanes, the width of every flush.  The
     visited table starts with room for ``visited_cap`` states at load
-    1/2.  The run stops (truncated) once ``max_states`` are found.
+    1/2.  The run stops (truncated) once ``max_states`` are found, or
+    past ``time_budget_s`` seconds.
 
     ``fuse="level"`` (the default) runs the fused level, ``"stage"``
     the loop that reads the device after every window; ``fuse_group``
@@ -162,8 +225,13 @@ class DeviceChecker:
 
     ``hbm_budget`` (bytes, or a spec such as ``"7.5G"``; the
     ``PTT_HBM_BUDGET`` environment variable when not given) turns on
-    the tiered store, which runs the stage loop; ``spill_compress=False``
-    sizes the spilled planes raw instead of delta + zlib.
+    the tiered store; ``spill_compress=False`` sizes the spilled planes
+    raw instead of delta + zlib; ``spill_dir`` is the durable store's
+    directory (default ``<checkpoint_path>.spill``).
+    ``rows_window="frontier"`` keeps only a window of ``row_cap_states``
+    rows (plus one append window).  ``checkpoint_path`` writes a frame
+    every ``checkpoint_every`` levels; ``run(resume=True)`` continues
+    from it.
     """
 
     def __init__(
@@ -180,11 +248,20 @@ class DeviceChecker:
         spill_compress: bool = True,
         fuse: str = "level",
         fuse_group: Optional[int] = None,
+        time_budget_s: Optional[float] = None,
+        rows_window: str = "all",
+        row_cap_states: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 5,
     ):
         if fuse not in ("level", "stage"):
             raise ValueError(f"fuse must be level|stage: {fuse}")
         if fuse_group is not None and fuse_group < 1:
             raise ValueError(f"fuse_group must be >= 1: {fuse_group}")
+        if rows_window not in ("all", "frontier"):
+            raise ValueError(
+                f"rows_window must be all|frontier: {rows_window}")
         self.fuse = fuse
         self.RMAX = min(fuse_group or 8, 64)
         self.device = device_mod.resolve(device)
@@ -206,17 +283,36 @@ class DeviceChecker:
         self.TCAP0 = _pow2_at_least(2 * visited_cap, 1 << 11)
         self.WCAP0 = _pow2_at_least(min(self.TCAP0 // 2, max_states + 1))
         self.NQ = self.G * self.A  # lanes of one expand window's flush
+        self.rows_window = rows_window
+        self.frontier = rows_window == "frontier"
+        if self.frontier:
+            rc = row_cap_states or 2 * self.NQ
+            # the frontier and the level being built, plus one blind
+            # append window past the cap
+            self.LCAP = max(rc, self.NQ) + self.NQ
+        self.time_budget_s = time_budget_s
         self.progress = progress
         self.last_stats: Dict[str, object] = {}
         self.last_bufs: Dict[str, torch.Tensor] = {}
         self.hbm_budget = store_budget.resolve_budget(hbm_budget)
         self.tiered = self.hbm_budget is not None
+        if self.tiered and self.frontier:
+            raise ValueError(
+                "hbm_budget and rows_window='frontier' are mutually "
+                "exclusive — the tiered store IS the row-window story "
+                "(aged rows spill instead of dropping)"
+            )
         self.spill_compress = bool(spill_compress)
+        self._spill_dir_arg = spill_dir
         self.tstore: Optional[TieredStore] = None
         self._budget_overridden = False
-        self._row_base = 0
+        self._row_base = self._log_base = 0
         if self.tiered:
             self.TCAP_MAX, self.WCAP_MAX = self._tier_ceilings()
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.rec = recovery.RecoveryState(checkpoint_path)
+        self._watcher = None
 
     # ------------------------------------------------- tiered-store sizing
 
@@ -236,8 +332,8 @@ class DeviceChecker:
         """(table slots, window states) ceilings: double the table and
         the window in turn from their initial sizes while the estimate
         stays inside the budget less its headroom.  Rows and logs share
-        one window in the port.  The table never goes below the room for
-        two flushes at load 1/2."""
+        one window in tiered mode.  The table never goes below the room
+        for two flushes at load 1/2."""
         eff = int(self.hbm_budget * (1.0 - HBM_HEADROOM))
         tc, wc = self.TCAP0, self.WCAP0
         if self._device_bytes_est(tc, wc, wc) > eff:
@@ -274,6 +370,39 @@ class DeviceChecker:
         if self.progress:
             print(f"  {msg}", file=sys.stderr, flush=True)
 
+    def _alloc(self) -> None:
+        """A fresh run's tensors: the empty table, the row store (the
+        fixed window in frontier mode) and the logs."""
+        dev = self.device
+        self._tcols = fpset.empty_cols(self.TCAP0, self.K, dev)
+        self._claims = fpset.new_claims(self.TCAP0, dev)
+        rows = self.LCAP if self.frontier else self.WCAP0
+        self._rows = torch.zeros((rows, self.W), dtype=torch.int32,
+                                 device=dev)
+        self._parent = torch.zeros((self.WCAP0,), dtype=torch.int32,
+                                   device=dev)
+        self._lane = torch.zeros((self.WCAP0,), dtype=torch.int32,
+                                 device=dev)
+        self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64,
+                                device=dev)
+        self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.tiered:
+            self._gen = torch.zeros((self.TCAP0 + 1,), dtype=torch.int32,
+                                    device=dev)
+
+    def _free_buffers(self) -> None:
+        """Drop every device tensor of the run (before a rebuild from a
+        frame), and PyTorch's cache of the freed blocks."""
+        for attr in ("_tcols", "_claims", "_rows", "_parent", "_lane",
+                     "_gen", "_fpm", "_rehash_failed", "_nv_t", "_dead_t",
+                     "_viol_t"):
+            setattr(self, attr, None)
+        self.last_bufs = {}
+        self._lv_active = False
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _ensure_table(self, need: int, ceiling: Optional[int] = None) -> None:
         """Double the visited table (rehash on the device) until ``need``
         states fit at load <= 1/2, or it reaches ``ceiling`` slots.  In
@@ -304,28 +433,49 @@ class DeviceChecker:
         self._log(f"visited table grown to {new_cap} slots")
 
     def _grow_store(self, new_cap: int) -> None:
-        """Grow the row store and the parent/lane logs to ``new_cap``
+        """Grow the row window and the parent/lane logs to ``new_cap``
         states (contents kept)."""
-        cap = self._rows.shape[0]
-        dev = self.device
-        rows = torch.zeros((new_cap, self.W), dtype=torch.int32, device=dev)
-        rows[:cap] = self._rows
-        logs = []
-        for log in (self._parent, self._lane):
-            t = torch.zeros((new_cap,), dtype=torch.int32, device=dev)
-            t[:cap] = log
-            logs.append(t)
-        self._rows = rows
-        self._parent, self._lane = logs
+        self._rows = _grown(self._rows, new_cap)
+        self._grow_logs(new_cap)
+
+    def _grow_logs(self, new_cap: int) -> None:
+        self._parent = _grown(self._parent, new_cap)
+        self._lane = _grown(self._lane, new_cap)
 
     def _ensure_store(self, need: int) -> None:
-        """Grow the row store and the parent/lane logs to ``need`` states
-        (doubling)."""
+        """Room for states up to gid ``need`` (doubling): the logs, and
+        the rows unless they are the frontier window (whose size is
+        fixed); tiered, within the window ceiling."""
+        if self.frontier:
+            cap = self._parent.shape[0]
+            if need > cap:
+                self._grow_logs(_pow2_at_least(need, cap))
+            return
         cap = self._rows.shape[0]
+        need -= self._row_base
         if need > cap:
-            self._grow_store(_pow2_at_least(need, cap))
+            new = _pow2_at_least(need, cap)
+            if self.tiered:
+                new = min(new, max(self._wcap_max, cap))
+            if new > cap:
+                self._grow_store(new)
 
     # ------------------------------------------------------ tiered store
+
+    def _mk_tstore(self) -> None:
+        """A fresh TieredStore for this run: durable when the run
+        checkpoints (its files beside the frame, so a resume restores
+        the whole store through the frame's manifest)."""
+        if self.tstore is not None:
+            self.tstore.close()
+        sdir = self._spill_dir_arg or (
+            f"{self.checkpoint_path}.spill" if self.checkpoint_path
+            else None
+        )
+        self.tstore = TieredStore(
+            self.K, spill_dir=sdir, compress=self.spill_compress,
+            durable=bool(self.checkpoint_path),
+        )
 
     def _override_budget(self, what: str) -> None:
         if not self._budget_overridden:
@@ -390,7 +540,8 @@ class DeviceChecker:
         self.tstore.evict_keys(ev_np)
         self._hot_n -= n
         self._spill_active = True
-        self._log(f"spill: evicted {n} cold keys to the ram tier "
+        tier = "ram+disk" if self.tstore.durable else "ram"
+        self._log(f"spill: evicted {n} cold keys to the {tier} tier "
                   f"(hot {self._hot_n})")
         return n
 
@@ -433,7 +584,7 @@ class DeviceChecker:
         self.tstore.spill_logs(base, upto, par, lan)
         for t in (self._rows, self._parent, self._lane):
             t[:keep] = t[n: n + keep].clone()  # the ranges overlap
-        self._row_base = upto
+        self._row_base = self._log_base = upto
         self._spill_active = True
 
     def _tiered_ensure_windows(self, level_base: int, need_abs: int,
@@ -463,6 +614,18 @@ class DeviceChecker:
             self._wcap_max = max(2 * self._wcap_max, need)
             self._grow_store(min(_pow2_at_least(need, cap), self._wcap_max))
 
+    def _tiered_pressure(self) -> bool:
+        """Must the level loop run the stage loop from here on?  Latches
+        ``_spill_active`` when the hot table plus two windows would pass
+        its ceiling, or the row/log window could not take the next
+        append window."""
+        if not self._spill_active:
+            hot = self._hot_n + 2 * self.NQ > self._tcap_max // 2
+            win = self._nv - self._row_base + self.NQ > self._wcap_max
+            if hot or win:
+                self._spill_active = True
+        return self._spill_active
+
     def _tiered_boundary(self, level_base: int) -> None:
         """Level-boundary housekeeping: tag the epoch, make room within
         the budget for the next level's first flush, spill aged
@@ -480,7 +643,7 @@ class DeviceChecker:
     def merged_logs(self) -> Tuple[np.ndarray, np.ndarray]:
         """The parent and lane logs of every state found, int32 numpy
         ``[nv]``: the cold segments, then the device window."""
-        nv, base = self._nv, self._row_base
+        nv, base = self._nv, self._log_base
         par = self._parent[: nv - base].cpu().numpy()
         lan = self._lane[: nv - base].cpu().numpy()
         if not base:
@@ -490,8 +653,12 @@ class DeviceChecker:
 
     def merged_rows(self) -> np.ndarray:
         """The packed rows of every state found, flat uint32 numpy
-        ``[nv * W]``: the cold segments, then the device window."""
+        ``[nv * W]``: the cold segments, then the device window (the
+        frontier window keeps no older rows)."""
         nv, base = self._nv, self._row_base
+        if self.frontier and base:
+            raise ValueError("the frontier row window dropped the rows "
+                             f"before gid {base}")
         rows = self._rows[: nv - base].cpu().numpy().view(np.uint32)
         if not base:
             return rows.reshape(-1)
@@ -541,11 +708,22 @@ class DeviceChecker:
                 self._dead = min(self._dead, f_off + d)
         return packed, kcols
 
+    def _flush_fault(self) -> bool:
+        """The ``flush`` fault site (host-side, before a flush): raises
+        the injected oom; True when an ``fpset_fail`` must be realized
+        as a probe overflow after the flush."""
+        self._flush_seq += 1
+        kinds = faults.poll("flush", self._flush_seq)
+        if "oom" in kinds:
+            raise faults.oom_error("flush", self._flush_seq)
+        return "fpset_fail" in kinds
+
     def _flush(self, packed, kcols, acc_base: int, is_init: bool) -> None:
         """Flush + compact + append one window's candidate lanes; lane
         ``j`` came from source ``acc_base + j // A`` (expand) or is
         initial state ``acc_base + j`` (init)."""
         nq = packed.shape[0]
+        fail = self._flush_fault()
         if self.tiered:
             self._ensure_hot_capacity(nq)
         else:
@@ -553,6 +731,8 @@ class DeviceChecker:
         self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
             self._tcols, kcols, nq, self._fpm, self._claims
         )
+        if fail:
+            self._fpm[2] += 1
         self._host_syncs += 1  # flush_acc_tiles read the new-lane count
         self._check_overflow(*self._read(self._fpm[2], self._rehash_failed))
         if self.tiered:
@@ -572,7 +752,11 @@ class DeviceChecker:
         else:
             self._ensure_store(nv + n_new)
         w = nv - self._row_base
-        self._rows[w: w + n_new] = crows
+        if self._rows_ok and w + n_new > self._rows.shape[0]:
+            self._drop_rows()
+        if self._rows_ok:
+            self._rows[w: w + n_new] = crows
+        w = nv - self._log_base
         if is_init:
             self._parent[w: w + n_new] = (-1 - (acc_base + idx)).to(
                 torch.int32
@@ -597,6 +781,13 @@ class DeviceChecker:
             ]
         self._nv = nv + n_new
 
+    def _drop_rows(self) -> None:
+        """The frontier window is full: the rest of this level's rows are
+        dropped (dedup, counts, invariants and logs go on)."""
+        self._rows_ok = False
+        self._log("rows window full: dropping rows for the rest of this "
+                  "level")
+
     @staticmethod
     def _check_overflow(probe_failed: int, rehash_failed: int) -> None:
         """Raise if a flush or a table growth left keys unplaced."""
@@ -612,37 +803,92 @@ class DeviceChecker:
 
     # ------------------------------------------------ the fused level
 
-    def _lv_sync(self, *extra: torch.Tensor) -> List[int]:
-        """Read the device-held state count, deadlock gid, violation
-        gids and probe failures (and ``extra``) in one sync; raise on a
-        probe overflow.  Returns the ``extra`` values."""
+    def _headroom(self) -> int:
+        """Growth headroom of the fused level in lanes: ``GROW_AHEAD``
+        (at least ``fuse_group``) windows; one after a device-memory
+        recovery, and in tiered mode, where the table grows as the stage
+        loop grows it (a growth re-tags every key at generation 1, so a
+        table presized to its ceiling would leave a whole level in one
+        generation for the first eviction to take)."""
+        if self.rec.headroom_frozen or self.tiered:
+            return self.NQ
+        return max(GROW_AHEAD, self.RMAX) * self.NQ
+
+    def _lv_begin(self) -> None:
+        """The fused level's device-held counters, from the host's exact
+        ones (at a fresh start, after a restore or a stage level)."""
+        dev = self.device
+        self._nv_t = torch.full((), self._nv, dtype=torch.int64, device=dev)
+        self._dead_t = torch.full((), self._dead, dtype=torch.int64,
+                                  device=dev)
+        self._viol_t = torch.full((len(self.invariant_names),), BIG,
+                                  dtype=torch.int64, device=dev)
+        for i, v in enumerate(self._viol):
+            if v < BIG:
+                self._viol_t[i] = v
+        self._nv_hi = self._nv
+        self._since_sync = 0
+        self._lv_active = True
+
+    def _lv_read(self, *extra: torch.Tensor) -> List[int]:
+        """Read the device-held state count, deadlock gid and violation
+        gids (and ``extra``) in one sync into the host's counters;
+        returns the probe-failure counts and ``extra``."""
         n_inv = len(self.invariant_names)
         vals = self._read(self._nv_t, self._dead_t, self._viol_t,
                           self._fpm[2], self._rehash_failed, *extra)
         self._nv, self._dead = vals[0], vals[1]
         self._viol = vals[2: 2 + n_inv]
-        self._check_overflow(*vals[2 + n_inv: 4 + n_inv])
         self._nv_hi = self._nv
+        self._since_sync = 0
+        return vals[2 + n_inv:]
+
+    def _lv_sync(self, *extra: torch.Tensor) -> List[int]:
+        """:meth:`_lv_read`, raise on a probe overflow, and grow the table
+        and the store (tiered: within the ceilings) for the headroom.
+        Returns the ``extra`` values."""
+        probe, rehash, *rest = self._lv_read(*extra)
+        self._check_overflow(probe, rehash)
+        if self.tiered and not self._spill_active:
+            self._hot_n = self._nv  # nothing evicted yet: every key hot
         if self._nv < self.SCAP:
             # room for the headroom's windows (never past max_states'
             # last window)
-            need = min(self._nv + self._ahead, self.SCAP + self.NQ)
-            self._ensure_table(need)
+            need = min(self._nv + self._headroom(), self.SCAP + self.NQ)
+            self._ensure_table(need, self._tcap_max if self.tiered else None)
             self._ensure_store(need)
-        return vals[4 + n_inv:]
+        return rest
 
     def _lv_room(self, nq: int) -> bool:
         """Make room for a window of ``nq`` lanes: True at once when the
-        bound ``nv_hi`` is under ``max_states`` and ``nv_hi + nq`` fits
-        the table's load contract and the row store; else sync (and
-        grow) first, and False when the run must stop."""
+        bound ``nv_hi`` is under ``max_states``, ``nv_hi + nq`` fits the
+        table's load contract, the logs and the rows (unless they are
+        being dropped), and no timed sync is due; else sync (and grow)
+        first, and False when the run must stop — or, tiered, when the
+        capped tiers cannot take the window and the level loop must hand
+        over to the stage loop (``_spill_active`` latched)."""
+        def fits(hi):
+            return (hi <= (self._tcols[0].shape[0] - 1) // 2
+                    and hi - self._log_base <= self._parent.shape[0]
+                    and (not self._rows_ok
+                         or hi - self._row_base <= self._rows.shape[0]))
+
         hi = self._nv_hi + nq
-        if (self._nv_hi < self.SCAP
-                and hi <= (self._tcols[0].shape[0] - 1) // 2
-                and hi <= self._rows.shape[0]):
+        if (self._nv_hi < self.SCAP and fits(hi)
+                and (self.time_budget_s is None
+                     or self._since_sync < TIMED_SYNC_EVERY)):
             return True
         self._lv_sync()
-        return self._stop_reason() is None
+        if self._stop_reason() is not None:
+            return False
+        hi = self._nv + nq
+        if (self.frontier and self._rows_ok
+                and hi - self._row_base > self._rows.shape[0]):
+            self._drop_rows()
+        if self.tiered and not fits(hi):
+            self._spill_active = True
+            return False
+        return True
 
     def _lv_flush(self, packed, kcols, acc_base, is_init: bool) -> None:
         """The fused level's flush + compact + append of one window, with
@@ -651,18 +897,26 @@ class DeviceChecker:
         are overwritten by later windows)."""
         nq = packed.shape[0]
         dev = self.device
+        fail = self._flush_fault()
         self._tcols, n_new, is_new, self._fpm = tiles.flush_tiles(
             self._tcols, kcols, nq, self._fpm, self._claims
         )
+        if fail:
+            self._fpm[2] += 1
         crows, idx = compact_rows(packed, is_new)
         nv = self._nv_t
         pos = torch.arange(nq, device=dev)
         dest = nv + pos
-        self._rows.index_copy_(0, dest, crows)
+        if self._rows_ok:
+            self._rows.index_copy_(
+                0, dest - self._row_base if self._row_base else dest, crows
+            )
         if is_init:
             par, lane = -1 - (acc_base + idx), torch.zeros_like(idx)
         else:
             par, lane = acc_base + idx // self.A, idx % self.A
+        if self._log_base:
+            dest = dest - self._log_base
         self._parent.index_copy_(0, dest, par.to(torch.int32))
         self._lane.index_copy_(0, dest, lane.to(torch.int32))
         if self.invariant_names:
@@ -678,6 +932,7 @@ class DeviceChecker:
             )
         self._nv_t = nv + n_new
         self._nv_hi += nq
+        self._since_sync += 1
 
     def _lv_window(self, rows, base, rowvalid=None) -> None:
         """Expand, flush and append one window of frontier rows whose
@@ -690,20 +945,51 @@ class DeviceChecker:
             )
         self._lv_flush(packed, kcols, base, False)
 
-    def _lv_level(self, level_base: int, nf: int) -> bool:
+    def _lv_init(self) -> None:
+        """The initial states in fused windows, then one read."""
+        dev = self.device
+        n_init = self.model.n_initial
+        step = self.G * self.A
+        for f_off in range(0, n_init, step):
+            n = min(step, n_init - f_off)
+            if not self._lv_room(n):
+                break
+            idx = torch.arange(f_off, f_off + n, device=dev)
+            packed = self.layout.pack(self.model.gen_initial(idx))
+            kcols = tiles.key_plane(
+                self.keys, packed,
+                torch.ones((n,), dtype=torch.bool, device=dev),
+            )
+            self._lv_flush(packed, kcols, f_off, True)
+        self._lv_sync()
+
+    def _lv_level(self, level_base: int, nf: int):
         """Enqueue every window of a level (offsets known on the host),
-        syncing only for room.  False when a sync stopped the run
-        mid-level."""
+        syncing only for room: ``"done"``, ``"stop"`` (a sync stopped
+        the run mid-level), or the frontier offset of the first window
+        not run (tiered: the stage loop must take the level over from
+        there)."""
         for f_off in range(0, nf, self.G):
             n = min(self.G, nf - f_off)
             if not self._lv_room(n * self.A):
-                return False
-            off = level_base + f_off
-            self._lv_window(self._rows[off: off + n], off)
-        return True
+                return "stop" if self._stop_reason() else f_off
+            off = level_base + f_off - self._row_base
+            self._lv_window(self._rows[off: off + n], level_base + f_off)
+        return "done"
 
-    def _lv_ramp(self, level_base: int, nf: int) -> Tuple[list, int, int]:
-        """A ramp batch: up to ``RMAX`` levels of one window each, the
+    def _levels_cap(self, levels_done: int) -> int:
+        """Levels one ramp batch may close: ``fuse_group``, cut so that
+        a checkpointed run's batch ends on a due frame level (frames and
+        the preemption check keep their level-boundary meaning)."""
+        lv = self.RMAX
+        if self.checkpoint_path:
+            lv = min(lv, self.checkpoint_every
+                     - levels_done % self.checkpoint_every)
+        return max(lv, 1)
+
+    def _lv_ramp(self, level_base: int, nf: int,
+                 cap: int) -> Tuple[list, int, int]:
+        """A ramp batch: up to ``cap`` levels of one window each, the
         level base and frontier size held on the device, and one read at
         the end.  A level's window has as many rows as the host's bound
         on its frontier, ``nf * A^i`` for the batch's ``i``-th level,
@@ -717,7 +1003,7 @@ class DeviceChecker:
         live = torch.ones((), dtype=torch.bool, device=dev)
         sizes = []
         bound = nf
-        for i in range(self.RMAX):
+        for i in range(cap):
             n = min(bound, self.G)
             if i and n * self.A > RAMP_SPEC_LANES:
                 break
@@ -736,123 +1022,40 @@ class DeviceChecker:
         lb_h, nf_h, *got = self._lv_sync(lb, nft, *sizes)
         return [z for z in got if z >= 0], lb_h, nf_h
 
-    def _run_level(self, t0) -> CheckerResult:
-        """The fused level loop (see the module docstring)."""
-        dev = self.device
-        n_inv = len(self.invariant_names)
-        self._nv_t = torch.zeros((), dtype=torch.int64, device=dev)
-        self._dead_t = torch.full((), BIG, dtype=torch.int64, device=dev)
-        self._viol_t = torch.full((n_inv,), BIG, dtype=torch.int64,
-                                  device=dev)
-        self._nv_hi = 0
-        self._ahead = max(GROW_AHEAD, self.RMAX) * self.NQ
-        n_init = self.model.n_initial
-        step = self.G * self.A
-        for f_off in range(0, n_init, step):
-            n = min(step, n_init - f_off)
-            if not self._lv_room(n):
-                break
-            idx = torch.arange(f_off, f_off + n, device=dev)
-            packed = self.layout.pack(self.model.gen_initial(idx))
-            kcols = tiles.key_plane(
-                self.keys, packed,
-                torch.ones((n,), dtype=torch.bool, device=dev),
-            )
-            self._lv_flush(packed, kcols, f_off, True)
+    def _lv_pass(self, levels_done: int, level_base: int, nf: int):
+        """One fused pass from a level boundary: a ramp batch (frontier
+        within one window, rows not windowed) or one whole level.
+        Returns ``(sizes, level_base, nf, done)`` as
+        :meth:`_stage_level`, or, on a tiered handoff, the frontier
+        offset where the stage loop takes the level over (the host's
+        counters are exact there)."""
+        if not self._lv_active:
+            self._lv_begin()
+        if nf <= self.G and not self.frontier:
+            # the ramp reads rows at absolute gids: nothing has slid
+            assert self._row_base == 0 and self._log_base == 0
+            sizes, lb, nf2 = self._lv_ramp(level_base, nf,
+                                           self._levels_cap(levels_done))
+            if not sizes and self.tiered and self._spill_active:
+                return 0
+            self._fuse_levels += len(sizes)
+            return sizes, lb, nf2, True
+        how = self._lv_level(level_base, nf)
+        if isinstance(how, int):
+            return how
+        cum = level_base + nf
+        if how == "stop":
+            return [self._nv - cum], level_base, nf, False
         self._lv_sync()
-        level_sizes: List[int] = [self._nv]
-        self._log(f"level 1: {self._nv} initial states")
+        self._fuse_levels += 1
+        return [self._nv - cum], cum, self._nv - cum, True
 
-        level_base, nf = 0, self._nv
-        while True:
-            reason = self._stop_reason()
-            if reason is not None:
-                return self._result(t0, level_sizes, **reason)
-            if nf == 0:
-                return self._result(t0, level_sizes)
-            cum, done = level_base + nf, True
-            if nf <= self.G:
-                sizes, level_base, nf = self._lv_ramp(level_base, nf)
-                self._fuse_levels += len(sizes)
-            else:
-                done = self._lv_level(level_base, nf)
-                if done:
-                    self._lv_sync()
-                    self._fuse_levels += 1
-                sizes = [self._nv - cum]
-                level_base, nf = cum, sizes[0]
-            for sz in sizes:
-                # a level that adds nothing ends the search; a level cut
-                # by a stop keeps its partial count
-                if sz or not done:
-                    cum += sz
-                    level_sizes.append(sz)
-                    wall = time.time() - t0
-                    self._log(
-                        f"level {len(level_sizes)}: +{sz} (total "
-                        f"{cum}, {cum / max(wall, 1e-9):.0f} st/s)"
-                    )
+    # ------------------------------------------------ the stage loop
 
-    # ---------------------------------------------------------------- run
-
-    def _first_viol(self) -> Optional[Tuple[str, int]]:
-        """(invariant, gid) of the lowest-gid violation, or None."""
-        best = None
-        for name, g in zip(self.invariant_names, self._viol):
-            if g < BIG and (best is None or g < best[1]):
-                best = (name, g)
-        return best
-
-    def _stop_reason(self) -> Optional[dict]:
-        """``_result`` kwargs if the run must stop: a violation, then a
-        deadlock, then the state budget."""
-        fv = self._first_viol()
-        if fv is not None:
-            return {"viol": fv}
-        if self._dead < BIG:
-            return {"dead_gid": self._dead}
-        if self._nv >= self.SCAP:
-            return {"truncated": True, "stop_reason": "max_states"}
-        return None
-
-    def run(self) -> CheckerResult:
-        t0 = time.time()
+    def _stage_init(self) -> None:
+        """The initial states in windows, each flush read back."""
         dev = self.device
-        if dev.type == "cuda":
-            # K0 on this card (builds and loads the kernels on first use)
-            kernels.selftest(dev)
-        self._tcols = fpset.empty_cols(self.TCAP0, self.K, dev)
-        self._rows = torch.zeros((self.WCAP0, self.W), dtype=torch.int32,
-                                 device=dev)
-        self._parent = torch.zeros((self.WCAP0,), dtype=torch.int32,
-                                   device=dev)
-        self._lane = torch.zeros((self.WCAP0,), dtype=torch.int32,
-                                 device=dev)
-        self._claims = fpset.new_claims(self.TCAP0, dev)
-        self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64,
-                                device=dev)
-        self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
-        self._host_syncs = self._fuse_levels = 0
-        self._nv, self._dead = 0, BIG
-        self._viol = [BIG] * len(self.invariant_names)
-        self._row_base = self._level_base = 0
-        self._budget_overridden = False
-        if self.tiered:
-            if self.tstore is not None:
-                self.tstore.close()
-            self.tstore = TieredStore(compress=self.spill_compress)
-            self._tcap_max, self._wcap_max = self.TCAP_MAX, self.WCAP_MAX
-            self._gen = torch.zeros((self.TCAP0 + 1,), dtype=torch.int32,
-                                    device=dev)
-            self._epoch, self._hot_n, self._spill_syncs = 1, 0, 0
-            self._spill_active = False
-        elif self.fuse == "level":
-            return self._run_level(t0)
-
-        # ---- level 1: the spec's initial states, in windows
         n_init = self.model.n_initial
-        if n_init > self.SCAP:
-            raise ValueError("initial-state set exceeds max_states")
         step = self.G * self.A
         for f_off in range(0, n_init, step):
             n = min(step, n_init - f_off)
@@ -865,55 +1068,488 @@ class DeviceChecker:
             self._flush(packed, kcols, f_off, True)
             if self._stop_reason() is not None:
                 break
-        level_sizes: List[int] = [self._nv]
-        self._log(f"level 1: {self._nv} initial states")
 
-        level_base, nf = 0, self._nv
+    def _stage_level(self, level_base: int, nf: int, start: int = 0):
+        """Expand one level window by window from frontier offset
+        ``start`` (a fused level handed over there), each read back,
+        checking the stop conditions after every flush.  Returns
+        ``(sizes, level_base, nf, done)``: the level's count (its
+        partial count when stopped; none when it added nothing), and the
+        next level's frontier — or, when stopped mid-level (``done``
+        False), this level's, where a frame rewinds to."""
+        self._lv_active = False  # the host's counters are the truth now
+        self._level_base = level_base
+        stop = False
+        for f_off in range(start, nf, self.G):
+            n = min(self.G, nf - f_off)
+            packed, kcols = self._expand(level_base + f_off, n)
+            self._flush(packed, kcols, level_base + f_off, False)
+            if self._stop_reason() is not None:
+                stop = True
+                break
+        count = self._nv - (level_base + nf)
+        sizes = [count] if count or stop else []
+        if stop:
+            return sizes, level_base, nf, False
+        return sizes, level_base + nf, count, True
+
+    # ---------------------------------------------------------- the run
+
+    def _first_viol(self) -> Optional[Tuple[str, int]]:
+        """(invariant, gid) of the lowest-gid violation, or None."""
+        best = None
+        for name, g in zip(self.invariant_names, self._viol):
+            if g < BIG and (best is None or g < best[1]):
+                best = (name, g)
+        return best
+
+    def _over_time(self) -> bool:
+        # the budget runs on its own clock: a resumed run's wall is
+        # cumulative, but it gets ``time_budget_s`` of fresh runway
+        return (self.time_budget_s is not None
+                and time.time() - self._budget_t0 > self.time_budget_s)
+
+    def _stop_reason(self) -> Optional[dict]:
+        """``_result`` kwargs if the run must stop: a violation, then a
+        deadlock, then the state budget, then the time budget."""
+        fv = self._first_viol()
+        if fv is not None:
+            return {"viol": fv}
+        if self._dead < BIG:
+            return {"dead_gid": self._dead}
+        if self._nv >= self.SCAP:
+            return {"truncated": True, "stop_reason": "max_states"}
+        if self._over_time():
+            return {"truncated": True, "stop_reason": "time_budget"}
+        return None
+
+    def run(self, resume: bool = False) -> CheckerResult:
+        """Check the model.  ``resume=True`` rebuilds the run from the
+        ``checkpoint_path`` frame and continues it (wall time cumulative
+        across resumes; the time budget starts afresh)."""
+        t0 = time.time()
+        self._budget_t0 = t0
+        self.rec.reset()
+        self._ckpt_frames = self._ckpt_bytes = self._ckpt_retries = 0
+        self._ckpt_write_s = self._ckpt_last_s = self._restore_s = 0.0
+        self._ckpt_last_d2h = 0.0
+        self._flush_seq = 0
+        self._bufs_poisoned = False
+        self._handoff = None  # (level, fused levels before it)
+        ckpt.cleanup_stale_tmp(self.checkpoint_path)
+        # SIGTERM/SIGINT: a frame at the next level boundary, then a
+        # resumable stop (only when there is a frame path to write)
+        watcher = ckpt.PreemptionWatcher(
+            enabled=bool(self.checkpoint_path), log=self._log
+        )
+        self._watcher = watcher
+        try:
+            with watcher:
+                return self._run(t0, resume)
+        finally:
+            self._watcher = None
+
+    def _run(self, t0, resume: bool) -> CheckerResult:
+        dev = self.device
+        if dev.type == "cuda":
+            # K0 on this card (builds and loads the kernels on first use)
+            kernels.selftest(dev)
+        self._host_syncs = self._fuse_levels = 0
+        self._budget_overridden = False
+        self._lv_active = False
+        self._rows_ok = True
+        self._row_base = self._log_base = self._level_base = 0
+        if self.tiered:
+            self._tcap_max, self._wcap_max = self.TCAP_MAX, self.WCAP_MAX
+            self._epoch, self._hot_n, self._spill_syncs = 1, 0, 0
+            self._spill_active = False
+        if resume:
+            if not self.checkpoint_path:
+                raise ValueError("resume requires checkpoint_path")
+            t = time.perf_counter()
+            level_sizes, level_base, nf, wall = self._restore_frame()
+            self._restore_s = time.perf_counter() - t
+            t0 = time.time() - wall
+            self.rec.arm()  # the frame on disk is valid
+        else:
+            # level 1's fault site (the loop's count starts at 2)
+            if "oom" in faults.poll("level", 1):
+                raise faults.oom_error("level", 1)
+            n_init = self.model.n_initial
+            if n_init > self.SCAP:
+                raise ValueError("initial-state set exceeds max_states")
+            if self.frontier and n_init + self.NQ > self.LCAP:
+                raise ValueError(
+                    f"initial level ({n_init} states) exceeds the "
+                    "frontier rows window; raise row_cap_states"
+                )
+            self._alloc()
+            self._nv, self._dead = 0, BIG
+            self._viol = [BIG] * len(self.invariant_names)
+            if self.tiered:
+                self._mk_tstore()
+                self.tstore.wipe()  # a fresh run owns its spill dir
+            if self.fuse == "level" and not self.tiered:
+                self._lv_begin()
+                self._lv_init()
+            else:
+                self._stage_init()
+            level_sizes = [self._nv]
+            level_base, nf = 0, self._nv
+            self._log(f"level 1: {self._nv} initial states")
+        self._wall_t0 = t0
+        return self._run_recoverable(t0, level_sizes, level_base, nf)
+
+    def _run_recoverable(self, t0, level_sizes, level_base, nf):
+        """The level loop under the recovery contract: device memory
+        running out with a valid frame on disk frees the run's tensors,
+        rebuilds from the frame and goes on at degraded capacity; when
+        the rebuild itself runs out, the run stops with ``hbm``."""
+        while True:
+            try:
+                return self._level_loop(t0, level_sizes, level_base, nf)
+            except recovery.HbmExhausted as hx:
+                last = (hx.nv, hx.level_sizes, hx.msg)
+                hx.__context__ = None
+            # outside the except block: its traceback pins the loop's
+            # tensors
+            self.rec.degrade()
+            self._log(
+                "device memory exhausted: recovering from the last "
+                f"checkpoint frame (recovery #{self.rec.hbm_recovered}) — "
+                f"{last[2][:120]}"
+            )
+            self._free_buffers()
+            t = time.perf_counter()
+            try:
+                level_sizes, level_base, nf, _w = self._restore_frame()
+                self._restore_s = time.perf_counter() - t
+            except Exception as e:  # noqa: BLE001
+                if not recovery.is_resource_exhausted(e):
+                    raise
+                self._bufs_poisoned = True
+                self._nv = last[0]
+                return self._result(t0, last[1], truncated=True,
+                                    stop_reason="hbm")
+
+    def _boundary_stop(self, level_sizes, level_base: int,
+                       nf: int) -> Optional[str]:
+        """The stops checked at a level boundary before the next level:
+        a degraded spill tier, a preemption request (after its frame),
+        and a frontier window that lost rows of the level to expand."""
+        if self.tstore is not None and self.tstore.durable:
+            self.tstore.flush()
+        if self.tstore is not None and self.tstore.degraded:
+            return "spill_enospc"
+        if self._watcher is not None and self._watcher.requested:
+            # a refused frame (rows lost) falls through to the honest
+            # row_window stop below
+            if self._save_frame(level_sizes, level_base, nf) \
+                    or self._rows_ok:
+                return "preempted"
+        if self.frontier:
+            if not self._rows_ok:
+                return "row_window"
+            self._slide_rows(level_base, nf)
+        return None
+
+    def _slide_rows(self, level_base: int, nf: int) -> None:
+        """Frontier mode: move the frontier's rows to offset 0 of the
+        window, dropping older ones (in chunks no longer than the gap,
+        so no copy overlaps itself)."""
+        gap = level_base - self._row_base
+        if gap <= 0:
+            return
+        r = self._rows
+        if nf > 256 * gap:
+            r[:nf] = r[gap: gap + nf].clone()
+        else:
+            for a in range(0, nf, gap):
+                b = min(a + gap, nf)
+                r[a:b] = r[a + gap: b + gap]
+        self._row_base = level_base
+
+    def _level_loop(self, t0, level_sizes, level_base, nf):
+        """BFS levels from a level boundary (after init or a restore)."""
         while True:
             reason = self._stop_reason()
-            if reason is not None:
+            if reason is not None and not (reason.get("truncated")
+                                           and nf == 0):
+                if reason.get("truncated"):
+                    # a budget stop leaves a resumable frame
+                    self._save_frame(level_sizes, level_base, nf)
                 return self._result(t0, level_sizes, **reason)
             if nf == 0:
                 return self._result(t0, level_sizes)
-            stop = False
-            self._level_base = level_base
-            for f_off in range(0, nf, self.G):
-                n = min(self.G, nf - f_off)
-                packed, kcols = self._expand(level_base + f_off, n)
-                self._flush(packed, kcols, level_base + f_off, False)
-                if self._stop_reason() is not None:
-                    stop = True
-                    break
-            level_count = self._nv - (level_base + nf)
-            if level_count or stop:
-                level_sizes.append(level_count)
-                wall = time.time() - t0
-                self._log(
-                    f"level {len(level_sizes)}: +{level_count} (total "
-                    f"{self._nv}, {self._nv / max(wall, 1e-9):.0f} st/s)"
+            why = self._boundary_stop(level_sizes, level_base, nf)
+            if why is not None:
+                return self._result(t0, level_sizes, truncated=True,
+                                    stop_reason=why)
+            before = list(level_sizes)
+            level = len(level_sizes) + 1
+            try:
+                # the fault sites: kill/sigterm fire inside poll; an
+                # injected oom takes the path of a real allocator failure
+                if "oom" in faults.poll("level", level):
+                    raise faults.oom_error("level", level)
+                out = 0
+                if self.fuse == "level" and not (
+                    self.tiered and self._tiered_pressure()
+                ):
+                    out = self._lv_pass(len(level_sizes), level_base, nf)
+                if isinstance(out, int):
+                    # the stage loop's level, or the rest of a fused one
+                    # from the window the capped tiers could not take
+                    if self.tiered and self._handoff is None:
+                        self._handoff = (level, self._fuse_levels)
+                    out = self._stage_level(level_base, nf, start=out)
+                sizes, lb2, nf2, done = out
+                for k, sz in enumerate(sizes):
+                    if done and not sz:
+                        continue  # a level that adds nothing ends it
+                    site = len(level_sizes) + 1
+                    # the later levels of a ramp batch: their sites fire
+                    # as the batch's sizes are taken in
+                    if k and "oom" in faults.poll("level", site):
+                        raise faults.oom_error("level", site)
+                    level_sizes.append(sz)
+                    self._log_level(t0, level_sizes)
+                if done and self.tiered and nf2:
+                    self._tiered_boundary(lb2)
+            except Exception as e:  # noqa: BLE001
+                if not recovery.is_resource_exhausted(e):
+                    raise
+                if self.rec.can_recover():
+                    raise recovery.HbmExhausted(
+                        self._nv, list(level_sizes), repr(e)
+                    ) from None
+                # no frame to rebuild from: report what was checked
+                self._log(f"device memory exhausted mid-level: truncating "
+                          f"({e!r:.120})")
+                self._bufs_poisoned = True
+                self._read_after_oom(level_sizes)
+                done, lb2, nf2 = False, level_base, nf
+            if not done:
+                reason = self._stop_reason() or {
+                    "truncated": True, "stop_reason": "hbm"}
+                if reason.get("truncated"):
+                    # rewind to the level boundary: the partial level
+                    # re-derives on resume by dedup idempotence
+                    self._save_frame(before, lb2, nf2)
+                return self._result(t0, level_sizes, **reason)
+            level_base, nf = lb2, nf2
+            if (self.checkpoint_path and nf
+                    and len(level_sizes) % self.checkpoint_every == 0):
+                self._save_frame(level_sizes, level_base, nf)
+
+    def _read_after_oom(self, level_sizes) -> None:
+        """After device memory ran out with no frame: read the fused
+        level's exact counters if that still works, and count the
+        partial level."""
+        if self._lv_active:
+            try:
+                self._lv_read()
+            except Exception:  # noqa: BLE001 — keep the last counts
+                pass
+        partial = self._nv - sum(level_sizes)
+        if partial > 0:
+            level_sizes.append(partial)
+
+    def _log_level(self, t0, level_sizes) -> None:
+        cum = sum(level_sizes)
+        wall = time.time() - t0
+        self._log(f"level {len(level_sizes)}: +{level_sizes[-1]} (total "
+                  f"{cum}, {cum / max(wall, 1e-9):.0f} st/s)")
+
+    # -------------------------------------------------- checkpoint/resume
+
+    def _config_sig(self) -> str:
+        """What a frame must agree on to resume here: the model, the
+        invariants, the key geometry, the row policy and the engine
+        revision.  Capacities live in the frame's arrays: a resumed run
+        may raise ``max_states`` or ``row_cap_states``."""
+        return ckpt.config_sig(
+            model=ckpt.model_sig(self.model),
+            invariants=self.invariant_names,
+            check_deadlock=self.check_deadlock,
+            state_bits=self.layout.total_bits,
+            key_cols=self.K,
+            key_exact=self.keys.exact,
+            rows_window=self.rows_window,
+            engine=ENGINE_SIG,
+            **({"tiered": True} if self.tiered else {}),
+        )
+
+    def _save_frame(self, level_sizes, level_base: int, nf: int) -> bool:
+        """Write one resumable frame ("``nv`` states found, about to
+        expand the frontier ``[level_base, level_base + nf)``"); True if
+        written.  The rows saved span ``[lo, nv)``: all of them, the
+        window from the frontier in frontier mode, the device window in
+        tiered mode (the older ones are in the cold tiers its manifest
+        describes)."""
+        if not self.checkpoint_path:
+            return False
+        if self._bufs_poisoned or not self._rows_ok:
+            return False  # keep the older, valid frame
+        if self.tstore is not None and self.tstore.degraded:
+            return False  # its manifest would name unwritten files
+        t_stall = time.perf_counter()
+        try:
+            arrays = self._frame_arrays(level_sizes, level_base, nf)
+        except Exception as e:  # noqa: BLE001
+            if not recovery.is_resource_exhausted(e):
+                raise
+            # no room on the device to gather the frame: keep the older
+            # one (a recovery would rebuild from it)
+            self._log(f"checkpoint skipped: device memory exhausted "
+                      f"({e!r:.80})")
+            return False
+        if arrays is None:
+            return False  # the manifest's join just latched ENOSPC
+        self._ckpt_last_d2h = time.perf_counter() - t_stall
+        nv = self._nv
+        nbytes, write_s, retries = ckpt.save_frame(
+            self.checkpoint_path, self._config_sig(), arrays,
+            wall_s=time.time() - self._wall_t0,
+            meta={"frame_seq": self._ckpt_frames + 1,
+                  "level": len(level_sizes), "engine": "device_bfs"},
+        )
+        stall = time.perf_counter() - t_stall
+        self._ckpt_frames += 1
+        self._ckpt_bytes += nbytes
+        self._ckpt_write_s += stall
+        self._ckpt_last_s = stall
+        self._ckpt_retries += retries
+        self.rec.arm()
+        self._log(f"checkpoint: level {len(level_sizes)}, {nv} states "
+                  f"({nbytes >> 10} KiB, {stall:.2f}s stall) -> "
+                  f"{self.checkpoint_path}")
+        return True
+
+    def _frame_arrays(self, level_sizes, level_base: int, nf: int):
+        """A frame's arrays gathered from the device; None when the
+        durable store turns out degraded at the manifest's join."""
+        nv = self._nv
+        lo = (self._row_base if self.tiered
+              else level_base if self.frontier else 0)
+        arrays = {
+            "n_visited": np.int64(nv),
+            "level_sizes": np.asarray(level_sizes, np.int64),
+            "lb": np.int64(level_base),
+            "nf": np.int64(nf),
+            "rows_lo": np.int64(lo),
+            "hbm_recovered": np.int64(self.rec.hbm_recovered),
+            "fpm": _host(self._fpm),
+            "parent": _host(self._parent[: nv - self._log_base]),
+            "lane": _host(self._lane[: nv - self._log_base]),
+            "rows": _host(self._rows[lo - self._row_base:
+                                     nv - self._row_base]
+                          ).view(np.uint32).reshape(-1),
+        }
+        arrays.update(ckpt.pack_table(self._tcols))
+        if self.tiered:
+            try:
+                man = self.tstore.manifest()
+            except ValueError:
+                return None
+            arrays["spill_manifest"] = np.frombuffer(
+                json.dumps(man).encode(), dtype=np.uint8)
+            arrays["spill_hot_n"] = np.int64(self._hot_n)
+            arrays["spill_epoch"] = np.int64(self._epoch)
+        return arrays
+
+    def _restore_frame(self):
+        """Rebuild the run's tensors and level frame from the frame;
+        returns ``(level_sizes, level_base, nf, wall_s)``."""
+        d = ckpt.load_frame(self.checkpoint_path, self._config_sig())
+        dev, K, W = self.device, self.K, self.W
+        nv = int(d["n_visited"])
+        level_sizes = [int(x) for x in d["level_sizes"]]
+        level_base, nf, lo = int(d["lb"]), int(d["nf"]), int(d["rows_lo"])
+        if nv > self.SCAP:
+            raise ValueError(
+                f"checkpoint holds {nv} states — beyond max_states "
+                f"({self.SCAP}); raise max_states to resume it"
+            )
+        cap = int(d["fp_tcap"])
+        self._tcols = fpset.empty_cols(cap, K, dev)
+        ckpt.restore_table(d, self._tcols)
+        self._claims = fpset.new_claims(cap, dev)
+        self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
+        fpm = np.zeros((fpset.FPM_N,), np.int64)
+        old = np.asarray(d["fpm"], np.int64).reshape(-1)
+        fpm[: min(len(old), fpset.FPM_N)] = old[: fpset.FPM_N]
+        self._fpm = torch.from_numpy(fpm).to(dev)
+        rows = torch.from_numpy(
+            np.asarray(d["rows"], np.uint32).view(np.int32).reshape(-1, W)
+        ).to(dev)
+        par = torch.from_numpy(np.asarray(d["parent"], np.int32)).to(dev)
+        lan = torch.from_numpy(np.asarray(d["lane"], np.int32)).to(dev)
+        n_rows = nv - lo
+        log_lo = lo if self.tiered else 0
+        if self.frontier:
+            if n_rows + self.NQ > self.LCAP:
+                raise ValueError(
+                    f"checkpoint frontier ({n_rows} rows) exceeds the "
+                    f"frontier rows window ({self.LCAP}); raise "
+                    "row_cap_states"
                 )
-            if stop:
-                return self._result(t0, level_sizes, **self._stop_reason())
-            level_base += nf
-            nf = level_count
-            if self.tiered and nf:
-                self._tiered_boundary(level_base)
+            rcap = self.LCAP
+            lcap = _pow2_at_least(nv + self.NQ, self.WCAP0)
+        else:
+            rcap = lcap = _pow2_at_least(n_rows + self.NQ, self.WCAP0)
+        self._rows = torch.zeros((rcap, W), dtype=torch.int32, device=dev)
+        self._rows[:n_rows] = rows
+        self._parent = torch.zeros((lcap,), dtype=torch.int32, device=dev)
+        self._lane = torch.zeros((lcap,), dtype=torch.int32, device=dev)
+        self._parent[: nv - log_lo] = par
+        self._lane[: nv - log_lo] = lan
+        self._row_base, self._log_base = lo, log_lo
+        self._nv, self._dead = nv, BIG
+        self._viol = [BIG] * len(self.invariant_names)
+        self._rows_ok = True
+        self._lv_active = False
+        if self.tiered:
+            if "spill_manifest" not in d:
+                raise ValueError(
+                    "tiered resume needs a spill manifest in the frame — "
+                    "this frame was written untiered"
+                )
+            self._mk_tstore()
+            self.tstore.restore(
+                json.loads(d["spill_manifest"].tobytes().decode()))
+            self._hot_n = int(d["spill_hot_n"])
+            self._epoch = 2
+            self._spill_active = bool(self.tstore.has_cold_keys
+                                      or self.tstore.rows_spilled_hi)
+            self._gen = sieve.tag_generation(
+                self._tcols, torch.zeros((cap + 1,), dtype=torch.int32,
+                                         device=dev), 1)
+        self.rec.hbm_recovered = max(self.rec.hbm_recovered,
+                                     int(d["hbm_recovered"]))
+        self._log(f"resumed at level {len(level_sizes)}: {nv} states, "
+                  f"frontier {nf}")
+        return level_sizes, level_base, nf, float(d["wall_s"])
+
+    # ------------------------------------------------------------ result
 
     def _result(
         self, t0, level_sizes, viol=None, dead_gid=None, truncated=False,
         stop_reason=None,
     ) -> CheckerResult:
         nv = self._nv
-        self.last_bufs = {
+        live = self._tcols is not None
+        self.last_bufs = ({
             "rows": self._rows.reshape(-1),
             "parent": self._parent,
             "lane": self._lane,
-        }
+        } if live else {})
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
-        tcap = self._tcols[0].shape[0] - 1
-        fl, rounds, fails, valid_lanes, max_rounds = self._fpm.tolist()
+        tcap = self._tcols[0].shape[0] - 1 if live else 0
+        fpm = self._fpm.tolist() if live else [0] * fpset.FPM_N
+        fl, rounds, fails, valid_lanes, max_rounds = fpm
         self.last_stats = dict(
             host_syncs=self._host_syncs,
             fuse_levels=self._fuse_levels,
@@ -926,8 +1562,19 @@ class DeviceChecker:
             fpset_valid_lanes=valid_lanes,
             fpset_max_probe_rounds=max_rounds,
             fpset_table_cap=tcap,
-            fpset_occupancy=nv / tcap,
+            fpset_occupancy=nv / max(tcap, 1),
+            hbm_recovered=self.rec.hbm_recovered,
         )
+        if self.checkpoint_path:
+            self.last_stats.update(
+                ckpt_frames=self._ckpt_frames,
+                ckpt_bytes=self._ckpt_bytes,
+                ckpt_write_s=round(self._ckpt_write_s, 3),
+                ckpt_last_stall_s=round(self._ckpt_last_s, 3),
+                ckpt_last_d2h_s=round(self._ckpt_last_d2h, 3),
+                ckpt_retries=self._ckpt_retries,
+                restore_s=round(self._restore_s, 3),
+            )
         if self.tiered:
             # the run is over: join the encodes so the byte counts are
             # final, and release the worker (the tiers stay readable)
@@ -947,6 +1594,12 @@ class DeviceChecker:
                 spill_hot_keys=int(self._hot_n),
                 spill_overlap_ratio=sp.overlap_ratio,
                 spill_bytes_per_state=round(sp.bytes_comp / max(nv, 1), 2),
+                spill_degraded=bool(self.tstore.degraded),
+                spill_durable=bool(self.tstore.durable),
+                handoff_level=self._handoff and self._handoff[0],
+                fused_levels_before_handoff=(
+                    self._handoff[1] if self._handoff else self._fuse_levels
+                ),
             )
         res = CheckerResult(
             distinct_states=nv,
@@ -957,6 +1610,7 @@ class DeviceChecker:
             level_sizes=list(level_sizes),
             truncated=truncated,
             stop_reason=stop_reason if truncated else None,
+            hbm_recovered=self.rec.hbm_recovered,
             fp_collision_prob=self.keys.collision_prob(nv),
         )
         gid = None
@@ -964,9 +1618,11 @@ class DeviceChecker:
             res.violation, gid = viol
         elif dead_gid is not None:
             res.violation, gid = "Deadlock", dead_gid
-        if gid is not None:
+        if gid is not None and live:
             res.violation_gid = gid
             res.trace, res.trace_actions = build_trace(
                 self.model, *self.merged_logs(), gid, len(level_sizes) + 2,
             )
+        elif gid is not None:
+            res.violation_gid = gid
         return res

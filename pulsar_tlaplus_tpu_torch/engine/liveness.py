@@ -33,12 +33,23 @@ Semantics (the oracle's, ``ref/pyeval.check_eventually``):
 not-goal path from an initial state reaches a not-goal state with no
 var-changing successor, or a cycle of var-changing not-goal steps.
 
-Sharded exploration, checkpoints and telemetry are not ported.
+**Checkpoints** (``checkpoint_path``, the JAX engine's contract): the
+exploration writes the inner checker's frames at that path every
+``checkpoint_every`` levels; once the sweep runs, its chunk-boundary
+frames (every ``checkpoint_every`` chunks) replace them, holding the
+explored rows and the edges so far, so a resume needs no
+re-exploration.  ``run(resume=True)`` continues from either kind.
+SIGTERM/SIGINT in either phase ends the run resumably (``truncated``,
+``stop_reason="preempted"``, no verdict); the ``sweep`` fault site
+(``utils/faults.py``) counts chunks.
+
+Sharded exploration and telemetry are not ported.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -50,6 +61,10 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
 from pulsar_tlaplus_tpu_torch.ops import tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
 from pulsar_tlaplus_tpu_torch.ops.dedup import u32
+from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
+
+# the sweep frame format's engine revision
+ENGINE_SIG = "liveness_torch_r1"
 
 
 @dataclass
@@ -63,6 +78,19 @@ class LivenessResult:
     # expected key collisions at this state count (0.0 for exact keys):
     # a hashed-key collision could alias two states in the edge join
     fp_collision_prob: float = 0.0
+    # an interrupted run carries no verdict (``holds`` means nothing
+    # while ``truncated``); ``run(resume=True)`` continues it
+    truncated: bool = False
+    stop_reason: Optional[str] = None
+
+
+class _Preempted(Exception):
+    """A preemption request ended a phase after its frame."""
+
+    def __init__(self, n: int, phase: str):
+        super().__init__(phase)
+        self.n = n
+        self.phase = phase
 
 
 def edge_digest(src, dst) -> str:
@@ -104,7 +132,9 @@ class LivenessChecker:
     2^22).  ``max_run`` caps the gid propagation's doubling shifts: a
     key with more than ``2p - 1`` equal-key queries in one chunk (``p``
     the largest power of two <= ``max_run``) fails loudly.
-    ``hbm_budget`` runs the exploration tiered.
+    ``hbm_budget`` runs the exploration tiered.  ``checkpoint_path``
+    and ``checkpoint_every`` (levels in the exploration, chunks in the
+    sweep) write resumable frames.
     """
 
     def __init__(
@@ -122,6 +152,8 @@ class LivenessChecker:
         max_run: int = 1 << 14,
         device=None,
         progress: bool = False,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 5,
     ):
         goals = getattr(model, "liveness_goals", {})
         if goal not in goals:
@@ -149,6 +181,8 @@ class LivenessChecker:
             p *= 2
         self._run_cover = 2 * p - 1
         self.progress = progress
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = max(1, int(checkpoint_every))
         kw = {} if spill_compress is None else {
             "spill_compress": spill_compress}
         self._checker = DeviceChecker(
@@ -161,6 +195,8 @@ class LivenessChecker:
             device=device,
             progress=progress,
             hbm_budget=hbm_budget,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every,
             **kw,
         )
         self.device = self._checker.device
@@ -170,6 +206,9 @@ class LivenessChecker:
         self._rows: Optional[torch.Tensor] = None  # int32 [n, W]
         self._edge_cache = None  # (src, dst, out_deg): goal-independent
         self.last_stats: Dict[str, object] = {}
+        self._resume_explore = False
+        self._sweep_resume = None  # (src parts, dst parts, next chunk)
+        self._watcher = None
 
     def _log(self, msg: str) -> None:
         if self.progress:
@@ -190,7 +229,13 @@ class LivenessChecker:
             return self._explored
         t0 = time.time()
         ck = self._checker
-        res = ck.run()
+        try:
+            res = ck.run(resume=self._resume_explore)
+        finally:
+            self._resume_explore = False
+        if res.truncated and res.stop_reason == "preempted":
+            # the exploration wrote its own frame on the way out
+            raise _Preempted(res.distinct_states, "explore")
         if res.truncated:
             why = res.stop_reason or "unknown"
             raise RuntimeError(
@@ -325,22 +370,31 @@ class LivenessChecker:
         G = self._sweep_group_size()
         tcols, tgid = self._table(n)
         starts = list(range(0, n, SF))
-        src_parts, dst_parts = [], []
+        src_parts, dst_parts, c0 = [], [], 0
+        if self._sweep_resume is not None:
+            src_parts, dst_parts, c0 = self._sweep_resume
+            self._sweep_resume = None
+            self._log(f"resumed the sweep at chunk {c0}/{len(starts)}")
         reads = 0
-        for g0 in range(0, len(starts), G):
+        for g0 in range(c0, len(starts), G):
             outs = [self._sweep_chunk(starts[i], n, tcols, tgid)
                     for i in range(g0, min(g0 + G, len(starts)))]
             kept = torch.stack([o[0] for o in outs]).tolist()
             reads += 1
-            if not sum(kept):
-                continue
-            flat = torch.cat([
-                torch.stack([o[1][:k], o[2][:k]])
-                for o, k in zip(outs, kept)
-            ], dim=1).cpu().numpy()
-            reads += 1
+            flat = np.zeros((2, 0), np.int64)
+            if sum(kept):
+                flat = torch.cat([
+                    torch.stack([o[1][:k], o[2][:k]])
+                    for o, k in zip(outs, kept)
+                ], dim=1).cpu().numpy()
+                reads += 1
             pos = 0
             for j, k in enumerate(kept):
+                i = g0 + j
+                # the chunk's fault site (kill/sigterm fire in poll; the
+                # sweep has no degraded rebuild, so an oom is raised)
+                if "oom" in faults.poll("sweep", i + 1):
+                    raise faults.oom_error("sweep", i + 1)
                 idx, dst = flat[0, pos: pos + k], flat[1, pos: pos + k]
                 pos += k
                 if (dst == -2).any():
@@ -352,8 +406,17 @@ class LivenessChecker:
                         "a single sweep chunk — shrink sweep_chunk or "
                         f"raise max_run (currently {self.max_run})"
                     )
-                src_parts.append(starts[g0 + j] + idx // A)
-                dst_parts.append(dst)
+                if k:
+                    src_parts.append(starts[i] + idx // A)
+                    dst_parts.append(dst)
+                preempt = (self._watcher is not None
+                           and self._watcher.requested)
+                if self.checkpoint_path and i + 1 < len(starts) and (
+                    preempt or (i + 1 - c0) % self.checkpoint_every == 0
+                ):
+                    self._save_sweep_frame(n, src_parts, dst_parts, i + 1)
+                    if preempt:
+                        raise _Preempted(n, "sweep")
         src = (np.concatenate(src_parts) if src_parts
                else np.zeros(0, np.int64))
         dst = (np.concatenate(dst_parts) if dst_parts
@@ -377,8 +440,47 @@ class LivenessChecker:
 
     # -------------------------------------------------------------- run
 
-    def run(self) -> LivenessResult:
-        """Check the current goal under the current fairness."""
+    def run(self, resume: bool = False) -> LivenessResult:
+        """Check the current goal under the current fairness.
+        ``resume=True`` continues an interrupted run from
+        ``checkpoint_path``: a sweep frame restores the explored rows and
+        the edges so far; an exploration frame resumes the BFS."""
+        self._t0 = time.time()
+        ckpt.cleanup_stale_tmp(self.checkpoint_path)
+        watcher = ckpt.PreemptionWatcher(
+            enabled=bool(self.checkpoint_path), log=self._log
+        )
+        self._watcher = watcher
+        try:
+            with watcher:
+                if resume:
+                    if not self.checkpoint_path:
+                        raise ValueError("resume requires checkpoint_path")
+                    if not self._try_resume_sweep():
+                        # an exploration frame: resume the BFS first
+                        self._resume_explore = True
+                try:
+                    return self._run_check()
+                except _Preempted as p:
+                    has_frame = bool(self.checkpoint_path) and \
+                        os.path.exists(self.checkpoint_path)
+                    return LivenessResult(
+                        False,
+                        "preempted (SIGTERM/SIGINT) during the "
+                        f"{p.phase} phase — " + (
+                            "a resumable frame is on disk; continue "
+                            "with run(resume=True)" if has_frame
+                            else "no frame was written yet; the run is "
+                            "NOT resumable"
+                        ),
+                        p.n,
+                        truncated=True,
+                        stop_reason="preempted",
+                    )
+        finally:
+            self._watcher = None
+
+    def _run_check(self) -> LivenessResult:
         n, n_init = self._explore()
         t0 = time.time()
         goal = self._goal(n)
@@ -389,6 +491,86 @@ class LivenessChecker:
         res = self._check(n, n_init, goal)
         self.last_stats["analysis_s"] = time.time() - t0
         return res
+
+    # ------------------------------------------------- checkpoint/resume
+
+    def _config_sig(self) -> str:
+        """What a sweep frame must agree on.  Goal and fairness are not
+        in it: the edges do not depend on them.  The sweep chunk is: a
+        chunk index means something only at the same chunk size."""
+        return ckpt.config_sig(
+            model=ckpt.model_sig(self.model),
+            state_bits=self.model.layout.total_bits,
+            key_cols=self.K,
+            key_exact=self.keys.exact,
+            sweep_chunk=self.SF,
+            engine=ENGINE_SIG,
+        )
+
+    def _save_sweep_frame(self, n, src_parts, dst_parts, next_chunk):
+        """One sweep frame: the explored rows, the edges so far (with
+        their out-degrees) and the next chunk."""
+        t = time.perf_counter()
+        src = (np.concatenate(src_parts) if src_parts
+               else np.zeros(0, np.int64))
+        arrays = {
+            "n": np.int64(n),
+            "n_init": np.int64(self._explored[1]),
+            "diameter": np.int64(self.last_stats.get("diameter", 0)),
+            "next_chunk": np.int64(next_chunk),
+            "rows": self._rows[:n].to("cpu", copy=True).numpy()
+            .view(np.uint32).reshape(-1),
+            "src": src,
+            "dst": (np.concatenate(dst_parts) if dst_parts
+                    else np.zeros(0, np.int64)),
+            "out_deg": np.bincount(src, minlength=n).astype(np.int64),
+        }
+        self._sweep_frames = getattr(self, "_sweep_frames", 0) + 1
+        nbytes, _write_s, retries = ckpt.save_frame(
+            self.checkpoint_path, self._config_sig(), arrays,
+            wall_s=time.time() - self._t0,
+            meta={"frame_seq": self._sweep_frames, "phase": "sweep",
+                  "engine": "liveness"},
+        )
+        stall = time.perf_counter() - t
+        self.last_stats.update(
+            sweep_frames=self._sweep_frames, sweep_frame_bytes=nbytes,
+            sweep_frame_s=round(stall, 3), ckpt_retries=retries,
+        )
+        self._log(f"sweep checkpoint: chunk {next_chunk}, {n} states "
+                  f"({nbytes >> 10} KiB, {stall:.2f}s) -> "
+                  f"{self.checkpoint_path}")
+
+    def _try_resume_sweep(self) -> bool:
+        """Load a sweep frame if that is what ``checkpoint_path`` holds;
+        False for an exploration frame (another signature).  A missing
+        file raises FileNotFoundError."""
+        try:
+            d = ckpt.load_frame(self.checkpoint_path, self._config_sig())
+        except FileNotFoundError:
+            raise
+        except ValueError:
+            return False
+        n, W = int(d["n"]), self.model.layout.W
+        self._explored = (n, int(d["n_init"]))
+        self.last_stats.update(distinct_states=n,
+                               diameter=int(d["diameter"]))
+        rows = np.asarray(d["rows"], np.uint32).view(np.int32)
+        self._rows = torch.from_numpy(rows.reshape(n, W)).to(self.device)
+        # the explorer's tensors are not needed: the rows are here
+        ck = self._checker
+        for attr in ("_tcols", "_claims", "_parent", "_lane", "_rows",
+                     "_gen"):
+            setattr(ck, attr, None)
+        src = np.asarray(d["src"], np.int64)
+        dst = np.asarray(d["dst"], np.int64)
+        self._sweep_resume = ([src] if len(src) else [],
+                              [dst] if len(dst) else [],
+                              int(d["next_chunk"]))
+        self._log(f"resuming the edge sweep from chunk "
+                  f"{int(d['next_chunk'])} ({n} explored states restored, "
+                  "no re-exploration)")
+        return True
 
     def _check(self, n: int, n_init: int, goal: np.ndarray) -> LivenessResult:
         cprob = self.keys.collision_prob(n)

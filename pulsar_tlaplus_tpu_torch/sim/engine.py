@@ -31,21 +31,37 @@ workload; the counterpart of ``pulsar_tlaplus_tpu/sim/engine.py``
   through single-state evaluation (lane enabled, successor equal, the
   invariant holding until the last state) — ``result.verified``.
 
-Checkpoint frames, telemetry, tuned profiles and the daemon's sim jobs
-are not ported.
+- **Walk digest**: a SHA-256 chain over each segment's counter vector
+  (already on the host, so it costs no read): ``stats["sim_walk_digest"]``
+  after each segment, equal for runs that walked the same.
+- **Checkpoints** (``checkpoint_path``, every ``checkpoint_every``
+  segments; ``utils/ckpt.py``): a frame holds the walkers' states, the
+  estimator table, the epoch (which anchors the counter hash's position:
+  the walk's random words depend only on seed, epoch and walker), the
+  cumulative counters, the walk digest and the budgets, with a digest of
+  the walker states and epoch; ``run(resume=True)`` continues the
+  identical walk, or refuses a frame whose digest does not match.  A
+  resume with no budget of its own takes the frame's.  SIGTERM/SIGINT
+  writes a frame before the next segment and stops ``preempted``; the
+  ``segment`` fault site counts epochs.
+
+Telemetry, tuned profiles and the daemon's sim jobs are not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pulsar_tlaplus_tpu_torch.ops.dedup import U32, mul32
 from pulsar_tlaplus_tpu_torch.ops.packing import smap, tree_leaves
 from pulsar_tlaplus_tpu_torch.sim import rng
+from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
 # the segment's counter vector (int64), read once a segment
@@ -57,6 +73,8 @@ CTR_VINV = 4      # invariant index of the min key
 CTR_DUP_HITS = 5  # duplicate-estimator hits (tag already present)
 CTR_N = 6
 CLEAN = 2**62
+# the simulation frame format's revision
+SIM_CKPT_REV = "torch_r1"
 
 
 def _same(a, b) -> bool:
@@ -88,6 +106,7 @@ class SimulationResult:
     verified: Optional[bool] = None  # replayed behavior re-verified
     violation_walker: Optional[int] = None
     violation_step: Optional[int] = None  # global step of the bad state
+    truncated: bool = False   # preempted mid-stream (resumable)
     stats: Dict[str, object] = field(default_factory=dict)
 
 
@@ -99,7 +118,9 @@ class StreamingSimulator:
     Budgets (the run ends at whichever binds first): ``max_steps``
     (random steps across the swarm), ``max_rounds`` (behavior rounds),
     ``time_budget_s`` (wall clock).  With no budget the run is one
-    round.
+    round (a resume with no budget takes the frame's).
+    ``checkpoint_path`` writes a frame every ``checkpoint_every``
+    segments.
     """
 
     def __init__(
@@ -117,6 +138,8 @@ class StreamingSimulator:
         dup_table_bits: int = 16,
         device=None,
         progress: bool = False,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 8,
     ):
         self.model = model
         if invariants is None:
@@ -145,8 +168,14 @@ class StreamingSimulator:
         self.max_steps = max_steps
         self.max_rounds = max_rounds
         self.time_budget_s = time_budget_s
-        if max_steps is None and max_rounds is None and time_budget_s is None:
+        # whether the caller chose a budget: a resume with none takes
+        # the frame's instead of the one-round default
+        self._budget_explicit = not (max_steps is None and max_rounds is None
+                                     and time_budget_s is None)
+        if not self._budget_explicit:
             self.max_rounds = 1  # finite default: one behavior round
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = max(1, int(checkpoint_every))
         self.S = max(1, min(int(dup_sample), self.B))
         self.dup_table_bits = int(dup_table_bits)
         self.progress = progress
@@ -277,57 +306,175 @@ class StreamingSimulator:
 
     # ------------------------------------------------------------ run
 
-    def run(self) -> SimulationResult:
+    def run(self, resume: bool = False) -> SimulationResult:
+        """Run the swarm under its budgets; ``resume=True`` continues the
+        walk of the ``checkpoint_path`` frame."""
         dev = self.device
         self._widx = torch.arange(self.B, dtype=torch.int64, device=dev)
-        table = torch.zeros((1 << self.dup_table_bits,), dtype=torch.int64,
-                            device=dev)
-        states = None  # the first segment is a restart
-        epoch = 0
-        cum = dict(steps=0, states=0, violations=0, stutter=0, enabled=0,
-                   dup_att=0, dup_hits=0, segments=0)
         self._syncs = 0
-        t0 = time.time()
+        self._frames = 0
+        ckpt.cleanup_stale_tmp(self.checkpoint_path)
+        if resume:
+            if not self.checkpoint_path:
+                raise ValueError("resume=True needs a checkpoint_path")
+            states, table, epoch, cum, digest, wall = self._load_frame()
+            t0 = time.time() - wall
+        else:
+            table = torch.zeros((1 << self.dup_table_bits,),
+                                dtype=torch.int64, device=dev)
+            states = None  # the first segment is a restart
+            epoch = 0
+            cum = dict(steps=0, states=0, violations=0, stutter=0,
+                       enabled=0, dup_att=0, dup_hits=0, segments=0)
+            digest = hashlib.sha256(b"ptt-sim").hexdigest()
+            t0 = time.time()
         self._log(f"simulation: {self.B} walkers, depth {self.T}, "
-                  f"segment {self.L} step(s) on {dev}")
+                  f"segment {self.L} step(s) on {dev}"
+                  + (f" (resumed at epoch {epoch})" if resume else ""))
         stop_reason = None
         viol = None  # (epoch, code, walker, inv_idx)
         deadline = (None if self.time_budget_s is None
                     else time.monotonic() + self.time_budget_s)
-        while True:
-            if self.max_steps is not None and cum["steps"] >= self.max_steps:
-                stop_reason = "step_budget"
-                break
-            if (self.max_rounds is not None
-                    and cum["steps"] >= self.max_rounds * self.T * self.B):
-                stop_reason = "round_budget"
-                break
-            if deadline is not None and time.monotonic() >= deadline:
-                stop_reason = "time_budget"
-                break
-            restart = epoch % self.segs_per_round == 0
-            states, table, ctrs = self._segment(states, table, epoch)
-            c = ctrs.tolist()  # the one read a segment
-            self._syncs += 1
-            cum["segments"] += 1
-            cum["steps"] += self.B * self.L
-            cum["states"] += self.B * self.L + (self.B if restart else 0)
-            cum["stutter"] += c[CTR_STUTTER]
-            cum["enabled"] += c[CTR_ENABLED]
-            cum["violations"] += c[CTR_VIOL]
-            cum["dup_att"] += self.S * (self.L + (1 if restart else 0))
-            cum["dup_hits"] += c[CTR_DUP_HITS]
-            if c[CTR_VIOL] and c[CTR_VKEY] != CLEAN:
-                viol = (epoch, c[CTR_VKEY] // self.B, c[CTR_VKEY] % self.B,
-                        c[CTR_VINV])
+        watcher = ckpt.PreemptionWatcher(
+            enabled=bool(self.checkpoint_path), log=self._log
+        )
+        with watcher:
+            while True:
+                # the segment about to run is all or nothing: stops first
+                if watcher.requested:
+                    stop_reason = "preempted"
+                    break
+                if (self.max_steps is not None
+                        and cum["steps"] >= self.max_steps):
+                    stop_reason = "step_budget"
+                    break
+                if (self.max_rounds is not None
+                        and cum["steps"] >= self.max_rounds * self.T
+                        * self.B):
+                    stop_reason = "round_budget"
+                    break
+                if deadline is not None and time.monotonic() >= deadline:
+                    stop_reason = "time_budget"
+                    break
+                faults.poll("segment", epoch)
+                restart = epoch % self.segs_per_round == 0
+                states, table, ctrs = self._segment(states, table, epoch)
+                c = ctrs.tolist()  # the one read a segment
+                self._syncs += 1
+                digest = hashlib.sha256(
+                    (digest + repr(c)).encode()).hexdigest()
+                cum["segments"] += 1
+                cum["steps"] += self.B * self.L
+                cum["states"] += self.B * self.L + (self.B if restart else 0)
+                cum["stutter"] += c[CTR_STUTTER]
+                cum["enabled"] += c[CTR_ENABLED]
+                cum["violations"] += c[CTR_VIOL]
+                cum["dup_att"] += self.S * (self.L + (1 if restart else 0))
+                cum["dup_hits"] += c[CTR_DUP_HITS]
+                if c[CTR_VIOL] and c[CTR_VKEY] != CLEAN:
+                    viol = (epoch, c[CTR_VKEY] // self.B,
+                            c[CTR_VKEY] % self.B, c[CTR_VINV])
+                    epoch += 1
+                    stop_reason = "violation"
+                    break
                 epoch += 1
-                stop_reason = "violation"
-                break
-            epoch += 1
+                if (self.checkpoint_path
+                        and cum["segments"] % self.checkpoint_every == 0):
+                    self._save_frame(states, table, epoch, cum, digest,
+                                     time.time() - t0)
+        if stop_reason == "preempted" and states is not None:
+            self._save_frame(states, table, epoch, cum, digest,
+                             time.time() - t0)
+            self._log(f"simulation preempted at epoch {epoch} "
+                      f"({cum['steps']} steps banked)")
         res = self._mk_result(cum, epoch, t0, stop_reason)
+        res.truncated = stop_reason == "preempted"
+        self.last_stats["sim_walk_digest"] = digest
+        if self.checkpoint_path:
+            self.last_stats["ckpt_frames"] = self._frames
         if viol is not None:
             self._attach_violation(res, viol)
         return res
+
+    # ----------------------------------------------------- checkpoints
+
+    def _config_sig(self) -> str:
+        return ckpt.config_sig(
+            kind="sim",
+            rev=SIM_CKPT_REV,
+            model=ckpt.model_sig(self.model),
+            invariants=self.invariant_names,
+            n_walkers=self.B,
+            depth=self.T,
+            segment_len=self.L,
+            seed=self.seed,
+        )
+
+    def _states_digest(self, leaves, epoch: int) -> str:
+        """Anchors the walk's position (seed, epoch, shape) and the
+        walkers' states: a resumed run continues the identical walk or
+        refuses."""
+        h = hashlib.sha256()
+        h.update(repr((self.seed, int(epoch), self.B, self.T,
+                       self.L)).encode())
+        for leaf in leaves:
+            h.update(np.ascontiguousarray(leaf).tobytes())
+        return h.hexdigest()
+
+    def _save_frame(self, states, table, epoch, cum, digest, wall_s):
+        t = time.perf_counter()
+        leaves = [x.to("cpu", copy=True).numpy() for x in tree_leaves(states)]
+        arrays = {f"w{i}": leaf for i, leaf in enumerate(leaves)}
+        arrays["dup_table"] = table.to("cpu", copy=True).numpy()
+        arrays["epoch"] = np.int64(epoch)
+        arrays["cum"] = np.asarray(
+            [cum["steps"], cum["states"], cum["violations"], cum["stutter"],
+             cum["enabled"], cum["dup_att"], cum["dup_hits"],
+             cum["segments"]], np.int64)
+        arrays["budgets"] = np.asarray(
+            [-1 if self.max_steps is None else self.max_steps,
+             -1 if self.max_rounds is None else self.max_rounds], np.int64)
+        arrays["keys_digest"] = np.frombuffer(
+            self._states_digest(leaves, epoch).encode(), dtype=np.uint8)
+        arrays["walk_digest"] = np.frombuffer(digest.encode(),
+                                              dtype=np.uint8)
+        self._frames += 1
+        nbytes, _w, _r = ckpt.save_frame(
+            self.checkpoint_path, self._config_sig(), arrays, wall_s=wall_s,
+            meta={"frame_seq": self._frames, "epoch": int(epoch)},
+        )
+        self.last_stats.update(ckpt_bytes=nbytes,
+                               ckpt_write_s=round(time.perf_counter() - t, 4))
+
+    def _load_frame(self):
+        d = ckpt.load_frame(self.checkpoint_path, self._config_sig(),
+                            what="simulation configuration")
+        epoch = int(d["epoch"])
+        n = sum(1 for k in d.files if k[0] == "w" and k[1:].isdigit())
+        leaves = [np.asarray(d[f"w{i}"]) for i in range(n)]
+        if d["keys_digest"].tobytes().decode() != self._states_digest(
+                leaves, epoch):
+            raise ValueError(
+                "simulation checkpoint keys-digest mismatch — the frame "
+                "does not anchor this walk stream"
+            )
+        it = iter(leaves)
+        template = self._init(0, self._widx)
+        states = smap(lambda x: torch.from_numpy(next(it)).to(self.device),
+                      template)
+        table = torch.from_numpy(np.asarray(d["dup_table"])).to(self.device)
+        c = [int(x) for x in np.asarray(d["cum"], np.int64)]
+        cum = dict(zip(("steps", "states", "violations", "stutter",
+                        "enabled", "dup_att", "dup_hits", "segments"), c))
+        # a resume with no budget of its own goes on under the frame's
+        if not self._budget_explicit:
+            b = [int(x) for x in np.asarray(d["budgets"], np.int64)]
+            if b[0] >= 0:
+                self.max_steps, self.max_rounds = b[0], None
+            if b[1] >= 0:
+                self.max_rounds = b[1]
+        return (states, table, epoch, cum,
+                d["walk_digest"].tobytes().decode(), float(d["wall_s"]))
 
     def _mk_result(self, cum, epoch, t0, stop_reason) -> SimulationResult:
         if self.device.type == "cuda":

@@ -1,0 +1,142 @@
+"""Deterministic fault injection — the port's copy of the ``PTT_FAULT``
+parser of ``pulsar_tlaplus_tpu/utils/faults.py``.
+
+Survivability tests need interruptions whose point is exact and
+repeatable: "the process died at level 5", "device memory ran out at
+level 7".  ``PTT_FAULT`` names synthetic faults fired at host-side sites
+the engines advance:
+
+    PTT_FAULT=oom@level:7           synthetic device-memory exhaustion
+    PTT_FAULT=oom@flush:3           same, at the flush site
+    PTT_FAULT=fpset_fail@flush:3    visited-table probe overflow (fail-stop)
+    PTT_FAULT=kill@level:5          hard process death (os._exit 137)
+    PTT_FAULT=sigterm@level:4       SIGTERM to self (preemption drill)
+    PTT_FAULT=ckpt_fail@frame:1     transient OSError on frame 1's write
+    PTT_FAULT=enospc@spill:1        spill write 1 fails with ENOSPC
+    PTT_FAULT=kill@sweep:3          the liveness sweep's chunk 3
+    PTT_FAULT=kill@segment:2        the simulator's segment epoch 2
+    PTT_FAULT=oom@level:7,kill@level:9   comma-separated specs compose
+
+Syntax ``kind@site:count``.  The sites the port's engines advance:
+``level`` (the BFS level about to be expanded; level 1 is the initial
+states), ``flush`` (the flush sequence number), ``frame`` (the checkpoint
+frame sequence number), ``spill`` (the tiered store's spill-write
+sequence), ``sweep`` (the liveness sweep's chunk) and ``segment`` (the
+simulator's segment epoch).  The parser accepts every kind of the JAX
+package (its service and fleet kinds too: the same string parses to the
+same schedule), but nothing in the port fires those.  Each spec fires at
+most once per process, so a run that recovers from an injected fault and
+re-runs the same level is not injected again.
+
+``kill`` and ``sigterm`` are performed inside :func:`poll`; every other
+kind is returned for the caller to realize (``oom`` as
+:func:`oom_error`, which the engines' device-memory handler takes for a
+real allocator failure).  Everything is inert unless ``PTT_FAULT`` is
+set: one environment read a poll.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Set, Tuple
+
+
+class FaultError(RuntimeError):
+    """An injected fault.  ``oom`` faults carry ``RESOURCE_EXHAUSTED`` in
+    their text, which ``utils/recovery.is_resource_exhausted`` takes for
+    an allocator failure."""
+
+
+KINDS = (
+    "oom", "fpset_fail", "kill", "sigterm", "ckpt_fail",
+    "drop", "torn", "enospc", "corrupt", "partition", "slow", "flap",
+)
+
+# parse cache keyed on the raw value, and the fired spec indexes (per
+# process; a changed PTT_FAULT re-arms everything)
+_cache_raw: str = ""
+_cache_specs: List[Tuple[str, str, int]] = []
+_fired: Set[int] = set()
+
+
+def reset() -> None:
+    """Re-arm every spec (tests that reuse one process)."""
+    global _cache_raw
+    _cache_raw = ""
+    _fired.clear()
+
+
+def specs() -> List[Tuple[str, str, int]]:
+    """The parsed schedule ``[(kind, site, count), ...]`` of the current
+    ``PTT_FAULT`` value; raises ValueError on a malformed spec."""
+    global _cache_raw, _cache_specs
+    raw = os.environ.get("PTT_FAULT", "")
+    if raw == _cache_raw:
+        return _cache_specs
+    out: List[Tuple[str, str, int]] = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            kind, rest = part.split("@", 1)
+            site, count = rest.split(":", 1)
+            kind, site, n = kind.strip(), site.strip(), int(count)
+        except ValueError:
+            raise ValueError(
+                f"bad PTT_FAULT spec {part!r} (want kind@site:count, "
+                f"e.g. oom@level:7)"
+            ) from None
+        if kind not in KINDS:
+            raise ValueError(
+                f"unknown PTT_FAULT kind {kind!r} (known: {KINDS})"
+            )
+        out.append((kind, site, n))
+    _cache_raw = raw
+    _cache_specs = out
+    _fired.clear()
+    return out
+
+
+def poll(site: str, count: int) -> Tuple[str, ...]:
+    """Fire every armed spec matching ``(site, count)``: ``kill`` exits
+    the process with status 137, ``sigterm`` sends SIGTERM to this
+    process (the preemption watcher then sees what a preemption sends);
+    the other kinds are returned for the engine to realize."""
+    if not os.environ.get("PTT_FAULT"):
+        return ()
+    hits = []
+    for i, (kind, s, n) in enumerate(specs()):
+        if i in _fired or s != site or n != count:
+            continue
+        _fired.add(i)
+        if kind == "kill":
+            import sys
+
+            print(f"PTT_FAULT: kill@{site}:{count} — hard exit",
+                  file=sys.stderr, flush=True)
+            os._exit(137)
+        if kind == "sigterm":
+            import signal
+
+            os.kill(os.getpid(), signal.SIGTERM)
+            continue
+        hits.append(kind)
+    return tuple(hits)
+
+
+def oom_error(site: str, count: int) -> FaultError:
+    """The injected device-memory exhaustion."""
+    return FaultError(
+        f"RESOURCE_EXHAUSTED: injected fault oom@{site}:{count} "
+        "(PTT_FAULT)"
+    )
+
+
+def enospc_error(site: str, count: int) -> OSError:
+    """The injected disk-full: a real ``OSError`` with ``errno.ENOSPC``,
+    so it takes the same handler as a full disk."""
+    import errno
+
+    return OSError(errno.ENOSPC,
+                   f"injected fault enospc@{site}:{count} (PTT_FAULT)")

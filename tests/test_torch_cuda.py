@@ -483,3 +483,62 @@ def test_compiled_model_on_card_equals_cpu(card, spec):
             for name in fns_c:
                 assert torch.equal(fns_g[name](s_gpu).cpu(),
                                    fns_c[name](s_cpu)), name
+
+
+def test_frame_written_on_card_restores_on_cpu(card, tmp_path):
+    """A frame written by a run on the card resumes on the CPU, and
+    that run equals the uninterrupted run on the CPU state for state."""
+    m = CompactionModel(pyeval.SHIPPED_CFG)
+    path = str(tmp_path / "f.npz")
+    r1 = DeviceChecker(m, checkpoint_path=path, checkpoint_every=3,
+                       max_states=10_000).run()
+    assert r1.truncated and r1.stop_reason == "max_states"
+    ck = DeviceChecker(m, checkpoint_path=path, device="cpu")
+    r2 = ck.run(resume=True)
+    full = DeviceChecker(m, device="cpu")
+    r3 = full.run()
+    assert (r2.distinct_states, r2.level_sizes) == (45198, r3.level_sizes)
+    for a, b in zip(ck.merged_logs(), full.merged_logs()):
+        assert np.array_equal(a, b)
+    assert np.array_equal(ck.merged_rows(), full.merged_rows())
+
+
+def test_real_device_oom_recovers_or_truncates(card, tmp_path):
+    """A real ``torch.OutOfMemoryError``: once the first frame is on
+    disk, the caching allocator is capped at what it holds, so the next
+    table or store growth fails.  The run recovers from the frame and
+    completes, or ends ``hbm`` with exact counts; it never falls back to
+    the CPU."""
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, model_producer=True,
+                            retain_null_key=False)
+    m = CompactionModel(c)
+    full = DeviceChecker(m, invariants=(), sub_batch=256).run()
+    torch.cuda.empty_cache()
+    idx = torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(idx).total_memory
+    ck = DeviceChecker(m, invariants=(), sub_batch=256,
+                       checkpoint_path=str(tmp_path / "f.npz"),
+                       checkpoint_every=1)
+    save = ck._save_frame
+
+    def capped(*a):
+        ok = save(*a)
+        if ok and ck._ckpt_frames == 1:
+            torch.cuda.set_per_process_memory_fraction(
+                torch.cuda.memory_reserved(idx) / total, idx)
+        return ok
+
+    ck._save_frame = capped
+    try:
+        r = ck.run()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, idx)
+        torch.cuda.empty_cache()
+    assert ck.device.type == "cuda"
+    assert r.hbm_recovered >= 1 or r.stop_reason == "hbm"
+    if r.truncated:
+        assert r.stop_reason == "hbm"
+        n = len(r.level_sizes)
+        assert r.level_sizes[:n - 1] == full.level_sizes[:n - 1]
+    else:
+        assert r.level_sizes == full.level_sizes

@@ -173,11 +173,28 @@ def test_cli_interp_prints_jax_lines(extra):
 
 @pytest.mark.parametrize("flags", [["-checkpoint", "ck.bin"], ["-recover"],
                                    ["-sharded", "4"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    """The JAX CLI's checkpoint and mesh flags are not ported yet: the
-    port says so and exits, on every path."""
+def test_cli_refuses_unported_flags(flags, capsys, tmp_path, monkeypatch):
+    """The JAX CLI's mesh flag is not ported yet: the port says so and
+    exits, on every path.  ``-checkpoint``/``-recover`` are ported to the
+    device engines: the generic-interpreter path refuses them as the JAX
+    CLI does, ``-recover`` with no frame is refused on every path, and a
+    registry model's run writes its frame."""
+    monkeypatch.chdir(tmp_path)
     spec = os.path.join(SPECS, "subscription.tla")
     for extra in ([], ["-interp"], ["-force-compile"]):
+        argv = ["check", spec, "-cpu", *extra, *flags]
+        if flags[0] == "-checkpoint" and extra != ["-interp"]:
+            if not extra:  # (the compiled path's frames: test_torch_ckpt)
+                assert tcli.main(argv) == 0
+                assert os.path.exists(tmp_path / "ck.bin")
+            continue
         with pytest.raises(SystemExit) as e:
-            tcli.main(["check", spec, "-cpu", *extra, *flags])
-        assert "is not ported to the PyTorch engine yet" in str(e.value)
+            tcli.main(argv)
+        msg = str(e.value)
+        if flags[0] == "-sharded":
+            assert "is not ported to the PyTorch engine yet" in msg
+        elif extra == ["-interp"]:
+            assert "not supported on the generic-interpreter path" in msg
+        else:
+            assert "-recover needs an existing -checkpoint file" in msg
+    capsys.readouterr()

@@ -46,3 +46,5 @@ def test_port_imports_no_jax():
                 "frontend.codegen_ir", "frontend.codegen", "frontend.record",
                 "engine.interp_check"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("utils.ckpt", "utils.faults", "utils.recovery"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
