@@ -79,6 +79,22 @@ and the seeded bug across a preemption gives the same trace.  Frames go
 to a temporary directory that phase 35 removes; ``[35b ...]`` prints
 the launch counts of phases 31-35.
 
+Phases 36-39 run the mesh-sharded engine (``engine/sharded_device.py``)
+with four shards on the one card, launch counters zeroed around them:
+36 the scaled binding to its level totals (card syncs against the host
+fetches, peak memory, bytes routed a level), then one shard against the
+single-card engine in turns; 37 geo_exact to its pins, the 253,361-state
+config on a 2 x 2 mesh, and a route overflow that recovers to the same
+totals; 38 ``cli check -sharded`` (shipped cfg, both counterexamples,
+``-slices 2``, a compiled spec at ``-sharded 2``, ``-workers 4`` on one
+card), each checker run held against the same run on the CPU shard for
+shard; 39 a killed sharded run resumed in a fresh process to phase
+36's totals and logs, and ``LivenessChecker(n_devices=4)`` at the 9m
+tier to the pins of both verdicts.  The kernels' record carries each
+kernel's ``sharded_launches``: the counts of phases 36-39 less the
+launches of the single-card engine's runs among them (phase 36's turns,
+``-workers 4`` on one card).
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -307,6 +323,53 @@ StreamingSimulator(CompactionModel(c), n_walkers=65536, depth=64,
 """
 
 
+# the sharded path (phases 36-39): four shards on the card, 2^15 rows a
+# shard a round (2^15 x 34 candidate lanes at the scaled binding)
+SHARDS = 4
+SHARD_SUB_BATCH = 1 << 15
+# card syncs a sharded run may make beyond its host fetches: the K0
+# self-test, the layout's constant upload, the result's synchronize
+SHARD_SYNC_SLACK = 3
+# phase 39's process: the scaled binding on SHARDS shards with frames at
+# argv[1] every argv[2] levels (argv[3] == "1": resume); prints its level
+# sizes and a digest of every shard's rows and logs through level 6 (where
+# level 7's cut falls depends on when a fetch sees the budget)
+SHARDED_DRIVER = r"""
+import hashlib, json, sys, torch
+from pulsar_tlaplus_tpu_torch.engine.sharded_device import ShardedDeviceChecker
+from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+from pulsar_tlaplus_tpu_torch.ref import pyeval
+c = pyeval.Constants(message_sent_limit=64, compaction_times_limit=3,
+                     num_keys=8, num_values=2, retain_null_key=True,
+                     max_crash_times=3, model_producer=True,
+                     model_consumer=False)
+path, every, resume = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "1"
+ck = ShardedDeviceChecker(CompactionModel(c), n_devices=%d,
+                          sub_batch=%d, max_states=%d,
+                          checkpoint_path=path, checkpoint_every=every)
+r = ck.run(resume=resume)
+h = hashlib.sha256()
+for s, n in enumerate(ck.level_shard_totals[6]):
+    for k, w in (("rows", ck.W), ("parent", 1), ("lane", 1)):
+        h.update(ck.last_bufs[k][s][: n * w].cpu().numpy().tobytes())
+print(json.dumps(dict(level_sizes=r.level_sizes, stop=r.stop_reason,
+                      wall=r.wall_s, digest=h.hexdigest(),
+                      frames=ck.last_stats["ckpt_frames"])))
+"""
+
+
+def _shard_digest(ck, level):
+    """SHA-256 of every shard's rows, parent and lane logs through BFS
+    level ``level`` (as phase 39's process prints it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for s, n in enumerate(ck.level_shard_totals[level]):
+        for k, w in (("rows", ck.W), ("parent", 1), ("lane", 1)):
+            h.update(ck.last_bufs[k][s][: n * w].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _phase(name, fn, failures):
     t = time.time()
     try:
@@ -392,6 +455,9 @@ def main() -> int:
         from pulsar_tlaplus_tpu_torch.engine.liveness import (
             LivenessChecker,
             edge_digest,
+        )
+        from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
+            ShardedDeviceChecker,
         )
         from pulsar_tlaplus_tpu_torch.kernels import build as kernels
         from pulsar_tlaplus_tpu_torch.models.compaction import (
@@ -2926,6 +2992,262 @@ def main() -> int:
             failures.append(f"35b: {name} never launched on the "
                             "survivability path")
 
+    # ---- 36-39: the mesh-sharded engine, SHARDS shards on this card,
+    # launch counters zeroed around them
+    single_launches = collections.Counter()  # the single-card engine's
+    kernels.reset_launches()
+    sharded = {}
+    SKW = dict(n_devices=SHARDS, sub_batch=SHARD_SUB_BATCH)
+
+    def off_path(fn, *a):
+        """``fn(*a)``, a run of the single-card engine: its kernel
+        launches go to ``single_launches``, not to the sharded path's."""
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(*a)
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                single_launches[k] += v - before[k]
+
+    def same_shards(a, b):
+        """Every shard's rows and logs of run ``a`` equal run ``b``'s."""
+        if not np.array_equal(a.last_stats_matrix[:, :2],
+                              b.last_stats_matrix[:, :2]):
+            return False
+        for s in range(a.N):
+            n = int(a.last_stats_matrix[s, 0])
+            for k, w in (("rows", a.W), ("parent", 1), ("lane", 1)):
+                if not torch.equal(a.last_bufs[k][s][: n * w].cpu(),
+                                   b.last_bufs[k][s][: n * w].cpu()):
+                    return False
+        return True
+
+    def sharded_scaled():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck = ShardedDeviceChecker(CompactionModel(scaled_cfg()),
+                                  max_states=SCALED_TOTAL + 1, **SKW)
+        r, card_syncs = _card_syncs(torch, ck.run)
+        cum = totals(r.level_sizes)
+        if cum[4:6] != [SCALED_PREV_TOTAL, SCALED_TOTAL] or r.violation:
+            raise AssertionError(f"level totals {cum}, {r.violation}")
+        st = ck.last_stats
+        if card_syncs > st["host_syncs"] + SHARD_SYNC_SLACK:
+            raise AssertionError(
+                f"{card_syncs} card syncs against {st['host_syncs']} host "
+                f"fetches + {SHARD_SYNC_SLACK}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        sharded["scaled"] = (r.level_sizes[:6], _shard_digest(ck, 6))
+        per = ck.last_stats_matrix[:, 0].tolist()
+        del ck
+        torch.cuda.empty_cache()
+        # one shard against the single-card engine, in turns
+        walls = []
+        for _ in range(2):
+            for name in ("sharded N=1", "single-card"):
+                m = CompactionModel(scaled_cfg())
+                c1 = (ShardedDeviceChecker(m, n_devices=1,
+                                           sub_batch=SHARD_SUB_BATCH,
+                                           max_states=SCALED_TOTAL + 1)
+                      if name.startswith("sharded")
+                      else DeviceChecker(m, max_states=SCALED_TOTAL + 1))
+                r1 = c1.run() if name.startswith("sharded") \
+                    else off_path(c1.run)
+                if totals(r1.level_sizes)[4:6] != [SCALED_PREV_TOTAL,
+                                                   SCALED_TOTAL]:
+                    raise AssertionError(f"{name}: {r1.level_sizes}")
+                walls.append(f"{name} {r1.wall_s:.3f}s")
+                del c1
+                torch.cuda.empty_cache()
+        routed = st["level_route_bytes"]
+        return (
+            f"N={SHARDS} on one card, sub_batch {SHARD_SUB_BATCH}: level "
+            f"totals {cum} (stop {r.stop_reason}); {r.distinct_states} "
+            f"states in {r.wall_s:.3f}s = {r.states_per_sec:.0f} st/s; "
+            f"per shard {per}; host fetches {st['host_syncs']} ({card_syncs}"
+            f" card syncs); {st['flushes']} flushes, table "
+            f"{st['fpset_table_cap']} slots a shard, max load "
+            f"{st['fpset_max_occupancy']}; peak {peak / 2**30:.2f} GiB; "
+            f"bytes routed a level {routed} ({st['routed_bytes']} in all, "
+            f"route_slack {st['route_slack']}); walls in turns: "
+            + ", ".join(walls)
+        )
+
+    def sharded_shapes():
+        notes = []
+        spec, consts, max_states, sizes = SPEC_SCALED["geo_exact"]
+        torch.cuda.empty_cache()
+        ck = ShardedDeviceChecker(spec_model(spec, consts),
+                                  max_states=max_states, **SKW)
+        r = ck.run()
+        if (r.level_sizes, r.violation, r.deadlock) != (sizes, None, False):
+            raise AssertionError(f"geo_exact: {r.level_sizes}")
+        notes.append(
+            f"geo_exact (K {ck.K}, exact): {r.distinct_states} / "
+            f"{r.diameter} equal to the pins in {r.wall_s:.3f}s = "
+            f"{r.states_per_sec:.0f} st/s, {ck.last_stats['host_syncs']} "
+            f"fetches, per shard {ck.last_stats_matrix[:, 0].tolist()}")
+        del ck
+        torch.cuda.empty_cache()
+        ck = ShardedDeviceChecker(CompactionModel(full_cfg), invariants=(),
+                                  n_slices=2, **SKW)
+        r = ck.run()
+        if (r.distinct_states, r.diameter) != (253361, 23):
+            raise AssertionError(f"2x2: {r.distinct_states}/{r.diameter}")
+        notes.append(f"253361 / 23 on a 2x2 mesh in {r.wall_s:.3f}s")
+        want = r.level_sizes
+        ck = ShardedDeviceChecker(CompactionModel(full_cfg), invariants=(),
+                                  route_slack=0.05, **SKW)
+        r = ck.run()
+        if ck.route_slack <= 0.05 or r.level_sizes != want:
+            raise AssertionError(f"route overflow: slack {ck.route_slack}, "
+                                 f"{r.level_sizes}")
+        notes.append(f"route_slack 0.05 overflowed and recovered at "
+                     f"{ck.route_slack} to the same level sizes")
+        return "; ".join(notes)
+
+    def sharded_cli():
+        notes = []
+        cfg = os.path.join(SPECS, "compaction.cfg")
+
+        def cli_run(*flags, spec="compaction"):
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["check", os.path.join(SPECS, f"{spec}.tla"),
+                               "-config", cfg, *flags])
+            m = re.search(r"(\d+) distinct states found, search depth "
+                          r"\(diameter\) (\d+)", out.getvalue())
+            return (rc, m and (int(m.group(1)), int(m.group(2))),
+                    out.getvalue(), err.getvalue())
+
+        for flags, want_rc, want_n, depth, tag in (
+            (("-sharded", "4"), 0, 45198, 20, "over 4 shards on"),
+            (("-sharded", "4", "-slices", "2"), 0, 45198, 20,
+             "over 4 shards, 2x2 mesh on"),
+            (("-force-compile", "-sharded", "2"), 0, 45198, 20,
+             "over 2 shards on"),
+            (("-sharded", "4", "-invariant", "CompactedLedgerLeak"), 1,
+             None, 12, "over 4 shards on"),
+            (("-sharded", "4", "-invariant", "DuplicateNullKeyMessage"), 1,
+             None, 4, "over 4 shards on"),
+        ):
+            rc, got, out, _err = cli_run(*flags)
+            if (rc != want_rc or got is None or got[1] != depth
+                    or want_n not in (None, got[0]) or tag not in out):
+                raise AssertionError(f"{flags}: rc {rc} {got}\n{out}")
+            notes.append(f"{' '.join(flags)}: rc {rc}, {got}")
+        # -workers 4 is -sharded min(4, cards); on one card it runs the
+        # single-card engine, whose launches stay off the sharded path
+        cards = max(torch.cuda.device_count(), 1)
+        n = min(4, cards)
+        capped = (f" (capped from 4: {cards} devices available)"
+                  if n != 4 else "")
+        if n == 1:
+            rc, got, out, err = off_path(cli_run, "-workers", "4")
+            ok = (f"runs the single-chip device engine{capped}" in err
+                  and "shards" not in out)
+        else:
+            rc, got, out, err = cli_run("-workers", "4")
+            ok = (f"maps to -sharded {n} (mesh-sharded checking){capped}"
+                  in out and f"over {n} shards" in out)
+        if (rc, got) != (0, (45198, 20)) or not ok:
+            raise AssertionError(f"-workers 4: {rc} {got}\n{out}\n{err}")
+        notes.append(f"-workers 4 on {cards} card(s): "
+                     + ("the single-card engine" if n == 1
+                        else f"-sharded {n}") + ", 45198/20")
+        # the checker runs behind those lines, card against CPU
+        for inv, slices, depth in ((None, 1, 20), (None, 2, 20),
+                                   ("CompactedLedgerLeak", 1, 12),
+                                   ("DuplicateNullKeyMessage", 1, 4)):
+            kw = dict(n_devices=4, n_slices=slices,
+                      sub_batch=cli.SHARDED_CHUNK,
+                      **({"invariants": (inv,)} if inv else {}))
+            m = CompactionModel(pyeval.SHIPPED_CFG)
+            a = ShardedDeviceChecker(m, **kw)
+            ra = a.run()
+            b = ShardedDeviceChecker(m, device="cpu", **kw)
+            rb = b.run()
+            if (ra.level_sizes, ra.violation_gid, ra.trace) != (
+                    rb.level_sizes, rb.violation_gid, rb.trace) \
+                    or ra.diameter != depth or not same_shards(a, b):
+                raise AssertionError(f"{inv} {slices}: card != CPU")
+            if inv:
+                check_trace(pyeval.SHIPPED_CFG, inv, depth, ra)
+            notes.append(f"{inv or 'shipped'} mesh {a.D}x{a.I}: card equal "
+                         f"to CPU shard for shard ({ra.wall_s:.3f}s against "
+                         f"{rb.wall_s:.3f}s)")
+        return "; ".join(notes)
+
+    def sharded_survive():
+        path = os.path.join(surv_dir, "sharded.npz")
+        code = SHARDED_DRIVER % (SHARDS, SHARD_SUB_BATCH, SCALED_TOTAL + 1)
+        os.makedirs(surv_dir, exist_ok=True)
+        rc, _out, err = drive(code, path, 2, 0, fault="kill@level:6")
+        if rc != 137 or not os.path.exists(path):
+            raise AssertionError(f"killed run: rc {rc}\n{err}")
+        rc, out, err = drive(code, path, 100, 1)
+        sizes, digest = sharded["scaled"]
+        if rc != 0 or (out["level_sizes"][:6], out["digest"]) != (sizes,
+                                                                 digest):
+            raise AssertionError(f"resumed run: rc {rc} {out}\n{err}")
+        notes = [f"kill@level:6, frames every 2 levels: rc 137; resumed in "
+                 f"a fresh process to phase 36's level sizes and the "
+                 f"digest of every shard's rows and logs through level 6 "
+                 f"({out['frames']} frame(s) in the resumed run, wall "
+                 f"{out['wall']:.2f}s over both)"]
+        pin = LIVENESS_PINS["9m"]
+        torch.cuda.empty_cache()
+        lc = LivenessChecker(CompactionModel(tier9m), fairness="wf_next",
+                             n_devices=SHARDS, **LIVENESS_9M_KW)
+        for fairness in ("wf_next", "none"):
+            lc.fairness = fairness
+            t = time.time()
+            r = lc.run()
+            wall = time.time() - t
+            got = (r.holds, r.reason, r.lasso_prefix, r.lasso_cycle)
+            if (r.distinct_states, got) != (pin["distinct"],
+                                            pin["verdicts"][fairness]):
+                raise AssertionError(f"9m {fairness}: {r.distinct_states} "
+                                     f"{got}")
+            if fairness == "wf_next":
+                src, _dst, out_deg = lc._edge_cache
+                if (len(src), np.bincount(out_deg).tolist()) != (
+                        pin["edges"], pin["out_deg_hist"]):
+                    raise AssertionError(f"9m edges {len(src)}")
+                st = lc.last_stats
+                notes.append(
+                    f"9m liveness on {SHARDS} shards: {r.distinct_states} "
+                    f"states, {len(src)} edges, out-degree histogram equal "
+                    f"to the pins; wf_next holds in {wall:.2f}s (explore "
+                    f"{st['explore_s']:.2f}s, sweep {st['sweep_s']:.2f}s, "
+                    f"analysis {st['analysis_s']:.2f}s)")
+            else:
+                notes.append(f"none: {r.reason[:40]}... in {wall:.2f}s")
+        del lc
+        torch.cuda.empty_cache()
+        return "; ".join(notes)
+
+    _phase("36 sharded: scaled cfg on 4 shards, one card", sharded_scaled,
+           failures)
+    _phase("37 sharded: geo_exact, 2x2 mesh, route overflow",
+           sharded_shapes, failures)
+    _phase("38 sharded: cli -sharded/-slices/-workers, card vs CPU",
+           sharded_cli, failures)
+    _phase("39 sharded: kill and resume, liveness over the mesh",
+           sharded_survive, failures)
+    shutil.rmtree(surv_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    shard_launches = {k: v - single_launches[k]
+                      for k, v in kernels.LAUNCHES.items()}
+    print(f"[39b launches on the sharded path] {shard_launches} (the "
+          f"single-card engine's left out: {dict(single_launches)})",
+          flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if shard_launches[name] <= 0:
+            failures.append(f"39b: {name} never launched on the sharded "
+                            "path")
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -2966,6 +3288,7 @@ def main() -> int:
             liveness_launches=live_launches[name],
             compiled_launches=compiled_launches[name],
             survivability_launches=surv_launches[name],
+            sharded_launches=shard_launches[name],
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

@@ -9,6 +9,7 @@
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
         [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
         [-checkpoint PATH [-recover]]
+        [-sharded N [-slices S] | -workers N]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
@@ -27,6 +28,15 @@ clean pass it checks the cfg's ``PROPERTIES`` (``<>goal`` properties).
 ``-property`` checks one liveness property instead of the invariants,
 ``-simulate`` runs random walks instead of the exhaustive search, as
 ``simulate`` does (SPEC is a module name or a ``.tla`` path).
+``-sharded N`` checks on the mesh-sharded engine
+(``engine/sharded_device.py``) over N shards, ``-slices S`` arranged as
+an S-slice 2-D mesh; the shards take the cards present in turn and
+share them when N exceeds them (under ``-cpu`` all sit on the CPU).
+``-workers N`` is TLC's worker count: ``-sharded N`` capped at the cards
+present (at N under ``-cpu``), the single-device engine at 1.  The JAX
+CLI's host-staged sharded driver (``-sharded-engine host``,
+``-sharded-dedup hash``) and ``-visited sort`` are not ported yet and
+exit with a message.
 ``-checkpoint PATH`` writes resumable frames there (the device checker
 every 5 levels and at any truncation, the liveness sweep every 5
 chunks, the simulator every 8 segments), and SIGTERM/SIGINT then stops
@@ -44,8 +54,11 @@ import os
 import sys
 import time
 
-# exploration window of a liveness check (the JAX CLI's -chunk default)
+# exploration window of a liveness check and the sharded engine's
+# sub_batch (the JAX CLI's -chunk default)
 LIVENESS_CHUNK = 4096
+SHARDED_CHUNK = 4096
+A14B = "is not ported yet (ROADMAP A14b)"
 
 
 def _report(r, constants, wall: float, checkpoint=None) -> int:
@@ -335,9 +348,7 @@ def _check(args) -> int:
     from pulsar_tlaplus_tpu_torch.models import registry
     from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
-    if args.sharded:
-        sys.exit("tpu-tlc: -sharded is not ported to the PyTorch engine "
-                 "yet")
+    _sharded_args(args)
     module = os.path.splitext(os.path.basename(args.spec))[0]
     cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
     if args.recover and not args.interp and (
@@ -358,6 +369,43 @@ def _check(args) -> int:
         args, model, constants, invariants, tlc_cfg,
         lambda dev: _header(module, cfg_path, dev, model, invariants),
     )
+
+
+def _sharded_args(args) -> None:
+    """The JAX CLI's mesh options: ``-workers`` to ``-sharded``, the
+    checks on ``-slices``, and a message for each option not ported."""
+    if args.visited != "fpset":
+        sys.exit(f"tpu-tlc: -visited {args.visited} {A14B}")
+    if isinstance(args.workers, int) and not args.sharded:
+        if args.cpu:
+            avail = args.workers
+        else:
+            import torch
+
+            avail = max(torch.cuda.device_count(), 1)
+        n = min(args.workers, avail)
+        capped = (f" (capped from {args.workers}: {avail} devices "
+                  "available)" if n != args.workers else "")
+        if n == 1:
+            print(f"tpu-tlc: note: -workers {args.workers} runs the "
+                  f"single-chip device engine{capped}", file=sys.stderr)
+            args.sharded = 0
+        else:
+            print(f"tpu-tlc: note: -workers {args.workers} maps to "
+                  f"-sharded {n} (mesh-sharded checking){capped}")
+            args.sharded = n
+    if not args.sharded and (args.slices > 1
+                             or args.sharded_dedup != "sort"):
+        sys.exit("tpu-tlc: -slices/-sharded-dedup require -sharded N")
+    if args.sharded:
+        if args.sharded_engine == "host" or args.sharded_dedup == "hash":
+            sys.exit("tpu-tlc: the host-staged sharded driver "
+                     f"(-sharded-engine host, -sharded-dedup hash) {A14B}")
+        if args.slices > 1 and args.sharded % args.slices:
+            sys.exit("tpu-tlc: -sharded must be divisible by -slices")
+        if args.hbm_budget:
+            sys.exit("tpu-tlc: -hbm-budget needs the single-device engine "
+                     "(the sharded engine has no tiered store)")
 
 
 def _parse_spec(args, tlc_cfg):
@@ -420,9 +468,9 @@ def _check_interp(args, module, tlc_cfg, invariants) -> int:
     exhaustive BFS on the host."""
     from pulsar_tlaplus_tpu_torch.engine.interp_check import InterpChecker
 
-    if args.simulate or args.liveness_property:
+    if args.simulate or args.sharded or args.liveness_property:
         sys.exit(
-            "tpu-tlc: -simulate/-property need a compiled model "
+            "tpu-tlc: -simulate/-sharded/-property need a compiled model "
             f"and the generic-interpreter path was selected for '{module}' "
             f"({'-interp forced' if args.interp else 'module not in the compiled registry'}); "
             "the interpreter path is exhaustive BFS only"
@@ -479,6 +527,9 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
     if args.simulate:
         return _simulate(args, model, constants, invariants, args.simulate,
                          header=header)
+    if args.sharded:
+        return _check_sharded(args, model, constants,
+                              checker_invariants or invariants, header)
     try:
         ck = DeviceChecker(
             model,
@@ -507,6 +558,41 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
     if rc == 0 and tlc_cfg.properties:
         rc = _check_properties(args, model, tlc_cfg.properties, rc)
     return rc
+
+
+def _check_sharded(args, model, constants, invariants, header) -> int:
+    """The mesh-sharded engine over ``-sharded`` shards (``-slices``
+    slices).  The cfg's PROPERTIES are not checked after it, as in the
+    JAX CLI."""
+    from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
+        ShardedDeviceChecker,
+    )
+
+    try:
+        ck = ShardedDeviceChecker(
+            model,
+            n_devices=args.sharded,
+            invariants=invariants,
+            check_deadlock=not args.nodeadlock,
+            sub_batch=SHARDED_CHUNK,
+            max_states=args.maxstates,
+            progress=True,
+            checkpoint_path=args.checkpoint,
+            n_slices=args.slices,
+            device="cpu" if args.cpu else None,
+        )
+    except (ValueError, RuntimeError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+    header(ck.device)
+    devs = ", ".join(str(d) for d in ck.mesh.distinct_devices())
+    mesh = f", {ck.D}x{ck.I} mesh" if ck.D > 1 else ""
+    print(f"tpu-tlc: mesh-sharded over {ck.N} shards{mesh} on {devs}")
+    t0 = time.time()
+    try:
+        r = ck.run(resume=args.recover)
+    except (ValueError, RuntimeError) as e:
+        sys.exit(f"tpu-tlc: {e}")
+    return _report(r, constants, time.time() - t0, checkpoint=args.checkpoint)
 
 
 def _cmd_simulate(args) -> int:
@@ -551,6 +637,17 @@ def _report_spill(ck) -> None:
            if ck._budget_overridden else "")
         + "."
     )
+
+
+def _positive_or_word(v: str):
+    """``-workers``: a worker count, or the JAX CLI's word for the
+    single-device engine (``gpu``; ``tpu`` is accepted too)."""
+    if v in ("gpu", "tpu"):
+        return v
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"-workers must be >= 1: {v}")
+    return n
 
 
 def _sim_args(p) -> None:
@@ -600,8 +697,27 @@ def main(argv=None) -> int:
                     help="compile the spec even when the registry has a "
                     "hand-written model for it")
     _ckpt_args(pc)
-    # the JAX CLI's mesh flag: not ported yet (refused)
-    pc.add_argument("-sharded", type=int, default=0, help=argparse.SUPPRESS)
+    pc.add_argument(
+        "-workers", type=_positive_or_word, default="gpu",
+        help="'gpu' (default: the single-device engine) or a worker "
+        "count N (TLC parity: maps to '-sharded N', capped at the cards "
+        "present, or at N under -cpu)",
+    )
+    pc.add_argument("-sharded", type=int, default=0, metavar="N",
+                    help="run mesh-sharded over N shards (several may "
+                    "share a card)")
+    pc.add_argument("-slices", type=int, default=1, metavar="S",
+                    help="with -sharded: arrange the N shards as S slices "
+                    "(2-D dcn x ici mesh, keys routed owner slice first)")
+    pc.add_argument("-sharded-engine", dest="sharded_engine",
+                    choices=("device", "host"), default="device",
+                    help="device (default): the device-resident sharded "
+                    f"engine; host {A14B}")
+    pc.add_argument("-sharded-dedup", dest="sharded_dedup",
+                    choices=("sort", "hash"), default="sort",
+                    help=f"the JAX CLI's sharded dedup; hash {A14B}")
+    pc.add_argument("-visited", choices=("fpset", "sort"), default="fpset",
+                    help=f"visited set: fpset (default); sort {A14B}")
     pc.add_argument(
         "-fuse", choices=("level", "stage"), default="level",
         help="level (default): the fused level — a level's windows run "

@@ -43,7 +43,15 @@ SIGTERM/SIGINT in either phase ends the run resumably (``truncated``,
 ``stop_reason="preempted"``, no verdict); the ``sweep`` fault site
 (``utils/faults.py``) counts chunks.
 
-Sharded exploration and telemetry are not ported.
+**Sharded exploration** (``n_devices > 1``; the JAX engine's): the BFS
+runs on the port's ``ShardedDeviceChecker`` over a mesh of that many
+shards (several may share a device), and the per-shard row prefixes
+are concatenated into one dense gid space, every shard's level-1
+segment first, then every shard's remainder, so the initial states are
+gids ``[0, n_init)``; the sweep and the analysis then run on the first
+shard's device.  ``hbm_budget`` needs the single-device explorer.
+
+Telemetry is not ported.
 """
 
 from __future__ import annotations
@@ -58,9 +66,13 @@ import numpy as np
 import torch
 
 from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
+from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
+    ShardedDeviceChecker,
+)
 from pulsar_tlaplus_tpu_torch.ops import tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
 from pulsar_tlaplus_tpu_torch.ops.dedup import u32
+from pulsar_tlaplus_tpu_torch.store import budget as store_budget
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
 
 # the sweep frame format's engine revision
@@ -132,7 +144,9 @@ class LivenessChecker:
     2^22).  ``max_run`` caps the gid propagation's doubling shifts: a
     key with more than ``2p - 1`` equal-key queries in one chunk (``p``
     the largest power of two <= ``max_run``) fails loudly.
-    ``hbm_budget`` runs the exploration tiered.  ``checkpoint_path``
+    ``hbm_budget`` runs the exploration tiered; ``n_devices > 1`` runs
+    it on the mesh-sharded engine (``device`` names the shards' device or
+    devices, as for ``ShardedDeviceChecker``).  ``checkpoint_path``
     and ``checkpoint_every`` (levels in the exploration, chunks in the
     sweep) write resumable frames.
     """
@@ -154,6 +168,7 @@ class LivenessChecker:
         progress: bool = False,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
+        n_devices: int = 1,
     ):
         goals = getattr(model, "liveness_goals", {})
         if goal not in goals:
@@ -183,10 +198,8 @@ class LivenessChecker:
         self.progress = progress
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(1, int(checkpoint_every))
-        kw = {} if spill_compress is None else {
-            "spill_compress": spill_compress}
-        self._checker = DeviceChecker(
-            model,
+        self.n_devices = n_devices
+        common = dict(
             invariants=(),
             check_deadlock=False,
             sub_batch=max(256, frontier_chunk),
@@ -194,11 +207,22 @@ class LivenessChecker:
             max_states=max_states,
             device=device,
             progress=progress,
-            hbm_budget=hbm_budget,
             checkpoint_path=checkpoint_path,
             checkpoint_every=checkpoint_every,
-            **kw,
         )
+        if n_devices > 1:
+            if store_budget.resolve_budget(hbm_budget) is not None:
+                raise ValueError(
+                    "hbm_budget needs the single-device explorer (the "
+                    "sharded engine has no tiered store yet)"
+                )
+            self._checker = ShardedDeviceChecker(
+                model, n_devices=n_devices, **common)
+        else:
+            kw = {} if spill_compress is None else {
+                "spill_compress": spill_compress}
+            self._checker = DeviceChecker(
+                model, hbm_budget=hbm_budget, **common, **kw)
         self.device = self._checker.device
         self.keys = self._checker.keys  # the explorer's KeySpec
         self.K = self.keys.ncols
@@ -255,7 +279,16 @@ class LivenessChecker:
                 "graph — fix the safety violation first"
             )
         n, W = res.distinct_states, ck.W
-        if ck.tiered and ck._row_base > 0:
+        if self.n_devices > 1:
+            # the per-shard prefixes in one dense gid space: every
+            # shard's level-1 segment, then every shard's remainder
+            counts = ck.last_stats_matrix[:, 0]
+            c1 = ck.last_level1_counts
+            firsts = [ck._rows[s][: int(c1[s])] for s in range(ck.N)]
+            rests = [ck._rows[s][int(c1[s]): int(counts[s])]
+                     for s in range(ck.N)]
+            rows = torch.cat([t.to(self.device) for t in firsts + rests])
+        elif ck.tiered and ck._row_base > 0:
             # the aged rows live in the cold tiers: stream them back in
             # gid order, then the device window
             rows = torch.from_numpy(
@@ -265,11 +298,7 @@ class LivenessChecker:
             rows = ck._rows[:n]
         # the sweep reads only the rows: free the explorer's table, logs
         # and scratch before its join
-        for attr in ("_tcols", "_claims", "_parent", "_lane", "_rows",
-                     "_gen"):
-            if hasattr(ck, attr):
-                setattr(ck, attr, None)
-        ck.last_bufs = {}
+        ck._free_buffers()
         self._rows = rows
         self._explored = (n, res.level_sizes[0])
         self._sync()
@@ -558,10 +587,7 @@ class LivenessChecker:
         rows = np.asarray(d["rows"], np.uint32).view(np.int32)
         self._rows = torch.from_numpy(rows.reshape(n, W)).to(self.device)
         # the explorer's tensors are not needed: the rows are here
-        ck = self._checker
-        for attr in ("_tcols", "_claims", "_parent", "_lane", "_rows",
-                     "_gen"):
-            setattr(ck, attr, None)
+        self._checker._free_buffers()
         src = np.asarray(d["src"], np.int64)
         dst = np.asarray(d["dst"], np.int64)
         self._sweep_resume = ([src] if len(src) else [],

@@ -23,6 +23,10 @@ from pulsar_tlaplus_tpu_torch.ops import fpset
 from pulsar_tlaplus_tpu_torch.store import tiers
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, recovery
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 S = 0xFFFFFFFF
 
 

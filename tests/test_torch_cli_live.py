@@ -11,10 +11,15 @@ import os
 import re
 
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu import cli as jcli
 from pulsar_tlaplus_tpu_torch import cli
 from tests.test_torch_sim import SMALL_CFG
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(ROOT, "specs", "compaction.tla")

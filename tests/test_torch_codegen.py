@@ -46,6 +46,10 @@ from pulsar_tlaplus_tpu_torch.ops.packing import tree_leaves
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from pulsar_tlaplus_tpu_torch.utils import cfg as tcfg
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.filterwarnings("error:There is a performance drop")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,11 +13,16 @@ import os
 import shutil
 
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu import cli as jcli
 from pulsar_tlaplus_tpu.frontend import interp as JI
 from pulsar_tlaplus_tpu_torch import cli as tcli
 from tests.test_torch_codegen import SPECS, _bind
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.filterwarnings("error:There is a performance drop")
 

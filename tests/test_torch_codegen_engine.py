@@ -18,6 +18,7 @@ is an error here.  Tolerance: exact equality (integer work)."""
 
 import numpy as np
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu.engine.device_bfs import DeviceChecker as JChecker
 from pulsar_tlaplus_tpu.frontend import codegen as jcg
@@ -30,6 +31,10 @@ from pulsar_tlaplus_tpu_torch.frontend.parser import (
     parse_module as t_parse_module,
 )
 from tests.test_torch_codegen import _bind, _invariants
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.filterwarnings("error:There is a performance drop")
 

@@ -542,3 +542,33 @@ def test_real_device_oom_recovers_or_truncates(card, tmp_path):
         assert r.level_sizes[:n - 1] == full.level_sizes[:n - 1]
     else:
         assert r.level_sizes == full.level_sizes
+
+
+@pytest.mark.parametrize("slices", [1, 2])
+def test_sharded_engine_on_card_equals_cpu(card, slices):
+    """Four shards on one card (a 1-D mesh and a 2 x 2 one) equal four
+    shards on the CPU state for state: every shard's rows, parent and
+    lane logs, the level sizes, the violating gid and the trace."""
+    from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
+        ShardedDeviceChecker,
+    )
+
+    kw = dict(n_devices=4, n_slices=slices,
+              invariants=("CompactedLedgerLeak",), sub_batch=512,
+              visited_cap=1 << 13)
+    m = CompactionModel(pyeval.SHIPPED_CFG)
+    cpu = ShardedDeviceChecker(m, device="cpu", **kw)
+    rc = cpu.run()
+    gpu = ShardedDeviceChecker(m, device=card, **kw)
+    rg = gpu.run()
+    assert (rg.violation, rg.diameter) == ("CompactedLedgerLeak", 12)
+    assert (rg.level_sizes, rg.violation_gid, rg.trace) == (
+        rc.level_sizes, rc.violation_gid, rc.trace)
+    assert gpu.mesh.devices == [gpu.device] * 4
+    for s in range(4):
+        n = int(cpu.last_stats_matrix[s, 0])
+        assert n == int(gpu.last_stats_matrix[s, 0])
+        for k in ("rows", "parent", "lane"):
+            w = gpu.W if k == "rows" else 1
+            assert torch.equal(gpu.last_bufs[k][s][: n * w].cpu(),
+                               cpu.last_bufs[k][s][: n * w]), (k, s)

@@ -20,6 +20,7 @@ import io
 import os
 
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu import cli as jcli
 from pulsar_tlaplus_tpu.engine import interp_check as jic
@@ -34,6 +35,10 @@ from pulsar_tlaplus_tpu_torch.frontend import loader as tloader
 from pulsar_tlaplus_tpu_torch.frontend.parser import parse_file as t_parse
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from pulsar_tlaplus_tpu_torch.utils import cfg as tcfg
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
@@ -174,11 +179,11 @@ def test_cli_interp_prints_jax_lines(extra):
 @pytest.mark.parametrize("flags", [["-checkpoint", "ck.bin"], ["-recover"],
                                    ["-sharded", "4"]])
 def test_cli_refuses_unported_flags(flags, capsys, tmp_path, monkeypatch):
-    """The JAX CLI's mesh flag is not ported yet: the port says so and
-    exits, on every path.  ``-checkpoint``/``-recover`` are ported to the
-    device engines: the generic-interpreter path refuses them as the JAX
-    CLI does, ``-recover`` with no frame is refused on every path, and a
-    registry model's run writes its frame."""
+    """``-checkpoint``/``-recover`` and the JAX CLI's mesh flag
+    ``-sharded`` are ported to the device engines: the generic-interpreter
+    path refuses them as the JAX CLI does, ``-recover`` with no frame is
+    refused on every path, a registry model's run writes its frame, and
+    ``-sharded`` runs the registry and compiled models on the mesh."""
     monkeypatch.chdir(tmp_path)
     spec = os.path.join(SPECS, "subscription.tla")
     for extra in ([], ["-interp"], ["-force-compile"]):
@@ -188,11 +193,15 @@ def test_cli_refuses_unported_flags(flags, capsys, tmp_path, monkeypatch):
                 assert tcli.main(argv) == 0
                 assert os.path.exists(tmp_path / "ck.bin")
             continue
+        if flags[0] == "-sharded" and extra != ["-interp"]:
+            assert tcli.main(argv) == 0
+            assert "2272 distinct states found" in capsys.readouterr().out
+            continue
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)
         msg = str(e.value)
         if flags[0] == "-sharded":
-            assert "is not ported to the PyTorch engine yet" in msg
+            assert "-simulate/-sharded/-property need a compiled model" in msg
         elif extra == ["-interp"]:
             assert "not supported on the generic-interpreter path" in msg
         else:

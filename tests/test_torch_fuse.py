@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu.engine.device_bfs import DeviceChecker as JChecker
 from pulsar_tlaplus_tpu.models.compaction import CompactionModel as JModel
@@ -27,6 +28,10 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from tests.helpers import SMALL_CONFIGS, assert_valid_counterexample
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(ROOT, "specs", "compaction.tla")

@@ -48,3 +48,5 @@ def test_port_imports_no_jax():
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
     for mod in ("utils.ckpt", "utils.faults", "utils.recovery"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("parallel", "parallel.mesh", "engine.sharded_device"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names

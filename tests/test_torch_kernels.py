@@ -22,6 +22,10 @@ from pulsar_tlaplus_tpu.ops.dedup import KeySpec as JKeySpec
 from pulsar_tlaplus_tpu_torch.ops import compact, fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec, from_jax_arrays
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 SENT = np.uint32(0xFFFFFFFF)
 
 

@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu.engine.liveness import LivenessChecker as JLive
 from pulsar_tlaplus_tpu.models import registry as jregistry
@@ -35,6 +36,10 @@ from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from pulsar_tlaplus_tpu_torch.utils import cfg as tcfg
 from tests.helpers import SMALL_CONFIGS
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")

@@ -20,6 +20,10 @@ from pulsar_tlaplus_tpu_torch.ops.packing import smap
 from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from tests.helpers import SMALL_CONFIGS, oracle_sample
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 CONFIGS = dict(SMALL_CONFIGS)
 # the scaled config of bench.py: 618-bit states in W=20 words, A=34
 CONFIGS["scaled"] = pe.Constants(

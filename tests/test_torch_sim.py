@@ -40,6 +40,10 @@ from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
 from pulsar_tlaplus_tpu_torch.utils import cfg as tcfg
 from tests.helpers import SMALL_CONFIGS
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
 # producer_on as a cfg: MessageSentLimit 2, CompactionTimesLimit 2, one

@@ -49,6 +49,10 @@ from tests.test_bookkeeper import CONFIGS as BK_CONFIGS
 from tests.test_georeplication import CONFIGS as GEO_CONFIGS
 from tests.test_subscription import CONFIGS as SUB_CONFIGS
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECS = os.path.join(ROOT, "specs")
 

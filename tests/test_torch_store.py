@@ -42,6 +42,10 @@ from pulsar_tlaplus_tpu_torch.store import compress as codec
 from pulsar_tlaplus_tpu_torch.store.tiers import TieredStore
 from tests.helpers import SMALL_CONFIGS, assert_valid_counterexample
 
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(ROOT, "specs", "compaction.tla")
 CFG = os.path.join(ROOT, "specs", "compaction.cfg")

@@ -31,6 +31,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from pulsar_tlaplus_tpu import cli as jcli
 from pulsar_tlaplus_tpu.engine.device_bfs import DeviceChecker as JChecker
@@ -49,6 +50,10 @@ from pulsar_tlaplus_tpu_torch.ref import pyeval as tpe
 from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
 from pulsar_tlaplus_tpu_torch.utils import faults
 from tests.helpers import SMALL_CONFIGS, assert_valid_counterexample
+
+# one intra-op thread a process: the suite runs a process a core, and
+# torch's default of a thread a core in each process oversubscribes it
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = os.path.join(ROOT, "specs", "compaction.tla")
@@ -460,7 +465,7 @@ def _kill(tmp_path, *extra):
     subprocess: exit 137 with a frame on disk."""
     path = str(tmp_path / "k.npz")
     env = dict(os.environ, PTT_FAULT="kill@level:8",
-               PYTHONPATH=ROOT)
+               PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     p = subprocess.run(
         [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli", "check",
          SPEC, "-cpu", "-checkpoint", path, *extra],
