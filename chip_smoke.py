@@ -95,6 +95,23 @@ kernel's ``sharded_launches``: the counts of phases 36-39 less the
 launches of the single-card engine's runs among them (phase 36's turns,
 ``-workers 4`` on one card).
 
+Phases 40-43 run the engines of the eleventh slice: 40 builds the
+scaled binding's host seed at the bench's caps (its host seconds
+printed), prestages it and runs it seeded in the frontier row window
+with ``metrics_path`` to phase 6's level totals (every record with the
+JAX keys), and the seed-frontier guard raises; 40b holds seeded runs
+(both counterexamples, one inside the seed) and a seeded N = 4 sharded
+run card against CPU; 41 runs ``visited_impl="sort"`` on both device
+engines to 253,361 / 23, gid for gid equal to the fpset runs, the two
+flushes in turns, and the scaled binding cut after level 5; 42 runs the
+host engine (``-engine host``) in hash and sort modes to the pins and
+both counterexamples, a native ``FileLog`` run card against CPU, a
+killed and resumed run, and the host engine against the device engine
+in turns; 43 the host-staged sharded engine on 4 shards and a 2 x 2 mesh
+in both dedup modes, card against CPU, and ``cli check -sharded 4
+-sharded-dedup hash``.  ``engines_launches`` counts phases 40-43 less
+the comparison runs of earlier paths among them.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -325,6 +342,23 @@ StreamingSimulator(CompactionModel(c), n_walkers=65536, depth=64,
 
 # the sharded path (phases 36-39): four shards on the card, 2^15 rows a
 # shard a round (2^15 x 34 candidate lanes at the scaled binding)
+HOST_DRIVER = r"""
+import hashlib, json, sys
+import numpy as np
+from pulsar_tlaplus_tpu_torch.engine.bfs import Checker
+from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+from pulsar_tlaplus_tpu_torch.ref import pyeval
+path, resume = sys.argv[1] or None, sys.argv[2] == "1"
+ck = Checker(CompactionModel(pyeval.SHIPPED_CFG), keep_log=True,
+             checkpoint_path=path, checkpoint_every=1)
+r = ck.run(resume=resume)
+lg = ck.last_run_state.log
+h = hashlib.sha256()
+for a in (lg.packed_matrix(), lg.parents(), lg.actions()):
+    h.update(np.ascontiguousarray(a).tobytes())
+print(json.dumps(dict(n=r.distinct_states, level_sizes=r.level_sizes,
+                      digest=h.hexdigest())))
+"""
 SHARDS = 4
 SHARD_SUB_BATCH = 1 << 15
 # card syncs a sharded run may make beyond its host fetches: the K0
@@ -1037,8 +1071,9 @@ def main() -> int:
                 raise AssertionError(f"{spec} levels {sizes} != pins")
         base = sum(sizes[: level - 1])
         n = min(sizes[level - 1], ck.G)
-        _st, valid, packed, kcols = ck._lanes(ck._rows[base: base + n])
-        return ck, packed, valid.reshape(-1), kcols, n
+        packed, kcols, _dead = ck._lanes(ck._rows[base: base + n])
+        # a lane is valid iff its keys are not the all-SENTINEL marker
+        return ck, packed, ~fpset.all_sentinel(kcols), kcols, n
 
     # these inputs fit the card's 50 MB L2 cache, where back-to-back
     # launches find them: each raw launch is timed twice, cold (a 256 MB
@@ -3248,6 +3283,320 @@ def main() -> int:
             failures.append(f"39b: {name} never launched on the sharded "
                             "path")
 
+    # ---- 40-43: seeded starts, the sort-merge visited set and the host
+    # engines, launch counters zeroed around them (comparison runs of
+    # earlier paths go through engines_off)
+    engines_single = collections.Counter()
+    kernels.reset_launches()
+    eng_dir = tempfile.mkdtemp(prefix="ptt_engines_")
+
+    def engines_off(fn, *a):
+        """``fn(*a)``, a run of an earlier slice's path: its launches go
+        to ``engines_single``, not to phases 40-43's count."""
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(*a)
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                engines_single[k] += v - before[k]
+
+    METRIC_KEYS = {"level", "new_states", "distinct_states", "frontier",
+                   "wall_s", "host_wait_s", "states_per_sec", "visited_cap"}
+
+    def seeded_scaled():
+        m = CompactionModel(scaled_cfg())
+        t = time.time()
+        seed = m.host_seed(max_level_states=800_000, max_total=1_000_000)
+        host_s = time.time() - t
+        n, lsizes = len(seed[0]), list(seed[3])
+        if totals(lsizes)[-1] != SCALED_PREV_TOTAL:
+            raise AssertionError(f"seed levels {lsizes}")
+        mpath = os.path.join(eng_dir, "seeded.jsonl")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ck = DeviceChecker(m, max_states=SCALED_TOTAL + 1,
+                           rows_window="frontier",
+                           row_cap_states=FRONTIER_ROWS, metrics_path=mpath)
+        t = time.time()
+        ck.prestage_seed(seed)
+        torch.cuda.synchronize(dev)
+        stage_s = time.time() - t
+        r = ck.run(seed=seed)
+        cum = totals(r.level_sizes)
+        if cum[4:6] != [SCALED_PREV_TOTAL, SCALED_TOTAL] or r.violation:
+            raise AssertionError(f"level totals {cum}, {r.violation}")
+        if cum[:6] != totals(untiered["scaled"][0])[:6]:
+            raise AssertionError("level totals differ from phase 6's")
+        recs = [json.loads(ln) for ln in open(mpath)]
+        if not recs or any(not METRIC_KEYS <= set(x) for x in recs):
+            raise AssertionError(f"metrics records {recs}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        st = ck.last_stats
+        del ck
+        torch.cuda.empty_cache()
+        # the second frontier guard alone: the window admits the seed
+        # (n + SEED_CHUNK <= LCAP) but not its frontier plus one append
+        # window (lsizes[-1] + NQ > LCAP)
+        sub = 8192
+        nq = sub * m.A
+        rc = max(n + min(1 << 15, nq) - nq, nq)
+        if not rc < lsizes[-1]:
+            raise AssertionError(f"no window isolates the guard ({rc})")
+        g = DeviceChecker(m, sub_batch=sub, rows_window="frontier",
+                          row_cap_states=rc, max_states=SCALED_TOTAL + 1)
+        try:
+            g.run(seed=seed)
+            raise AssertionError("the seed-frontier guard did not raise")
+        except ValueError as e:
+            if "seed frontier" not in str(e):
+                raise
+        return (
+            f"host_seed {n} states {lsizes} in {host_s:.2f}s (host), "
+            f"prestaged in {stage_s:.3f}s; seeded run from level "
+            f"{len(lsizes) + 1}: level totals {cum} (stop "
+            f"{r.stop_reason}) in {r.wall_s:.2f}s against phase 6's "
+            f"unseeded {untiered['scaled_wall']:.2f}s; {len(recs)} metrics "
+            f"records with the JAX keys (last {recs[-1]}); host_syncs "
+            f"{st['host_syncs']}; peak {peak / 2**30:.2f} GiB; the "
+            f"seed-frontier guard raised at row_cap_states {rc}"
+        )
+
+    def seeded_card_cpu():
+        notes = []
+        m = CompactionModel(pyeval.SHIPPED_CFG)
+        for inv, caps, depth in (("CompactedLedgerLeak", (3000, 5000), 12),
+                                 ("DuplicateNullKeyMessage", (12000, 20000),
+                                  4)):
+            seed = m.host_seed(*caps)
+            runs = []
+            for d in (None, "cpu"):
+                ck = DeviceChecker(m, invariants=(inv,), sub_batch=2048,
+                                   device=d)
+                r = ck.run(seed=seed)
+                runs.append((r, ck.merged_rows(), *ck.merged_logs()))
+            (ra, *a), (rb, *b) = runs
+            if (ra.level_sizes, ra.violation_gid, ra.trace,
+                    ra.trace_actions) != (rb.level_sizes, rb.violation_gid,
+                                          rb.trace, rb.trace_actions) \
+                    or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{inv}: card != CPU")
+            check_trace(pyeval.SHIPPED_CFG, inv, depth, ra)
+            notes.append(f"{inv} seeded at {len(seed[3])} levels: gid "
+                         f"{ra.violation_gid}, depth {depth}, rows and logs "
+                         "card = CPU")
+        seed = m.host_seed(3000, 5000)
+        kw = dict(n_devices=SHARDS, sub_batch=2048,
+                  invariants=("CompactedLedgerLeak",))
+        a = ShardedDeviceChecker(m, **kw)
+        ra = a.run(seed=seed)
+        b = ShardedDeviceChecker(m, device="cpu", **kw)
+        rb = b.run(seed=seed)
+        if (ra.level_sizes, ra.violation_gid, ra.trace) != (
+                rb.level_sizes, rb.violation_gid, rb.trace) \
+                or not same_shards(a, b) or ra.diameter != 12:
+            raise AssertionError("seeded sharded: card != CPU")
+        notes.append(f"seeded ShardedDeviceChecker N = {SHARDS}: gid "
+                     f"{ra.violation_gid}, card = CPU shard for shard")
+        return "; ".join(notes)
+
+    def visited_sort():
+        notes = []
+        sizes, rows, par, lan = untiered["full"]
+        ck = DeviceChecker(CompactionModel(full_cfg), invariants=(),
+                           visited_impl="sort")
+        r = ck.run()
+        if (r.distinct_states, r.diameter) != (253361, 23) or not (
+                r.level_sizes == sizes
+                and np.array_equal(ck.merged_rows(), rows)
+                and all(np.array_equal(x, y)
+                        for x, y in zip(ck.merged_logs(), (par, lan)))):
+            raise AssertionError("sort: differs from phase 4's fpset run")
+        notes.append(f"DeviceChecker sort: 253361 / 23, rows and logs gid "
+                     f"for gid equal to phase 4's fpset run ({r.wall_s:.3f}s)")
+        kw = dict(n_devices=SHARDS, sub_batch=SHARD_SUB_BATCH,
+                  invariants=())
+        m = CompactionModel(full_cfg)
+        a = ShardedDeviceChecker(m, visited_impl="sort", **kw)
+        ra = a.run()
+        b = ShardedDeviceChecker(m, **kw)
+        rb = engines_off(b.run)
+        if (ra.distinct_states, ra.diameter) != (253361, 23) \
+                or not same_shards(a, b):
+            raise AssertionError("sharded sort != sharded fpset")
+        notes.append(f"ShardedDeviceChecker N = {SHARDS} sort: 253361 / 23, "
+                     f"shard for shard equal to fpset ({ra.wall_s:.3f}s "
+                     f"against {rb.wall_s:.3f}s)")
+        del a, b
+        # the sort-merge flush against the fpset one in turns
+        walls = []
+        for vi in ("fpset", "sort", "sort", "fpset"):
+            c2 = DeviceChecker(CompactionModel(full_cfg), invariants=(),
+                               visited_impl=vi, fuse="stage")
+            r2 = (engines_off(c2.run) if vi == "fpset" else c2.run())
+            walls.append(f"{vi} {r2.wall_s:.3f}s")
+        torch.cuda.empty_cache()
+        cap = SCALED_PREV_TOTAL + 1
+        ck = DeviceChecker(CompactionModel(scaled_cfg()), max_states=cap,
+                           visited_impl="sort")
+        r = ck.run()
+        cum = totals(r.level_sizes)
+        if cum[:5] != totals(untiered["scaled"][0])[:5]:
+            raise AssertionError(f"scaled sort: level totals {cum}")
+        st = ck.last_stats
+        del ck
+        torch.cuda.empty_cache()
+        notes.append(f"stage loop in turns on 253361: {', '.join(walls)}; "
+                     f"scaled sort cut at {cap}: level totals {cum} "
+                     f"({r.stop_reason}) equal to phase 6's, {r.wall_s:.2f}s, "
+                     f"{st['host_syncs']} host syncs")
+        return "; ".join(notes)
+
+    def host_engine():
+        import hashlib
+
+        from pulsar_tlaplus_tpu_torch.engine.bfs import Checker
+
+        notes = []
+        ship = pyeval.SHIPPED_CFG
+        for dedup in ("hash", "sort"):
+            for c, inv, want in (
+                (ship, (), (45198, 20)),
+                (full_cfg, (), (253361, 23)),
+                (ship, ("CompactedLedgerLeak",), ("CompactedLedgerLeak", 12)),
+                (ship, ("DuplicateNullKeyMessage",),
+                 ("DuplicateNullKeyMessage", 4)),
+            ):
+                r = Checker(CompactionModel(c), invariants=inv,
+                            dedup=dedup).run()
+                got = ((r.violation, r.diameter) if inv
+                       else (r.distinct_states, r.diameter))
+                if got != want:
+                    raise AssertionError(f"{dedup} {inv}: {got}")
+                if inv:
+                    check_trace(c, inv[0], want[1], r)
+                notes.append(f"{dedup} {inv[0] if inv else want[0]}: "
+                             f"{got[1]} in {r.wall_s:.2f}s")
+        # card against CPU, and a file-backed log (the native store)
+        inv = ("CompactedLedgerLeak",)
+        logs = []
+        for d, path in ((None, os.path.join(eng_dir, "host.log")),
+                        ("cpu", None)):
+            ck = Checker(CompactionModel(ship), invariants=inv,
+                         keep_log=True, state_log_path=path, device=d)
+            r = ck.run()
+            lg = ck.last_run_state.log
+            if path is not None and not lg.native:
+                raise AssertionError("the native log store did not load")
+            logs.append((r.violation_gid, lg.packed_matrix(),
+                         np.asarray([lg.get(g)[1] for g in range(len(lg))]),
+                         np.asarray([lg.get(g)[2] for g in range(len(lg))])))
+        if logs[0][0] != logs[1][0] or not all(
+                np.array_equal(x, y) for x, y in zip(logs[0][1:],
+                                                     logs[1][1:])):
+            raise AssertionError("host engine: card != CPU")
+        notes.append(f"card (native FileLog) = CPU (MemoryLog), gid "
+                     f"{logs[0][0]}")
+        # kill and resume in processes of their own
+        path = os.path.join(eng_dir, "host.npz")
+        rc, _o, err = drive(HOST_DRIVER, path, 0, fault="kill@level:8")
+        if rc != 137 or not os.path.exists(path):
+            raise AssertionError(f"killed host run: rc {rc}\n{err}")
+        rc, out, err = drive(HOST_DRIVER, path, 1)
+        ck = Checker(CompactionModel(ship), keep_log=True)
+        r = ck.run()
+        lg = ck.last_run_state.log
+        h = hashlib.sha256()
+        for a in (lg.packed_matrix(), lg.parents(), lg.actions()):
+            h.update(np.ascontiguousarray(a).tobytes())
+        full = dict(n=r.distinct_states, level_sizes=r.level_sizes,
+                    digest=h.hexdigest())
+        if rc or out != full:
+            raise AssertionError(f"resumed {rc} {out} vs {full}\n{err}")
+        notes.append(f"kill@level:8 then resume in a fresh process: level "
+                     f"sizes and log digest equal to the uninterrupted "
+                     f"run's ({full['n']} states)")
+        # the host engine against the device engine in turns
+        walls = []
+        for eng in ("device", "host", "host", "device"):
+            if eng == "host":
+                rr = Checker(CompactionModel(full_cfg), invariants=()).run()
+            else:
+                rr = engines_off(DeviceChecker(CompactionModel(full_cfg),
+                                               invariants=()).run)
+            walls.append(f"{eng} {rr.wall_s:.3f}s")
+        notes.append(f"253361 in turns: {', '.join(walls)}")
+        return "; ".join(notes)
+
+    def sharded_host():
+        from pulsar_tlaplus_tpu_torch.engine.sharded import ShardedChecker
+        from pulsar_tlaplus_tpu_torch.parallel.mesh import make_mesh2d
+
+        notes = []
+        ship = pyeval.SHIPPED_CFG
+        for dedup in ("sort", "hash"):
+            for slices in (1, 2):
+                for c, inv, want in ((ship, (), (45198, 20)),
+                                     (ship, ("DuplicateNullKeyMessage",),
+                                      ("DuplicateNullKeyMessage", 4))):
+                    ck = ShardedChecker(
+                        CompactionModel(c), invariants=inv,
+                        frontier_chunk=cli.SHARDED_CHUNK, dedup_mode=dedup,
+                        mesh=make_mesh2d(slices, SHARDS // slices))
+                    r = ck.run()
+                    got = ((r.violation, r.diameter) if inv
+                           else (r.distinct_states, r.diameter))
+                    if got != want:
+                        raise AssertionError(f"{dedup} {slices}: {got}")
+                    if inv:
+                        check_trace(c, inv[0], want[1], r)
+                    notes.append(f"{dedup} {slices}x{SHARDS // slices} "
+                                 f"{got}: {r.wall_s:.2f}s")
+        logs = []
+        for d in (None, "cpu"):
+            ck = ShardedChecker(CompactionModel(ship), invariants=(),
+                                n_devices=SHARDS, dedup_mode="hash",
+                                frontier_chunk=cli.SHARDED_CHUNK, device=d)
+            r = ck.run()
+            lg = ck.last_log
+            logs.append((r.level_sizes, lg.packed_matrix(), lg.parents(),
+                         lg.actions()))
+        if logs[0][0] != logs[1][0] or not all(
+                np.array_equal(x, y) for x, y in zip(logs[0][1:],
+                                                     logs[1][1:])):
+            raise AssertionError("sharded host: card != CPU")
+        notes.append(f"hash N = {SHARDS} on the shipped cfg: log card = CPU "
+                     f"({sum(logs[0][0])} states)")
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                           "-sharded", "4", "-sharded-dedup", "hash"])
+        if rc or "45198 distinct states" not in out.getvalue() \
+                or "using -sharded-engine host" not in out.getvalue():
+            raise AssertionError(f"cli: rc {rc}\n{out.getvalue()}")
+        notes.append("cli -sharded 4 -sharded-dedup hash: 45198, rc 0")
+        return "; ".join(notes)
+
+    _phase("40 seeded scaled binding (host_seed, prestage, frontier "
+           "window, metrics, guard)", seeded_scaled, failures)
+    _phase("40b seeded runs, card against CPU", seeded_card_cpu, failures)
+    _phase("41 -visited sort on both device engines", visited_sort,
+           failures)
+    _phase("42 -engine host: hash and sort, FileLog, kill and resume",
+           host_engine, failures)
+    _phase("43 -sharded-engine host on 4 shards and 2x2", sharded_host,
+           failures)
+    shutil.rmtree(eng_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    engines_launches = {k: v - engines_single[k]
+                        for k, v in kernels.LAUNCHES.items()}
+    print(f"[43b launches on the engines path] {engines_launches} (earlier "
+          f"paths' comparison runs left out: {dict(engines_single)})",
+          flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if engines_launches[name] <= 0:
+            failures.append(f"43b: {name} never launched on the engines "
+                            "path")
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -3289,6 +3638,7 @@ def main() -> int:
             compiled_launches=compiled_launches[name],
             survivability_launches=surv_launches[name],
             sharded_launches=shard_launches[name],
+            engines_launches=engines_launches[name],
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

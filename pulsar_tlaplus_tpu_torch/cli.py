@@ -8,8 +8,10 @@
         [-hbm-budget BYTES [-no-spill-compress]]
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
         [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
-        [-checkpoint PATH [-recover]]
-        [-sharded N [-slices S] | -workers N]
+        [-checkpoint PATH [-recover]] [-metrics FILE] [-chunk N]
+        [-engine device|host] [-visited fpset|sort] [-compact logshift|sort]
+        [-sharded N [-slices S] [-sharded-engine device|host]
+         [-sharded-dedup sort|hash] | -workers N]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
@@ -33,10 +35,15 @@ clean pass it checks the cfg's ``PROPERTIES`` (``<>goal`` properties).
 an S-slice 2-D mesh; the shards take the cards present in turn and
 share them when N exceeds them (under ``-cpu`` all sit on the CPU).
 ``-workers N`` is TLC's worker count: ``-sharded N`` capped at the cards
-present (at N under ``-cpu``), the single-device engine at 1.  The JAX
-CLI's host-staged sharded driver (``-sharded-engine host``,
-``-sharded-dedup hash``) and ``-visited sort`` are not ported yet and
-exit with a message.
+present (at N under ``-cpu``), the single-device engine at 1.
+``-sharded-engine host`` (or ``-sharded-dedup hash``, which needs it)
+runs the host-staged sharded driver (``engine/sharded.py``), and
+``-engine host`` the host-driver engine (``engine/bfs.py``, hash dedup
+on the device, the state log on the host).  ``-visited sort`` gives the
+device engines the sort-merge visited set, ``-compact`` their
+compaction; ``-chunk N`` is the frontier rows a device window or a host
+chunk expands (default: the engine's own; 4096 on the host engines, as
+in the JAX CLI); ``-metrics FILE`` appends one JSON record a level.
 ``-checkpoint PATH`` writes resumable frames there (the device checker
 every 5 levels and at any truncation, the liveness sweep every 5
 chunks, the simulator every 8 segments), and SIGTERM/SIGINT then stops
@@ -58,7 +65,6 @@ import time
 # sub_batch (the JAX CLI's -chunk default)
 LIVENESS_CHUNK = 4096
 SHARDED_CHUNK = 4096
-A14B = "is not ported yet (ROADMAP A14b)"
 
 
 def _report(r, constants, wall: float, checkpoint=None) -> int:
@@ -372,10 +378,11 @@ def _check(args) -> int:
 
 
 def _sharded_args(args) -> None:
-    """The JAX CLI's mesh options: ``-workers`` to ``-sharded``, the
-    checks on ``-slices``, and a message for each option not ported."""
-    if args.visited != "fpset":
-        sys.exit(f"tpu-tlc: -visited {args.visited} {A14B}")
+    """The JAX CLI's mesh options: ``-workers`` to ``-sharded``, and the
+    checks on ``-slices`` and the engine options."""
+    if args.engine == "host" and args.hbm_budget:
+        sys.exit("tpu-tlc: -hbm-budget needs the device engine (the host "
+                 "engine has no tiered store)")
     if isinstance(args.workers, int) and not args.sharded:
         if args.cpu:
             avail = args.workers
@@ -398,9 +405,6 @@ def _sharded_args(args) -> None:
                              or args.sharded_dedup != "sort"):
         sys.exit("tpu-tlc: -slices/-sharded-dedup require -sharded N")
     if args.sharded:
-        if args.sharded_engine == "host" or args.sharded_dedup == "hash":
-            sys.exit("tpu-tlc: the host-staged sharded driver "
-                     f"(-sharded-engine host, -sharded-dedup hash) {A14B}")
         if args.slices > 1 and args.sharded % args.slices:
             sys.exit("tpu-tlc: -sharded must be divisible by -slices")
         if args.hbm_budget:
@@ -531,19 +535,38 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
         return _check_sharded(args, model, constants,
                               checker_invariants or invariants, header)
     try:
-        ck = DeviceChecker(
-            model,
-            invariants=checker_invariants or invariants,
-            check_deadlock=not args.nodeadlock,
-            max_states=args.maxstates,
-            device="cpu" if args.cpu else None,
-            progress=True,
-            hbm_budget=args.hbm_budget,
-            spill_compress=not args.no_spill_compress,
-            fuse=args.fuse,
-            fuse_group=args.fuse_group,
-            checkpoint_path=args.checkpoint,
-        )
+        if args.engine == "host":
+            from pulsar_tlaplus_tpu_torch.engine.bfs import Checker
+
+            ck = Checker(
+                model,
+                invariants=checker_invariants or invariants,
+                check_deadlock=not args.nodeadlock,
+                frontier_chunk=args.chunk or SHARDED_CHUNK,
+                max_states=args.maxstates,
+                progress=True,
+                metrics_path=args.metrics,
+                checkpoint_path=args.checkpoint,
+                device="cpu" if args.cpu else None,
+            )
+        else:
+            ck = DeviceChecker(
+                model,
+                invariants=checker_invariants or invariants,
+                check_deadlock=not args.nodeadlock,
+                max_states=args.maxstates,
+                device="cpu" if args.cpu else None,
+                progress=True,
+                hbm_budget=args.hbm_budget,
+                spill_compress=not args.no_spill_compress,
+                fuse=args.fuse,
+                fuse_group=args.fuse_group,
+                checkpoint_path=args.checkpoint,
+                metrics_path=args.metrics,
+                visited_impl=args.visited,
+                compact_impl=args.compact,
+                **({"sub_batch": args.chunk} if args.chunk else {}),
+            )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
     header(ck.device)
@@ -553,7 +576,7 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
     rc = _report(r, constants, time.time() - t0, checkpoint=args.checkpoint)
-    if ck.tiered:
+    if getattr(ck, "tiered", False):
         _report_spill(ck)
     if rc == 0 and tlc_cfg.properties:
         rc = _check_properties(args, model, tlc_cfg.properties, rc)
@@ -562,31 +585,59 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
 
 def _check_sharded(args, model, constants, invariants, header) -> int:
     """The mesh-sharded engine over ``-sharded`` shards (``-slices``
-    slices).  The cfg's PROPERTIES are not checked after it, as in the
-    JAX CLI."""
+    slices): the device-resident one, or with ``-sharded-engine host``
+    (``-sharded-dedup hash`` needs it) the host-staged driver.  The
+    cfg's PROPERTIES are not checked after it, as in the JAX CLI."""
+    from pulsar_tlaplus_tpu_torch.engine.sharded import ShardedChecker
     from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
         ShardedDeviceChecker,
     )
+    from pulsar_tlaplus_tpu_torch.parallel.mesh import make_mesh2d
 
+    dev = "cpu" if args.cpu else None
+    host = args.sharded_engine == "host" or args.sharded_dedup == "hash"
+    if host and args.sharded_engine == "device":
+        print("tpu-tlc: note: -sharded-dedup hash needs the host-staged "
+              "sharded driver; using -sharded-engine host")
     try:
-        ck = ShardedDeviceChecker(
-            model,
-            n_devices=args.sharded,
-            invariants=invariants,
-            check_deadlock=not args.nodeadlock,
-            sub_batch=SHARDED_CHUNK,
-            max_states=args.maxstates,
-            progress=True,
-            checkpoint_path=args.checkpoint,
-            n_slices=args.slices,
-            device="cpu" if args.cpu else None,
-        )
+        if host:
+            ck = ShardedChecker(
+                model,
+                invariants=invariants,
+                check_deadlock=not args.nodeadlock,
+                frontier_chunk=args.chunk or SHARDED_CHUNK,
+                max_states=args.maxstates,
+                mesh=make_mesh2d(args.slices, args.sharded // args.slices,
+                                 dev),
+                dedup_mode=args.sharded_dedup,
+                metrics_path=args.metrics,
+                checkpoint_path=args.checkpoint,
+                progress=True,
+            )
+        else:
+            ck = ShardedDeviceChecker(
+                model,
+                n_devices=args.sharded,
+                invariants=invariants,
+                check_deadlock=not args.nodeadlock,
+                sub_batch=args.chunk or SHARDED_CHUNK,
+                max_states=args.maxstates,
+                progress=True,
+                metrics_path=args.metrics,
+                checkpoint_path=args.checkpoint,
+                n_slices=args.slices,
+                device=dev,
+                visited_impl=args.visited,
+                compact_impl=args.compact,
+            )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
     header(ck.device)
-    devs = ", ".join(str(d) for d in ck.mesh.distinct_devices())
-    mesh = f", {ck.D}x{ck.I} mesh" if ck.D > 1 else ""
-    print(f"tpu-tlc: mesh-sharded over {ck.N} shards{mesh} on {devs}")
+    m = ck.mesh
+    devs = ", ".join(str(d) for d in m.distinct_devices())
+    mesh = f", {m.D}x{m.I} mesh" if m.D > 1 else ""
+    how = " (host-staged)" if host else ""
+    print(f"tpu-tlc: mesh-sharded{how} over {m.N} shards{mesh} on {devs}")
     t0 = time.time()
     try:
         r = ck.run(resume=args.recover)
@@ -712,12 +763,29 @@ def main(argv=None) -> int:
     pc.add_argument("-sharded-engine", dest="sharded_engine",
                     choices=("device", "host"), default="device",
                     help="device (default): the device-resident sharded "
-                    f"engine; host {A14B}")
+                    "engine; host: the host-staged driver (needed for "
+                    "-sharded-dedup hash)")
     pc.add_argument("-sharded-dedup", dest="sharded_dedup",
                     choices=("sort", "hash"), default="sort",
-                    help=f"the JAX CLI's sharded dedup; hash {A14B}")
+                    help="the host-staged driver's visited set: sorted "
+                    "columns (default) or a hash table")
     pc.add_argument("-visited", choices=("fpset", "sort"), default="fpset",
-                    help=f"visited set: fpset (default); sort {A14B}")
+                    help="the device engines' visited set: fpset (the "
+                    "hash table, default) or sort (the sort-merge flush, "
+                    "for differential runs; runs the stage loop)")
+    pc.add_argument("-compact", choices=("logshift", "sort"),
+                    default="logshift",
+                    help="the device engines' stream compaction: logshift "
+                    "(prefix sum, default) or sort (a stable sort)")
+    pc.add_argument("-engine", choices=("device", "host"), default="device",
+                    help="the non-sharded engine: device (default) or host "
+                    "(the host-driver engine: hash dedup, the state log "
+                    "on the host)")
+    pc.add_argument("-chunk", type=int, default=None, metavar="N",
+                    help="frontier rows a window (device engines) or a "
+                    "chunk (host engines, default 4096) expands")
+    pc.add_argument("-metrics", default=None, metavar="FILE",
+                    help="append per-level JSONL metrics to FILE")
     pc.add_argument(
         "-fuse", choices=("level", "stage"), default="level",
         help="level (default): the fused level — a level's windows run "

@@ -38,7 +38,7 @@ plus the lanes of every window it enqueued since), and reads the device
 - at the end of a level, or of a ramp batch;
 - before a window whose bound could break the table's load contract
   (load <= 1/2) or overflow the row store — then it grows the table
-  (rehash through H1) and the store with headroom for ``max(GROW_AHEAD,
+  (rehash through H1) and the store with headroom for ``max(group + 1,
   fuse_group)`` windows, as the JAX engine grows ``(group + 1)``
   accumulators ahead;
 - before a window once the bound has reached ``max_states``: a window
@@ -84,7 +84,7 @@ rest of the run (and is restored from a frame's manifest).
 - The budget fixes tier ceilings once, by round-robin doubling of the
   table and the row/log window from their initial sizes while
   :meth:`DeviceChecker._device_bytes_est` stays inside ``budget * (1 -
-  HBM_HEADROOM)``; a budget below the initial tiers raises.
+  hbm_headroom)``; a budget below the initial tiers raises.
 - An int32 generation column beside the table is tagged with the epoch
   at every level boundary and re-tagged at generation 1 after every
   table growth.  When the hot table is full at its ceiling, the
@@ -156,12 +156,12 @@ from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
 from pulsar_tlaplus_tpu_torch.engine.core import build_trace
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
-from pulsar_tlaplus_tpu_torch.ops.compact import compact_rows
-from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
+from pulsar_tlaplus_tpu_torch.ops.compact import compact_rows, validate_impl
+from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, KeySpec, merge_lanes
 from pulsar_tlaplus_tpu_torch.store import budget as store_budget
 from pulsar_tlaplus_tpu_torch.store import sieve
 from pulsar_tlaplus_tpu_torch.store.tiers import TieredStore
-from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, recovery
+from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, metrics, recovery
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
 BIG = 2**31 - 1
@@ -170,9 +170,14 @@ BIG = 2**31 - 1
 # defaults of ``hbm_headroom`` and ``miss_batch``)
 HBM_HEADROOM = 0.1
 MISS_BATCH = 1 << 15
-# the fused level's growth headroom in windows (at least fuse_group):
-# the JAX engine's (group + 1) accumulators at its default group of 4
-GROW_AHEAD = 5
+# flushes the fused level grows ahead of (``group``; its growth
+# headroom is ``group + 1`` windows, at least ``fuse_group``): the JAX
+# engine's default group of 4
+GROUP = 4
+# the seed loader's merge chunk and the sort-merge seed columns (the
+# JAX engine's SEED_CHUNK and SEED_VCAP defaults)
+SEED_CHUNK = 1 << 15
+SEED_VCAP = 1 << 16
 # the widest window (in lanes) of a ramp level after a batch's first,
 # whose frontier the host knows only by a bound: about where a window's
 # ops stop being launch-bound on an H100 (2^16 lanes x ~80 B ~ 2 us at
@@ -213,11 +218,23 @@ class DeviceChecker:
     """BFS checker for a batched model on one device (``cuda`` unless
     ``device`` names another; raises when CUDA is wanted and absent).
 
-    ``sub_batch`` frontier rows form one expand window of
-    ``sub_batch * A`` candidate lanes, the width of every flush.  The
-    visited table starts with room for ``visited_cap`` states at load
-    1/2.  The run stops (truncated) once ``max_states`` are found, or
-    past ``time_budget_s`` seconds.
+    ``sub_batch`` frontier rows form one expand window, expanded in
+    chunks of ``expand_chunk`` rows (default: the whole window);
+    ``flush_factor`` windows form one flush of ``sub_batch *
+    flush_factor * A`` candidate lanes.  The visited table starts with
+    room for ``visited_cap`` states at load 1/2 (the row store with
+    room for ``frontier_cap``); the fused level grows the table and the
+    store ``group + 1`` windows ahead.  ``fp_bits`` (64 or 96) is the
+    width of a hashed key.  The run stops (truncated) once
+    ``max_states`` are found, or past ``time_budget_s`` seconds.
+    ``metrics_path`` takes one JSON record a level.
+
+    ``visited_impl="sort"`` replaces the hash table by the sort-merge
+    visited set (sorted key columns, ``dedup.merge_new_keys``): it runs
+    the stage loop, takes no ``hbm_budget``, and ``seed_cap`` sizes its
+    seed merge's columns.  ``compact_impl`` is ``"logshift"`` or
+    ``"sort"`` (``ops/compact.py``).  ``run(seed=...)`` starts from a
+    host-enumerated BFS prefix (``model.host_seed``).
 
     ``fuse="level"`` (the default) runs the fused level, ``"stage"``
     the loop that reads the device after every window; ``fuse_group``
@@ -227,7 +244,9 @@ class DeviceChecker:
     ``PTT_HBM_BUDGET`` environment variable when not given) turns on
     the tiered store; ``spill_compress=False`` sizes the spilled planes
     raw instead of delta + zlib; ``spill_dir`` is the durable store's
-    directory (default ``<checkpoint_path>.spill``).
+    directory (default ``<checkpoint_path>.spill``); ``hbm_headroom``
+    is the share of the budget kept free (default 0.1), ``miss_batch``
+    the keys a cold-miss lookup moves to the host at a time.
     ``rows_window="frontier"`` keeps only a window of ``row_cap_states``
     rows (plus one append window).  ``checkpoint_path`` writes a frame
     every ``checkpoint_every`` levels; ``run(resume=True)`` continues
@@ -254,7 +273,31 @@ class DeviceChecker:
         spill_dir: Optional[str] = None,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
+        expand_chunk: Optional[int] = None,
+        flush_factor: int = 1,
+        group: int = GROUP,
+        fp_bits: Optional[int] = None,
+        frontier_cap: Optional[int] = None,
+        metrics_path: Optional[str] = None,
+        visited_impl: str = "fpset",
+        compact_impl: str = "logshift",
+        seed_cap: Optional[int] = None,
+        hbm_headroom: Optional[float] = None,
+        miss_batch: Optional[int] = None,
     ):
+        if visited_impl not in ("fpset", "sort"):
+            raise ValueError(
+                f"visited_impl must be fpset|sort: {visited_impl}")
+        self.visited_impl = visited_impl
+        self.sorted = visited_impl == "sort"
+        if self.sorted:
+            fuse = "stage"  # the fused level chains the fpset flush
+        elif seed_cap is not None:
+            raise ValueError(
+                "seed_cap sizes the sort-merge seed columns "
+                "(visited_impl='sort'); the fpset seed goes straight "
+                "into the table")
+        self.compact_impl = validate_impl(compact_impl)
         if fuse not in ("level", "stage"):
             raise ValueError(f"fuse must be level|stage: {fuse}")
         if fuse_group is not None and fuse_group < 1:
@@ -276,13 +319,39 @@ class DeviceChecker:
         self.check_deadlock = check_deadlock
         if sub_batch < 1:
             raise ValueError(f"sub_batch must be >= 1: {sub_batch}")
-        self.A, self.W, self.G = model.A, self.layout.W, sub_batch
-        self.keys = KeySpec(self.layout.total_bits, self.W)
+        self.Fi = expand_chunk or sub_batch
+        if self.Fi < 1 or sub_batch % self.Fi:
+            raise ValueError("sub_batch must be a multiple of expand_chunk")
+        if flush_factor < 1:
+            raise ValueError(f"flush_factor must be >= 1: {flush_factor}")
+        if group < 1:
+            raise ValueError(f"group must be >= 1: {group}")
+        self.FLUSH, self.group = flush_factor, group
+        # G: the frontier rows of one flush window
+        self.A, self.W = model.A, self.layout.W
+        self.G = sub_batch * flush_factor
+        self.keys = KeySpec(self.layout.total_bits, self.W, fp_bits)
         self.K = self.keys.ncols
         self.SCAP = max_states
         self.TCAP0 = _pow2_at_least(2 * visited_cap, 1 << 11)
-        self.WCAP0 = _pow2_at_least(min(self.TCAP0 // 2, max_states + 1))
-        self.NQ = self.G * self.A  # lanes of one expand window's flush
+        self.WCAP0 = _pow2_at_least(min(max(self.TCAP0 // 2,
+                                            frontier_cap or 0),
+                                        max_states + 1))
+        self.NQ = self.G * self.A  # lanes of one flush window
+        # the seed loader's chunk, and (sort) its merge columns
+        self.SEED_CHUNK = min(SEED_CHUNK, self.NQ)
+        self.SEED_VCAP = (_pow2_at_least(seed_cap) if seed_cap is not None
+                          else SEED_VCAP)
+        self._seed_staged = None
+        self.metrics_path = metrics_path
+        self.hbm_headroom = (HBM_HEADROOM if hbm_headroom is None
+                             else float(hbm_headroom))
+        if not 0.0 <= self.hbm_headroom < 1.0:
+            raise ValueError(
+                f"hbm_headroom must be in [0, 1): {self.hbm_headroom}")
+        self.miss_batch = int(miss_batch or MISS_BATCH)
+        if self.miss_batch < 1:
+            raise ValueError(f"miss_batch must be >= 1: {self.miss_batch}")
         self.rows_window = rows_window
         self.frontier = rows_window == "frontier"
         if self.frontier:
@@ -296,6 +365,10 @@ class DeviceChecker:
         self.last_bufs: Dict[str, torch.Tensor] = {}
         self.hbm_budget = store_budget.resolve_budget(hbm_budget)
         self.tiered = self.hbm_budget is not None
+        if self.tiered and self.sorted:
+            raise ValueError(
+                "the tiered store needs the fpset visited set "
+                "(hbm_budget with visited_impl='sort' is unsupported)")
         if self.tiered and self.frontier:
             raise ValueError(
                 "hbm_budget and rows_window='frontier' are mutually "
@@ -334,13 +407,14 @@ class DeviceChecker:
         stays inside the budget less its headroom.  Rows and logs share
         one window in tiered mode.  The table never goes below the room
         for two flushes at load 1/2."""
-        eff = int(self.hbm_budget * (1.0 - HBM_HEADROOM))
+        eff = int(self.hbm_budget * (1.0 - self.hbm_headroom))
         tc, wc = self.TCAP0, self.WCAP0
         if self._device_bytes_est(tc, wc, wc) > eff:
             need = self._device_bytes_est(tc, wc, wc)
             raise ValueError(
                 "hbm_budget too small: the initial tiers need "
-                f"{store_budget.fmt_bytes(need)} (+{HBM_HEADROOM:.0%} "
+                f"{store_budget.fmt_bytes(need)} "
+                f"(+{self.hbm_headroom:.0%} "
                 "headroom) but the budget is "
                 f"{store_budget.fmt_bytes(self.hbm_budget)} — raise the "
                 "budget or shrink sub_batch/visited_cap"
@@ -374,8 +448,12 @@ class DeviceChecker:
         """A fresh run's tensors: the empty table, the row store (the
         fixed window in frontier mode) and the logs."""
         dev = self.device
-        self._tcols = fpset.empty_cols(self.TCAP0, self.K, dev)
-        self._claims = fpset.new_claims(self.TCAP0, dev)
+        if self.sorted:
+            self._tcols = self._sorted_cols(self.TCAP0 // 2)
+            self._claims = None
+        else:
+            self._tcols = fpset.empty_cols(self.TCAP0, self.K, dev)
+            self._claims = fpset.new_claims(self.TCAP0, dev)
         rows = self.LCAP if self.frontier else self.WCAP0
         self._rows = torch.zeros((rows, self.W), dtype=torch.int32,
                                  device=dev)
@@ -407,7 +485,15 @@ class DeviceChecker:
         """Double the visited table (rehash on the device) until ``need``
         states fit at load <= 1/2, or it reaches ``ceiling`` slots.  In
         tiered mode the per-slot ages die with the old layout: every key
-        restarts at generation 1, epoch 2."""
+        restarts at generation 1, epoch 2.  The sort-merge visited set
+        instead pads its columns to hold ``need`` keys."""
+        if self.sorted:
+            cap = self._tcols[0].shape[0]
+            if need > cap:
+                pad = self._sorted_cols(_pow2_at_least(need, cap) - cap)
+                self._tcols = tuple(torch.cat([c, p])
+                                    for c, p in zip(self._tcols, pad))
+            return
         cap = self._tcols[0].shape[0] - 1
         if need <= cap // 2:
             return
@@ -431,6 +517,19 @@ class DeviceChecker:
             )
             self._epoch = 2
         self._log(f"visited table grown to {new_cap} slots")
+
+    def _sorted_cols(self, n: int) -> Tuple[torch.Tensor, ...]:
+        """``n`` empty (SENTINEL) slots of the K sorted key columns."""
+        return tuple(torch.full((n,), SENTINEL, dtype=torch.int32,
+                                device=self.device) for _ in range(self.K))
+
+    def _visited_cap(self) -> int:
+        """States the visited set admits before it grows (the JAX
+        ``VCAP``): half the table's slots, or the sorted columns'
+        length."""
+        if self.sorted:
+            return self._tcols[0].shape[0]
+        return (self._tcols[0].shape[0] - 1) // 2
 
     def _grow_store(self, new_cap: int) -> None:
         """Grow the row window and the parent/lane logs to ``new_cap``
@@ -547,13 +646,13 @@ class DeviceChecker:
 
     def _resolve_cold_misses(self, kcols, is_new, n_new: int):
         """Resolve the flush's hot-new lanes against the cold runs in
-        ``MISS_BATCH``-key batches and clear the false-new lanes.
+        ``miss_batch``-key batches and clear the false-new lanes.
         Returns the corrected ``(n_new, is_new)``."""
         *kc, lanes, n = sieve.sieve_new(kcols, is_new)
         self._spill_syncs += 1
         false_lanes = []
-        for off in range(0, n, MISS_BATCH):
-            m = min(MISS_BATCH, n - off)
+        for off in range(0, n, self.miss_batch):
+            m = min(self.miss_batch, n - off)
             t0 = time.perf_counter()
             kq = [c[off: off + m].cpu().numpy().view(np.uint32) for c in kc]
             lq = lanes[off: off + m].cpu().numpy()
@@ -671,39 +770,50 @@ class DeviceChecker:
         """Device values as host ints, in one read (a sync with the
         card), counted in ``host_syncs``."""
         self._host_syncs += 1
+        t = time.perf_counter()
         flat = [v.reshape(-1).to(torch.int64) for v in vals]
-        return torch.cat(flat).tolist()
+        out = torch.cat(flat).tolist()
+        self._host_wait_s += time.perf_counter() - t
+        return out
 
     def _lanes(self, rows: torch.Tensor, rowvalid=None):
-        """The window's successor lanes: ``(states, valid [n, A], packed
-        [n*A, W], key cols)``; rows outside ``rowvalid`` have none."""
-        m = self.model
-        states = self.layout.unpack(rows)
-        succ, valid = m.successors(states)
-        if rowvalid is not None:
-            valid = valid & rowvalid[:, None]
-        n = rows.shape[0]
-        packed = self.layout.pack(succ).reshape(n * self.A, self.W)
-        kcols = tiles.key_plane(self.keys, packed, valid.reshape(-1))
-        return states, valid, packed, kcols
-
-    def _dead_pos(self, states, valid, rowvalid=None) -> torch.Tensor:
-        """The first deadlocked row of a window (BIG if none), int64 0-d."""
-        dead = ~valid.any(dim=1) & ~self.model.stutter_enabled(states)
-        if rowvalid is not None:
-            dead = dead & rowvalid
-        pos = torch.arange(dead.shape[0], device=self.device)
-        return torch.where(dead, pos, BIG).amin()
+        """The window's successor lanes, expanded in chunks of
+        ``expand_chunk`` rows: ``(packed [n*A, W], key cols, dead)``
+        with ``dead`` the first deadlocked row (BIG if none; an int64
+        0-d tensor, None without the deadlock check); rows outside
+        ``rowvalid`` have no lanes."""
+        m, n = self.model, rows.shape[0]
+        parts, dead = [], None
+        for c in range(0, max(n, 1), self.Fi):
+            rc = rows[c: c + self.Fi]
+            states = self.layout.unpack(rc)
+            succ, valid = m.successors(states)
+            rv = None if rowvalid is None else rowvalid[c: c + self.Fi]
+            if rv is not None:
+                valid = valid & rv[:, None]
+            packed = self.layout.pack(succ).reshape(-1, self.W)
+            kcols = tiles.key_plane(self.keys, packed, valid.reshape(-1))
+            parts.append((packed, *kcols))
+            if self.check_deadlock:
+                dd = ~valid.any(dim=1) & ~m.stutter_enabled(states)
+                if rv is not None:
+                    dd = dd & rv
+                pos = torch.arange(c, c + dd.shape[0], device=self.device)
+                d = torch.where(dd, pos, BIG).amin()
+                dead = d if dead is None else torch.minimum(dead, d)
+        if len(parts) == 1:
+            packed, *kcols = parts[0]
+        else:
+            packed, *kcols = (torch.cat(p) for p in zip(*parts))
+        return packed, tuple(kcols), dead
 
     def _expand(self, f_off: int, n: int):
         """Expand frontier rows ``[f_off, f_off + n)`` (absolute gids):
         ``(packed [n*A, W], key cols)``; records a deadlocked row."""
         off = f_off - self._row_base
-        states, valid, packed, kcols = self._lanes(
-            self._rows[off: off + n]
-        )
-        if self.check_deadlock:
-            (d,) = self._read(self._dead_pos(states, valid))
+        packed, kcols, dead = self._lanes(self._rows[off: off + n])
+        if dead is not None:
+            (d,) = self._read(dead)
             if d < BIG:
                 self._dead = min(self._dead, f_off + d)
         return packed, kcols
@@ -728,12 +838,17 @@ class DeviceChecker:
             self._ensure_hot_capacity(nq)
         else:
             self._ensure_table(self._nv + nq)
-        self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
-            self._tcols, kcols, nq, self._fpm, self._claims
-        )
+        if self.sorted:
+            # equal keys: the lowest lane wins, as in the fpset
+            self._tcols, n_new, is_new = merge_lanes(self._tcols, kcols, nq)
+            (n_new,) = self._read(n_new)
+        else:
+            self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
+                self._tcols, kcols, nq, self._fpm, self._claims
+            )
+            self._host_syncs += 1  # flush_acc_tiles read the count
         if fail:
             self._fpm[2] += 1
-        self._host_syncs += 1  # flush_acc_tiles read the new-lane count
         self._check_overflow(*self._read(self._fpm[2], self._rehash_failed))
         if self.tiered:
             # every hot-new key stays inserted, false-new ones included
@@ -744,7 +859,7 @@ class DeviceChecker:
                 )
         if not n_new:
             return
-        crows, idx = compact_rows(packed, is_new)
+        crows, idx = compact_rows(packed, is_new, self.compact_impl)
         crows, idx = crows[:n_new], idx[:n_new]
         nv = self._nv
         if self.tiered:
@@ -804,7 +919,7 @@ class DeviceChecker:
     # ------------------------------------------------ the fused level
 
     def _headroom(self) -> int:
-        """Growth headroom of the fused level in lanes: ``GROW_AHEAD``
+        """Growth headroom of the fused level in lanes: ``group + 1``
         (at least ``fuse_group``) windows; one after a device-memory
         recovery, and in tiered mode, where the table grows as the stage
         loop grows it (a growth re-tags every key at generation 1, so a
@@ -812,7 +927,7 @@ class DeviceChecker:
         generation for the first eviction to take)."""
         if self.rec.headroom_frozen or self.tiered:
             return self.NQ
-        return max(GROW_AHEAD, self.RMAX) * self.NQ
+        return max(self.group + 1, self.RMAX) * self.NQ
 
     def _lv_begin(self) -> None:
         """The fused level's device-held counters, from the host's exact
@@ -903,7 +1018,7 @@ class DeviceChecker:
         )
         if fail:
             self._fpm[2] += 1
-        crows, idx = compact_rows(packed, is_new)
+        crows, idx = compact_rows(packed, is_new, self.compact_impl)
         nv = self._nv_t
         pos = torch.arange(nq, device=dev)
         dest = nv + pos
@@ -937,9 +1052,8 @@ class DeviceChecker:
     def _lv_window(self, rows, base, rowvalid=None) -> None:
         """Expand, flush and append one window of frontier rows whose
         first gid is ``base`` (an int, or a 0-d tensor in the ramp)."""
-        states, valid, packed, kcols = self._lanes(rows, rowvalid)
-        if self.check_deadlock:
-            d = self._dead_pos(states, valid, rowvalid)
+        packed, kcols, d = self._lanes(rows, rowvalid)
+        if d is not None:
             self._dead_t = torch.minimum(
                 self._dead_t, torch.where(d < BIG, base + d, BIG)
             )
@@ -1123,12 +1237,16 @@ class DeviceChecker:
             return {"truncated": True, "stop_reason": "time_budget"}
         return None
 
-    def run(self, resume: bool = False) -> CheckerResult:
-        """Check the model.  ``resume=True`` rebuilds the run from the
-        ``checkpoint_path`` frame and continues it (wall time cumulative
-        across resumes; the time budget starts afresh)."""
+    def run(self, seed=None, resume: bool = False) -> CheckerResult:
+        """Check the model.  ``seed`` is a host-enumerated BFS prefix
+        ``(packed rows uint32 [n, W], parent gids, action lanes, level
+        sizes)`` (``model.host_seed``; see :meth:`_load_seed`).
+        ``resume=True`` rebuilds the run from the ``checkpoint_path``
+        frame and continues it (wall time cumulative across resumes; the
+        time budget starts afresh)."""
         t0 = time.time()
         self._budget_t0 = t0
+        self._host_wait_s = 0.0
         self.rec.reset()
         self._ckpt_frames = self._ckpt_bytes = self._ckpt_retries = 0
         self._ckpt_write_s = self._ckpt_last_s = self._restore_s = 0.0
@@ -1145,11 +1263,11 @@ class DeviceChecker:
         self._watcher = watcher
         try:
             with watcher:
-                return self._run(t0, resume)
+                return self._run(t0, seed, resume)
         finally:
             self._watcher = None
 
-    def _run(self, t0, resume: bool) -> CheckerResult:
+    def _run(self, t0, seed, resume: bool) -> CheckerResult:
         dev = self.device
         if dev.type == "cuda":
             # K0 on this card (builds and loads the kernels on first use)
@@ -1164,6 +1282,8 @@ class DeviceChecker:
             self._epoch, self._hot_n, self._spill_syncs = 1, 0, 0
             self._spill_active = False
         if resume:
+            if seed is not None:
+                raise ValueError("resume and seed are mutually exclusive")
             if not self.checkpoint_path:
                 raise ValueError("resume requires checkpoint_path")
             t = time.perf_counter()
@@ -1171,6 +1291,31 @@ class DeviceChecker:
             self._restore_s = time.perf_counter() - t
             t0 = time.time() - wall
             self.rec.arm()  # the frame on disk is valid
+            metrics.rewind(self.metrics_path, len(level_sizes))
+        elif seed is not None:
+            if "oom" in faults.poll("level", 1):
+                raise faults.oom_error("level", 1)
+            self._alloc()
+            self._nv, self._dead = 0, BIG
+            self._viol = [BIG] * len(self.invariant_names)
+            if self.tiered:
+                self._mk_tstore()
+                self.tstore.wipe()
+            level_sizes = self._load_seed(seed)
+            level_base, nf = self._nv - level_sizes[-1], level_sizes[-1]
+            # the anchor record: the seed's levels, nothing expanded yet
+            self._emit_metrics(t0, len(level_sizes), 0, self._nv, nf)
+            fv = self._first_viol()
+            if fv is not None:
+                # a violation inside the seed: the diameter is its level
+                cum = 0
+                for li, cnt in enumerate(level_sizes):
+                    cum += cnt
+                    if fv[1] < cum:
+                        level_sizes = level_sizes[: li + 1]
+                        break
+            self._log(f"seed: {self._nv} states in {len(level_sizes)} "
+                      "levels")
         else:
             # level 1's fault site (the loop's count starts at 2)
             if "oom" in faults.poll("level", 1):
@@ -1304,6 +1449,7 @@ class DeviceChecker:
                         self._handoff = (level, self._fuse_levels)
                     out = self._stage_level(level_base, nf, start=out)
                 sizes, lb2, nf2, done = out
+                prev_nf = nf
                 for k, sz in enumerate(sizes):
                     if done and not sz:
                         continue  # a level that adds nothing ends it
@@ -1314,6 +1460,9 @@ class DeviceChecker:
                         raise faults.oom_error("level", site)
                     level_sizes.append(sz)
                     self._log_level(t0, level_sizes)
+                    self._emit_metrics(t0, len(level_sizes), sz,
+                                       sum(level_sizes), prev_nf)
+                    prev_nf = sz
                 if done and self.tiered and nf2:
                     self._tiered_boundary(lb2)
             except Exception as e:  # noqa: BLE001
@@ -1355,6 +1504,160 @@ class DeviceChecker:
         if partial > 0:
             level_sizes.append(partial)
 
+    def _emit_metrics(self, t0, level: int, new_states: int, nv: int,
+                      frontier: int) -> None:
+        """One ``metrics_path`` record (the JAX engine's keys):
+        ``frontier`` is the frontier expanded into the level,
+        ``host_wait_s`` the time the host spent blocked in reads."""
+        wall = time.time() - t0
+        metrics.append(self.metrics_path, {
+            "level": level,
+            "new_states": int(new_states),
+            "distinct_states": int(nv),
+            "frontier": int(frontier),
+            "wall_s": round(wall, 3),
+            "host_wait_s": round(self._host_wait_s, 3),
+            "states_per_sec": round(nv / max(wall, 1e-9), 1),
+            "visited_cap": self._visited_cap(),
+        })
+
+    # ------------------------------------------------ host-seeded starts
+
+    def prestage_seed(self, seed) -> None:
+        """Copy a seed's rows and logs to the device ahead of
+        :meth:`run` (e.g. while the host does other work); ``run(seed=
+        ...)`` takes them if the seed is the same one."""
+        rows, parents, lanes, lsizes = seed
+        rows = np.ascontiguousarray(rows, np.uint32).reshape(-1, self.W)
+        dev = self.device
+        self._seed_staged = (
+            self._seed_token(rows, parents, lsizes),
+            torch.from_numpy(rows.view(np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(parents, np.int32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(lanes, np.int32)).to(dev),
+        )
+
+    @staticmethod
+    def _seed_token(rows, parents, lsizes):
+        """A cheap identity of a seed (its count, level sizes and sampled
+        sums), so a prestaged seed is never taken for another one."""
+        n = len(rows)
+        step = max(1, n // 64)
+        return (
+            n,
+            tuple(int(x) for x in lsizes),
+            int(np.asarray(rows[::step], np.uint64).sum()),
+            int(np.asarray(parents[::step], np.int64).sum()),
+        )
+
+    def _load_seed(self, seed) -> List[int]:
+        """Load a host-enumerated BFS prefix: packed states in gid order
+        with parent gids (roots ``-1 - init_idx``) and action lanes, and
+        the level sizes; the caller guarantees distinct, level-complete,
+        deadlock-free states.  Rows and logs are written at gids ``[0,
+        n)``; the keys go into the visited set in chunks (K2, then K1 +
+        H1 on the card; the sort-merge set in ``seed_cap``-sized
+        columns), and the invariants run on the seed's states.  Returns
+        the level sizes."""
+        rows, parents, lanes, lsizes = seed
+        rows = np.ascontiguousarray(rows, np.uint32).reshape(-1, self.W)
+        lsizes = [int(x) for x in lsizes]
+        n = rows.shape[0]
+        if sum(lsizes) != n:
+            raise ValueError("seed level sizes do not sum to the state count")
+        if n > self.SCAP or (self.sorted and n > self.SEED_VCAP // 2):
+            raise ValueError(f"seed too large ({n} states)")
+        if self.frontier and n + self.SEED_CHUNK > self.LCAP:
+            raise ValueError(
+                f"seed ({n} states) exceeds the frontier rows window "
+                f"({self.LCAP}); raise row_cap_states")
+        if self.tiered and (n + self.SEED_CHUNK > self._wcap_max
+                            or n + self.NQ > self._tcap_max // 2):
+            # the seed loads before any spill boundary: honor it past
+            # the budget (the table too: every seed key is hot)
+            self._wcap_max = max(self._wcap_max, n + self.SEED_CHUNK)
+            while self._tcap_max // 2 < n + self.NQ:
+                self._tcap_max *= 2
+            if not self._budget_overridden:
+                self._budget_overridden = True
+                self._log("WARNING: hbm_budget too small for the seed — "
+                          "growing past the budget")
+        if self.frontier and lsizes and lsizes[-1] + self.NQ > self.LCAP:
+            # the seeded frontier must leave one append window free, or
+            # the first flush's blind append overwrites live frontier rows
+            raise ValueError(
+                f"seed frontier ({lsizes[-1]} states) exceeds the "
+                f"frontier rows window ({self.LCAP} rows, {self.NQ} "
+                "reserved for the append); raise row_cap_states")
+        dev = self.device
+        if self.sorted:
+            vk = self._sorted_cols(self.SEED_VCAP)
+        else:
+            self._ensure_table(n + self.NQ,
+                               self._tcap_max if self.tiered else None)
+        self._ensure_store(n + self.SEED_CHUNK)
+        staged = self._seed_staged
+        if staged is None or staged[0] != self._seed_token(rows, parents,
+                                                           lsizes):
+            self.prestage_seed(seed)
+            staged = self._seed_staged
+        self._seed_staged = None
+        _, rows_d, par_d, lan_d = staged
+        self._rows[:n] = rows_d
+        self._parent[:n] = par_d
+        self._lane[:n] = lan_d
+        n_inv = len(self.invariant_names)
+        nvis = torch.zeros((), dtype=torch.int64, device=dev)
+        viol = torch.full((n_inv,), BIG, dtype=torch.int64, device=dev)
+        off = 0
+        for count in lsizes:
+            for c0 in range(0, count, self.SEED_CHUNK):
+                cn = min(self.SEED_CHUNK, count - c0)
+                s0 = off + c0
+                chunk = rows_d[s0: s0 + cn]
+                if chunk.data_ptr() % 16:
+                    chunk = chunk.clone()  # K2 bulk-copies aligned tiles
+                kc = tiles.key_plane(
+                    self.keys, chunk,
+                    torch.ones((cn,), dtype=torch.bool, device=dev))
+                if self.sorted:
+                    vk, nn, _new = merge_lanes(vk, kc, cn)
+                else:
+                    self._tcols, nn, _new, self._fpm = tiles.flush_tiles(
+                        self._tcols, kc, cn, self._fpm, self._claims)
+                nvis = nvis + nn
+                if n_inv:
+                    states = self.layout.unpack(chunk)
+                    pos = torch.arange(cn, device=dev)
+                    bad = torch.stack([
+                        torch.where(self.model.invariants[name](states),
+                                    BIG, pos).amin()
+                        for name in self.invariant_names])
+                    viol = torch.minimum(
+                        viol, torch.where(bad < BIG, s0 + bad, BIG))
+            off += count
+        probe, rehash, got, *vs = self._read(
+            self._fpm[2], self._rehash_failed, nvis, viol)
+        if probe:
+            raise RuntimeError("fpset probe overflow while loading the "
+                               "seed — raise visited_cap")
+        self._check_overflow(0, rehash)
+        if got != n:
+            raise ValueError(
+                f"seed states are not all distinct ({got} of {n} unique)")
+        if self.sorted:
+            # the seed's sorted columns, padded to the main set's size
+            cap = _pow2_at_least(max(n + self.NQ, self.SEED_VCAP),
+                                 self.TCAP0 // 2)
+            self._tcols = tuple(
+                torch.cat([c, p]) for c, p in zip(
+                    vk, self._sorted_cols(cap - self.SEED_VCAP)))
+        self._nv = n
+        self._viol = vs
+        if self.tiered:
+            self._hot_n = n
+        return lsizes
+
     def _log_level(self, t0, level_sizes) -> None:
         cum = sum(level_sizes)
         wall = time.time() - t0
@@ -1378,6 +1681,7 @@ class DeviceChecker:
             rows_window=self.rows_window,
             engine=ENGINE_SIG,
             **({"tiered": True} if self.tiered else {}),
+            **({"visited": "sort"} if self.sorted else {}),
         )
 
     def _save_frame(self, level_sizes, level_base: int, nf: int) -> bool:
@@ -1446,7 +1750,12 @@ class DeviceChecker:
                                      nv - self._row_base]
                           ).view(np.uint32).reshape(-1),
         }
-        arrays.update(ckpt.pack_table(self._tcols))
+        if self.sorted:
+            # the sorted columns' first nv entries are the keys
+            for i, c in enumerate(self._tcols):
+                arrays[f"vk{i}"] = _host(c[:nv]).view(np.uint32)
+        else:
+            arrays.update(ckpt.pack_table(self._tcols))
         if self.tiered:
             try:
                 man = self.tstore.manifest()
@@ -1471,10 +1780,19 @@ class DeviceChecker:
                 f"checkpoint holds {nv} states — beyond max_states "
                 f"({self.SCAP}); raise max_states to resume it"
             )
-        cap = int(d["fp_tcap"])
-        self._tcols = fpset.empty_cols(cap, K, dev)
-        ckpt.restore_table(d, self._tcols)
-        self._claims = fpset.new_claims(cap, dev)
+        if self.sorted:
+            cap = _pow2_at_least(nv + self.NQ, self.TCAP0 // 2)
+            self._tcols = self._sorted_cols(cap)
+            for i, c in enumerate(self._tcols):
+                c[:nv] = torch.from_numpy(
+                    np.asarray(d[f"vk{i}"], np.uint32).view(np.int32)
+                    .copy()).to(dev)
+            self._claims = None
+        else:
+            cap = int(d["fp_tcap"])
+            self._tcols = fpset.empty_cols(cap, K, dev)
+            ckpt.restore_table(d, self._tcols)
+            self._claims = fpset.new_claims(cap, dev)
         self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
         fpm = np.zeros((fpset.FPM_N,), np.int64)
         old = np.asarray(d["fpm"], np.int64).reshape(-1)
@@ -1547,7 +1865,8 @@ class DeviceChecker:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
-        tcap = self._tcols[0].shape[0] - 1 if live else 0
+        tcap = (self._tcols[0].shape[0] - (0 if self.sorted else 1)
+                if live else 0)
         fpm = self._fpm.tolist() if live else [0] * fpset.FPM_N
         fl, rounds, fails, valid_lanes, max_rounds = fpm
         self.last_stats = dict(

@@ -70,8 +70,8 @@ from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
     ShardedDeviceChecker,
 )
 from pulsar_tlaplus_tpu_torch.ops import tiles
-from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
-from pulsar_tlaplus_tpu_torch.ops.dedup import u32
+from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag, validate_impl
+from pulsar_tlaplus_tpu_torch.ops.dedup import lex_order
 from pulsar_tlaplus_tpu_torch.store import budget as store_budget
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
 
@@ -115,22 +115,6 @@ def edge_digest(src, dst) -> str:
     return h.hexdigest()
 
 
-def lex_order(cols) -> torch.Tensor:
-    """The stable permutation sorting int32 key columns in unsigned
-    lexicographic order (SENTINEL = 0xFFFFFFFF last): stable sorts from
-    the least significant column, the first two as one int64 key."""
-    perm = None
-    for c in reversed(cols[2:]):
-        v = u32(c if perm is None else c[perm])
-        o = torch.sort(v, stable=True).indices
-        perm = o if perm is None else perm[o]
-    k = tiles._key64(cols[0], cols[1])
-    if perm is not None:
-        k = k[perm]
-    o = torch.sort(k, stable=True).indices
-    return o if perm is None else perm[o]
-
-
 class LivenessChecker:
     """Checks ``<>goal`` for a batched model's named goal predicate
     (``model.liveness_goals``) on one device (``cuda`` unless ``device``
@@ -148,7 +132,9 @@ class LivenessChecker:
     it on the mesh-sharded engine (``device`` names the shards' device or
     devices, as for ``ShardedDeviceChecker``).  ``checkpoint_path``
     and ``checkpoint_every`` (levels in the exploration, chunks in the
-    sweep) write resumable frames.
+    sweep) write resumable frames.  ``compact_impl`` (``"logshift"`` or
+    ``"sort"``, ``ops/compact.py``) is the exploration's and the
+    sweep's stream compaction.
     """
 
     def __init__(
@@ -169,6 +155,7 @@ class LivenessChecker:
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
         n_devices: int = 1,
+        compact_impl: str = "logshift",
     ):
         goals = getattr(model, "liveness_goals", {})
         if goal not in goals:
@@ -199,7 +186,9 @@ class LivenessChecker:
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.n_devices = n_devices
+        self.compact_impl = validate_impl(compact_impl)
         common = dict(
+            compact_impl=compact_impl,
             invariants=(),
             check_deadlock=False,
             sub_batch=max(256, frontier_chunk),
@@ -375,7 +364,8 @@ class LivenessChecker:
         dst = torch.where(vq, torch.where(dst < 0, -2, dst), -1)
         lane = torch.arange(nq, dtype=torch.int64, device=self.device)
         keep = (dst != -1) & (dst != off + lane // A)
-        (idxc, dstc), _ = compact_by_flag(~keep, (lane, dst))
+        (idxc, dstc), _ = compact_by_flag(~keep, (lane, dst),
+                                          self.compact_impl)
         return keep.sum(), idxc, dstc
 
     def _sweep_group_size(self) -> int:

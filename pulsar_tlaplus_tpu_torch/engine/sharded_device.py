@@ -25,11 +25,14 @@ on its own device:
   accumulated keys in its own table through the tiled flush
   (``tiles.flush_tiles``: K1, then the insert tail H1) — min-lane-wins
   over the owner's lane order (round, producer, rank), bit for bit the
-  JAX ``fpset.lookup_or_insert``; the new-key flags return through the
-  inverse exchange (``_flags_back``, ``_flags_back_2d``) and each
-  producer gathers its lanes' flags by their return addresses;
+  JAX ``fpset.lookup_or_insert``; with ``visited_impl="sort"`` it
+  sort-merges them into its sorted key columns instead
+  (``dedup.merge_new_keys``, the same lowest lane winning).  The
+  new-key flags return through the inverse exchange (``_flags_back``,
+  ``_flags_back_2d``) and each producer gathers its lanes' flags by
+  their return addresses;
 - **compact + append** (``_compact_jit``, ``_append_jit``): each producer
-  compacts its new lanes in order and writes rows, parents and lanes
+  compacts its new lanes in order (``compact_impl``) and writes rows, parents and lanes
   blind at its device-held count (one append window past it), checking
   the invariants on the new states.
 
@@ -56,18 +59,19 @@ SIGTERM/SIGINT (a frame, then ``preempted``) and device-memory recovery
 (``torch.OutOfMemoryError``: rebuild from the frame with the growth
 headroom frozen and the group halved; ``hbm`` without one) are the JAX
 engine's; the ``level``, ``flush`` and ``frame`` fault sites fire as
-there.  ``run(seed=...)`` loads a host-enumerated BFS prefix.
+there.  ``run(seed=...)`` loads a host-enumerated BFS prefix;
+``metrics_path`` takes one record a level (a resume drops the records
+past its frame's level).
 
-Not ported: ``visited_impl="sort"`` (the sorted-column flush), telemetry
-and heartbeats (``obs/``), and ``warmup``/``_prewarm_tiers`` (they
-compile XLA executables, which have no counterpart here).  Unlike the
-JAX engine, several shards may share a device (see ``parallel/mesh``).
+Not ported: telemetry and heartbeats (``obs/``), and
+``warmup``/``_prewarm_tiers`` (they compile XLA executables, which have
+no counterpart here).  Unlike the JAX engine, several shards may share a
+device (see ``parallel/mesh``).
 """
 
 from __future__ import annotations
 
 import gc
-import json
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -79,12 +83,12 @@ from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
 from pulsar_tlaplus_tpu_torch.engine.core import build_trace
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
-from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
+from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag, validate_impl
 from pulsar_tlaplus_tpu_torch.ops.dedup import (
-    SENTINEL, KeySpec, mul32, rotl, u32,
+    SENTINEL, KeySpec, merge_lanes, mul32, rotl, u32,
 )
 from pulsar_tlaplus_tpu_torch.parallel import mesh as mesh_mod
-from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, recovery
+from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, metrics, recovery
 
 BIG = 2**31 - 1
 FPM_N = fpset.FPM_N
@@ -190,9 +194,12 @@ class ShardedDeviceChecker:
     a round (in chunks of ``expand_chunk``), ``fp_bits`` the width of a
     hashed key (64 or 96), ``flush_factor`` rounds a flush, ``group`` flushes between
     two host fetches.  ``route_slack`` scales the per-destination route
-    capacity over the mean.  ``max_states`` and ``time_budget_s`` stop
-    the run (truncated); ``checkpoint_path`` writes a frame every
-    ``checkpoint_every`` levels."""
+    capacity over the mean.  ``visited_impl`` is ``"fpset"`` (the hash
+    table) or ``"sort"`` (sorted key columns), ``compact_impl``
+    ``"logshift"`` or ``"sort"``.  ``max_states`` and ``time_budget_s``
+    stop the run (truncated); ``checkpoint_path`` writes a frame every
+    ``checkpoint_every`` levels; ``metrics_path`` takes one record a
+    level."""
 
     SEED_CHUNK = 1 << 15
 
@@ -218,7 +225,15 @@ class ShardedDeviceChecker:
         checkpoint_every: int = 5,
         n_slices: int = 1,
         device=None,
+        visited_impl: str = "fpset",
+        compact_impl: str = "logshift",
     ):
+        if visited_impl not in ("fpset", "sort"):
+            raise ValueError(
+                f"visited_impl must be fpset|sort: {visited_impl}")
+        self.visited_impl = visited_impl
+        self.sorted = visited_impl == "sort"
+        self.compact_impl = validate_impl(compact_impl)
         self.model = model
         self.layout = model.layout
         if invariants is None:
@@ -390,8 +405,9 @@ class ShardedDeviceChecker:
         self._vk, self._claims = [], []
         self._rows, self._parent, self._lane = [], [], []
         for dev in self.mesh.devices:
-            self._vk.append(fpset.empty_cols(self.TCAP, self.K, dev))
-            self._claims.append(fpset.new_claims(self.TCAP, dev))
+            self._vk.append(self._empty_visited(dev))
+            self._claims.append(None if self.sorted
+                                else fpset.new_claims(self.TCAP, dev))
             self._rows.append(torch.zeros((self.LCAP, self.W),
                                           dtype=torch.int32, device=dev))
             self._parent.append(torch.zeros((self.LCAP,), dtype=torch.int32,
@@ -416,10 +432,28 @@ class ShardedDeviceChecker:
 
     # ------------------------------------------------------------ growth
 
+    def _empty_visited(self, dev, n: Optional[int] = None):
+        """A shard's empty visited set: the table of ``TCAP`` slots, or
+        ``n`` (default ``VCAP``) SENTINEL slots of sorted columns."""
+        if not self.sorted:
+            return fpset.empty_cols(self.TCAP, self.K, dev)
+        return tuple(torch.full((self.VCAP if n is None else n,), SENTINEL,
+                                dtype=torch.int32, device=dev)
+                     for _ in range(self.K))
+
     def _grow_visited(self, need: int) -> None:
         """Double every shard's table (a rehash through H1 on the card)
         until ``need`` keys fit at load <= 1/2; the failure counts are
-        read with the next fetch."""
+        read with the next fetch.  Sorted columns are padded instead."""
+        if self.sorted:
+            cap = self._round_cap(max(need, self.VCAP))
+            if cap > self.VCAP:
+                for s, dev in enumerate(self.mesh.devices):
+                    pad = self._empty_visited(dev, cap - self.VCAP)
+                    self._vk[s] = tuple(torch.cat([c, p]) for c, p in
+                                        zip(self._vk[s], pad))
+                self.VCAP, self.TCAP = cap, 2 * cap
+            return
         while self.VCAP < need:
             cap = 2 * self.TCAP
             for s, dev in enumerate(self.mesh.devices):
@@ -654,10 +688,14 @@ class ShardedDeviceChecker:
             need = [True] * N
         own = []
         for s in range(N):
-            self._vk[s], n_new, is_new, self._fpm[s] = tiles.flush_tiles(
-                self._vk[s], tuple(self._ak[s].unbind(0)), n_acc,
-                self._fpm[s], self._claims[s],
-            )
+            kc = tuple(self._ak[s].unbind(0))
+            if self.sorted:
+                self._vk[s], n_new, is_new = merge_lanes(self._vk[s], kc,
+                                                         n_acc)
+            else:
+                self._vk[s], n_new, is_new, self._fpm[s] = \
+                    tiles.flush_tiles(self._vk[s], kc, n_acc, self._fpm[s],
+                                      self._claims[s])
             self._nkeys[s] = self._nkeys[s] + n_new
             own.append(is_new)
         if N == 1:
@@ -717,7 +755,7 @@ class ShardedDeviceChecker:
             flag = flag[:h]
             (crows, cpar, clane), _ = compact_by_flag(
                 ~flag, (self._arows[p][:h], self._apar[p][:h],
-                        self._alane[p][:h]))
+                        self._alane[p][:h]), self.compact_impl)
             n_new = flag.sum()
             nv = self._nvis[p]
             pos = torch.arange(h, device=dev)
@@ -817,6 +855,7 @@ class ShardedDeviceChecker:
             level_sizes, lb, nf, wall = self._restore()
             t0 = time.time() - wall
             self.rec.arm()  # the frame on disk is valid
+            metrics.rewind(self.metrics_path, len(level_sizes))
             return self._run_levels(t0, level_sizes, lb, nf)
         self._alloc()
         if seed is not None:
@@ -1047,17 +1086,15 @@ class ShardedDeviceChecker:
         wall = time.time() - t0
         self._log(f"level {len(level_sizes)}: +{level_sizes[-1]} (total "
                   f"{total}, {total / max(wall, 1e-9):.0f} st/s)")
-        if self.metrics_path:
-            with open(self.metrics_path, "a") as f:
-                f.write(json.dumps({
-                    "level": len(level_sizes),
-                    "new_states": int(level_sizes[-1]),
-                    "distinct_states": total,
-                    "wall_s": round(wall, 3),
-                    "host_wait_s": round(self._host_wait_s, 3),
-                    "states_per_sec": round(total / max(wall, 1e-9), 1),
-                    "n_shards": self.N,
-                }) + "\n")
+        metrics.append(self.metrics_path, {
+            "level": len(level_sizes),
+            "new_states": int(level_sizes[-1]),
+            "distinct_states": total,
+            "wall_s": round(wall, 3),
+            "host_wait_s": round(self._host_wait_s, 3),
+            "states_per_sec": round(total / max(wall, 1e-9), 1),
+            "n_shards": self.N,
+        })
 
     # ---------------------------------------------------------- control
 
@@ -1185,6 +1222,7 @@ class ShardedDeviceChecker:
             # the gid encoding shard << SB | local
             sb=self.SB,
             engine=ENGINE_SIG,
+            **({"visited": "sort"} if self.sorted else {}),
         )
 
     def load_checkpoint(self):
@@ -1215,7 +1253,14 @@ class ShardedDeviceChecker:
                     self.last_level1_counts, np.int64)
             for s in range(self.N):
                 c = int(nvis[s])
-                arrays.update(ckpt.pack_table(self._vk[s], prefix=f"fp{s}"))
+                if self.sorted:
+                    nk = int(stats[s, 1])
+                    for i, col in enumerate(self._vk[s]):
+                        arrays[f"vk{s}_{i}"] = _host(col[:nk]).view(
+                            np.uint32)
+                else:
+                    arrays.update(ckpt.pack_table(self._vk[s],
+                                                  prefix=f"fp{s}"))
                 arrays[f"rows{s}"] = _host(self._rows[s][:c]).view(
                     np.uint32).reshape(-1)
                 arrays[f"parent{s}"] = _host(self._parent[s][:c])
@@ -1256,8 +1301,12 @@ class ShardedDeviceChecker:
                 f"max_states ({self.SCAP}); raise max_states to resume it"
             )
         mx, mk = int(nvis.max()), int(nkeys.max())
-        self.TCAP = int(d["fp0_tcap"])
-        self.VCAP = self.TCAP // 2
+        if self.sorted:
+            self.VCAP = self._round_cap(mk + self.ACAP)
+            self.TCAP = 2 * self.VCAP
+        else:
+            self.TCAP = int(d["fp0_tcap"])
+            self.VCAP = self.TCAP // 2
         need_l = max(mx + self.APAD, self.NCs + self.APAD)
         while self.LCAP < need_l:
             self.LCAP = min(self.LCAP * 2, need_l)
@@ -1267,10 +1316,18 @@ class ShardedDeviceChecker:
         self._rows, self._parent, self._lane = [], [], []
         for s, dev in enumerate(self.mesh.devices):
             c = int(nvis[s])
-            t = fpset.empty_cols(self.TCAP, K, dev)
-            ckpt.restore_table(d, t, prefix=f"fp{s}")
+            t = self._empty_visited(dev)
+            if self.sorted:
+                nk = int(nkeys[s])
+                for i, col in enumerate(t):
+                    col[:nk] = torch.from_numpy(
+                        np.asarray(d[f"vk{s}_{i}"], np.uint32)
+                        .view(np.int32).copy()).to(dev)
+                self._claims.append(None)
+            else:
+                ckpt.restore_table(d, t, prefix=f"fp{s}")
+                self._claims.append(fpset.new_claims(self.TCAP, dev))
             self._vk.append(t)
-            self._claims.append(fpset.new_claims(self.TCAP, dev))
             rows = torch.zeros((self.LCAP, W), dtype=torch.int32, device=dev)
             rows[:c] = torch.from_numpy(np.asarray(d[f"rows{s}"], np.uint32)
                                         .view(np.int32).reshape(c, W)).to(dev)

@@ -496,8 +496,8 @@ class CompactionModel:
             consume=f["consume"],
         )
 
-    def from_pystate(self, ps: pyeval.State, device="cpu") -> SState:
-        """pyeval.State -> a batch of one."""
+    def _py_fields(self, ps: pyeval.State) -> dict:
+        """pyeval.State -> the SState fields as Python values."""
         keys = [0] * self.M
         vals = [0] * self.M
         for i, (mid, k, v) in enumerate(ps.messages):
@@ -516,24 +516,133 @@ class CompactionModel:
                 led_bits[cc][mid - 1] = True
         p1_present, p1_readpos = (1, ps.p1[0]) if ps.p1 else (0, 0)
         cur = (1, *ps.cursor) if ps.cursor else (0, 0, 0)
-
-        def t(x, dtype=torch.int32):
-            return torch.tensor([x], dtype=dtype, device=device)
-
-        return SState(
-            length=t(len(ps.messages)),
-            keys=t(keys),
-            vals=t(vals),
-            led_present=t(led_present),
-            led_bits=t(led_bits, torch.bool).reshape(1, self.C, self.M),
-            cursor_present=t(cur[0]),
-            cursor_h=t(cur[1]),
-            cursor_c=t(cur[2]),
-            cstate=t(ps.cstate),
-            p1_present=t(p1_present),
-            p1_readpos=t(p1_readpos),
-            horizon=t(ps.horizon),
-            context=t(ps.context),
-            crash=t(ps.crash),
-            consume=t(ps.consume),
+        return dict(
+            length=len(ps.messages), keys=keys, vals=vals,
+            led_present=led_present, led_bits=led_bits,
+            cursor_present=cur[0], cursor_h=cur[1], cursor_c=cur[2],
+            cstate=ps.cstate, p1_present=p1_present, p1_readpos=p1_readpos,
+            horizon=ps.horizon, context=ps.context, crash=ps.crash,
+            consume=ps.consume,
         )
+
+    def _stack_pystates(self, states, device="cpu") -> SState:
+        """pyeval.States -> one batch, stacked on the host."""
+        rows = [self._py_fields(ps) for ps in states]
+        n = len(rows)
+
+        def col(name):
+            a = np.asarray([r[name] for r in rows])
+            if name == "led_bits":
+                return torch.from_numpy(
+                    a.astype(bool).reshape(n, self.C, self.M)).to(device)
+            if name in ("keys", "vals"):
+                a = a.reshape(n, self.M)
+            elif name == "led_present":
+                a = a.reshape(n, self.C)
+            return torch.from_numpy(a.astype(np.int32)).to(device)
+
+        return SState(*[col(f) for f in SState._fields])
+
+    def from_pystate(self, ps: pyeval.State, device="cpu") -> SState:
+        """pyeval.State -> a batch of one."""
+        return self._stack_pystates([ps], device)
+
+    # ------------------------------------------------- host-seeded starts
+
+    SEED_PACK_CHUNK = 1 << 12
+
+    def host_seed(self, max_level_states: int = 30_000,
+                  max_total: int = 32_000):
+        """A host-enumerated BFS prefix for ``DeviceChecker.run(seed=
+        ...)``: the oracle expands the narrow early levels on the host.
+        Returns ``(packed rows uint32 [n, W], parent gids int32, action
+        lanes int32, level sizes)`` covering every BFS level that fits
+        the caps (level-complete, so an engine takes over at the last
+        included level's frontier); a root's parent is ``-1 - init
+        index`` in ``gen_initial``'s order."""
+        c = self.c
+        states: list = []
+        gid_of: dict = {}
+        parents: list = []
+        lanes: list = []
+        lsizes: list = []
+        for s in pyeval.initial_states(c):
+            if s in gid_of:
+                continue
+            gid_of[s] = len(states)
+            states.append(s)
+            # gen_initial's mixed-radix index, not the enumeration
+            # position (the oracle's first position is the most
+            # significant digit, gen_initial's the least)
+            parents.append(-1 - self._init_index_of(s))
+            lanes.append(0)
+            if len(states) > max_total:
+                raise ValueError("initial-state set exceeds the seed caps")
+        lsizes.append(len(states))
+        frontier = list(states)
+        while True:
+            new = []
+            over = False
+            for s in frontier:
+                sg = gid_of[s]
+                any_succ = False
+                for aid, t in pyeval.successors(c, s):
+                    any_succ = True
+                    if t in gid_of:
+                        continue
+                    gid_of[t] = len(states)
+                    states.append(t)
+                    parents.append(sg)
+                    lanes.append(self._lane_of(aid, t))
+                    new.append(t)
+                if not any_succ:
+                    raise ValueError(
+                        "deadlock state inside the seed prefix — check "
+                        "without a seed")
+                if len(new) > max_level_states or len(states) > max_total:
+                    # this level is dropped (seeds are level-complete):
+                    # stop enumerating it now
+                    over = True
+                    break
+            if not new:
+                break
+            if over:
+                for t in new:
+                    del gid_of[t]
+                del states[-len(new):]
+                del parents[-len(new):]
+                del lanes[-len(new):]
+                break
+            lsizes.append(len(new))
+            frontier = new
+        return (self._pack_pystates(states), np.asarray(parents, np.int32),
+                np.asarray(lanes, np.int32), lsizes)
+
+    def _pack_pystates(self, states) -> np.ndarray:
+        """pyeval.States -> packed rows (uint32 ``[n, W]``), stacked and
+        packed on the host in chunks of :data:`SEED_PACK_CHUNK`."""
+        n = len(states)
+        out = np.zeros((n, self.layout.W), np.uint32)
+        step = self.SEED_PACK_CHUNK
+        for c0 in range(0, n, step):
+            batch = self._stack_pystates(states[c0: c0 + step])
+            out[c0: c0 + step] = self.layout.pack(batch).numpy().view(
+                np.uint32)
+        return out
+
+    def _init_index_of(self, s: pyeval.State) -> int:
+        """gen_initial index of an initial state (position i is the i-th
+        least-significant base-|KeySet|*|ValueSet| digit)."""
+        if self.c.model_producer:
+            return 0
+        idx = 0
+        for i, (_mid, k, v) in enumerate(s.messages):
+            idx += (k * (self.c.num_values + 1) + v) * (self.kv ** i)
+        return idx
+
+    def _lane_of(self, aid: int, child: pyeval.State) -> int:
+        """Action id (and the produced child) -> successor lane."""
+        if aid == 0:  # Producer: the lane encodes the (key, value)
+            _mid, key, val = child.messages[-1]
+            return key * (self.c.num_values + 1) + val
+        return self.n_producer_lanes + (aid - 1)

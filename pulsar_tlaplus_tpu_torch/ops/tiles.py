@@ -40,6 +40,7 @@ from pulsar_tlaplus_tpu_torch.kernels import build as kernels
 from pulsar_tlaplus_tpu_torch.ops import fpset
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
+from pulsar_tlaplus_tpu_torch.ops.dedup import key64 as _key64
 
 # probe rounds one membership pass resolves (>= the dense schedule, so
 # steady-state flushes resolve in one pass)
@@ -257,12 +258,6 @@ def sieve_mask_planes(tcols, gen: torch.Tensor, cold: torch.Tensor):
             kernels.launch(*args)
     return (tuple(out[:k].unbind(0)), tuple(out[k: 2 * k].unbind(0)),
             out[2 * k])
-
-
-def _key64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int64 keys whose signed order is the unsigned order of the int32
-    bit-pattern pairs ``(a, b)``: the high word biased by 2^31."""
-    return ((u32(a) - (1 << 31)) << 32) | u32(b)
 
 
 def sort_cols(cols):

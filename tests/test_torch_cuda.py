@@ -572,3 +572,144 @@ def test_sharded_engine_on_card_equals_cpu(card, slices):
             w = gpu.W if k == "rows" else 1
             assert torch.equal(gpu.last_bufs[k][s][: n * w].cpu(),
                                cpu.last_bufs[k][s][: n * w]), (k, s)
+
+
+# ---- the eleventh slice: make_keys, the host engines' hash table, the
+# host engines, seeded starts and the sort-merge visited set
+
+
+@pytest.mark.parametrize("total_bits,W", [(20, 1), (42, 2), (70, 3),
+                                          (137, 5), (618, 20)])
+def test_make_keys_kernel(card, total_bits, W):
+    """``dedup.make_keys`` through K2 (``KeySpec(bits, W, 96)``, a zero
+    column appended at two columns) against its plain version."""
+    from pulsar_tlaplus_tpu_torch.ops import dedup
+
+    rng = np.random.default_rng(total_bits)
+    words = _rand_u32(rng, (50_001, W))
+    if total_bits < 32 * W:
+        words[:, -1] &= (1 << (total_bits - 32 * (W - 1))) - 1
+    (packed,) = from_jax_arrays(words, device=card)
+    before = kernels.LAUNCHES["key_plane"]
+    got = dedup.make_keys(packed, total_bits)
+    assert kernels.LAUNCHES["key_plane"] == before + 1
+    want = dedup.make_keys(packed.cpu(), total_bits)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_hashtable_lookup_insert_on_card(card):
+    """The host engines' lookup-or-insert: K1 + H1 on the card against
+    ``fpset.probe_insert`` on the CPU, with duplicates in the batch and
+    in the table; the same new lanes and the same key set."""
+    from pulsar_tlaplus_tpu_torch.ops import hashtable
+
+    rng = np.random.default_rng(5)
+    keys = _rand_u32(rng, (3, 40_000))
+    keys[:, 20_000:] = keys[:, :20_000]  # every key twice
+    valid = rng.random(40_000) < 0.9
+    tabs = {}
+    for d in (card, torch.device("cpu")):
+        t = hashtable.empty_table(1 << 17, d)
+        k = from_jax_arrays(*keys, device=d)
+        (v,) = from_jax_arrays(valid, device=d)
+        m0 = dict(kernels.LAUNCHES)
+        new1, t, f1 = hashtable.lookup_insert(t, k[:3], v[:], None)
+        new2, t, f2 = hashtable.lookup_insert(t, k[:3], v[:], None)
+        if d.type == "cuda":
+            assert kernels.LAUNCHES["member_block"] > m0["member_block"]
+            assert kernels.LAUNCHES["insert_tail"] > m0["insert_tail"]
+        assert int(f1) == 0 and int(f2) == 0 and not bool(new2.any())
+        occ = ~fpset.all_sentinel(t)
+        occ[-1] = False  # the trash slot holds whatever parked lanes wrote
+        tabs[d.type] = (new1.cpu(), sorted(zip(*[c[occ].cpu().tolist()
+                                                  for c in t])))
+    assert torch.equal(tabs["cuda"][0], tabs["cpu"][0])
+    assert tabs["cuda"][1] == tabs["cpu"][1]
+
+
+@pytest.mark.parametrize("dedup", ["hash", "sort"])
+def test_host_engine_on_card_equals_cpu(card, dedup):
+    """``engine/bfs.Checker`` on the card (K2 keys; hash: K1 + H1)
+    against the CPU: the same log record for record and the same
+    counterexample."""
+    from pulsar_tlaplus_tpu_torch.engine.bfs import Checker
+
+    m = CompactionModel(pyeval.SHIPPED_CFG)
+    runs = []
+    for d in (card, "cpu"):
+        ck = Checker(m, invariants=("CompactedLedgerLeak",), dedup=dedup,
+                     keep_log=True, device=d)
+        r = ck.run()
+        lg = ck.last_run_state.log
+        runs.append((r.violation_gid, r.trace, lg.packed_matrix(),
+                     lg.parents(), lg.actions()))
+    assert runs[0][:2] == runs[1][:2] and runs[0][0] is not None
+    for a, b in zip(runs[0][2:], runs[1][2:]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("visited", ["fpset", "sort"])
+def test_seeded_engine_on_card_equals_cpu(card, visited):
+    """A seeded ``DeviceChecker`` (the seed's keys through K2 and K1 +
+    H1, or the sort-merge set) on the card against the CPU."""
+    m = CompactionModel(pyeval.SHIPPED_CFG)
+    seed = m.host_seed(3000, 5000)
+    runs = []
+    for d in (card, "cpu"):
+        ck = DeviceChecker(m, invariants=("CompactedLedgerLeak",),
+                           sub_batch=1024, visited_impl=visited, device=d)
+        r = ck.run(seed=seed)
+        runs.append((r.level_sizes, r.violation_gid, ck.merged_rows(),
+                     *ck.merged_logs()))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2:], runs[1][2:]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("dedup,slices", [("sort", 1), ("hash", 2)])
+def test_sharded_host_on_card_equals_cpu(card, dedup, slices):
+    """``engine/sharded.ShardedChecker`` on the card against the CPU,
+    log record for record."""
+    from pulsar_tlaplus_tpu_torch.engine.sharded import ShardedChecker
+    from pulsar_tlaplus_tpu_torch.parallel.mesh import make_mesh2d
+
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, compaction_times_limit=2)
+    logs = []
+    for d in (card, "cpu"):
+        ck = ShardedChecker(CompactionModel(c), dedup_mode=dedup,
+                            frontier_chunk=512,
+                            mesh=make_mesh2d(slices, 4 // slices, d))
+        r = ck.run()
+        lg = ck.last_log
+        logs.append((r.level_sizes, lg.packed_matrix(), lg.parents(),
+                     lg.actions()))
+    assert logs[0][0] == logs[1][0]
+    for a, b in zip(logs[0][1:], logs[1][1:]):
+        assert np.array_equal(a, b)
+
+
+def test_sharded_sort_on_card_equals_cpu(card):
+    """``ShardedDeviceChecker(visited_impl="sort")`` on the card against
+    the CPU, shard for shard."""
+    from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
+        ShardedDeviceChecker,
+    )
+
+    m = CompactionModel(pyeval.SHIPPED_CFG)
+    runs = []
+    for d in (card, "cpu"):
+        ck = ShardedDeviceChecker(m, n_devices=4, sub_batch=256,
+                                  visited_cap=1 << 10, visited_impl="sort",
+                                  device=d)
+        r = ck.run()
+        runs.append((r, ck))
+    (ra, a), (rb, b) = runs
+    assert (ra.distinct_states, ra.diameter) == (45198, 20)
+    assert ra.level_sizes == rb.level_sizes
+    for s in range(4):
+        n = int(a.last_stats_matrix[s, 0])
+        for k, w in (("rows", a.W), ("parent", 1), ("lane", 1)):
+            assert torch.equal(a.last_bufs[k][s][: n * w].cpu(),
+                               b.last_bufs[k][s][: n * w].cpu())

@@ -19,6 +19,8 @@ for name in names:
 import chip_smoke
 from pulsar_tlaplus_tpu_torch.kernels import build
 assert not build._libs, "a kernel library was loaded at import time"
+from pulsar_tlaplus_tpu_torch import native
+assert native._lib is None, "the native log store was loaded at import time"
 bad = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib."))]
 assert not bad, bad
 print(" ".join(names))
@@ -49,4 +51,7 @@ def test_port_imports_no_jax():
     for mod in ("utils.ckpt", "utils.faults", "utils.recovery"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
     for mod in ("parallel", "parallel.mesh", "engine.sharded_device"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("native", "engine.statelog", "engine.sharded",
+                "ops.hashtable", "utils.metrics"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names

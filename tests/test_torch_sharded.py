@@ -252,10 +252,21 @@ def test_route_overflow_recovers(n, slices, oracle):
                                                oracle.diameter)
 
 
+def _port_seed(c, **caps):
+    """The port model's ``host_seed``, held array-equal to the JAX
+    model's at the same caps."""
+    seed = _port(c).host_seed(**caps)
+    jseed = JModel(c).host_seed(**caps)
+    for a, b in zip(seed[:3], jseed[:3]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert list(seed[3]) == list(jseed[3])
+    return seed
+
+
 def test_host_seeded_run_counts(oracle):
-    """A host-enumerated prefix (the JAX model's ``host_seed``) loads onto
-    the mesh without changing counts."""
-    seed = JModel(PON).host_seed(max_level_states=40, max_total=120)
+    """A host-enumerated prefix (the port model's ``host_seed``, equal to
+    the JAX model's) loads onto the mesh without changing counts."""
+    seed = _port_seed(PON, max_level_states=40, max_total=120)
     assert len(seed[3]) > 1
     r = _ck(PON, n_devices=4, invariants=(), sub_batch=64,
             visited_cap=1 << 10).run(seed=seed)
@@ -265,8 +276,7 @@ def test_host_seeded_run_counts(oracle):
 
 @pytest.fixture(scope="module")
 def leak_seed():
-    return JModel(pe.SHIPPED_CFG).host_seed(max_level_states=300,
-                                            max_total=900)
+    return _port_seed(pe.SHIPPED_CFG, max_level_states=300, max_total=900)
 
 
 @pytest.fixture(scope="module")
@@ -331,6 +341,20 @@ def test_fp_bits_and_expand_chunk(fp_bits):
         for k, w in (("rows", one.W), ("parent", 1), ("lane", 1)):
             assert torch.equal(one.last_bufs[k][s][: n * w],
                                chunked.last_bufs[k][s][: n * w]), (k, s)
+
+
+def test_fp_bits_and_expand_chunk_match_jax():
+    """``fp_bits=96`` (three hashed columns: every owner changes) and
+    ``expand_chunk=64`` give every shard the JAX engine's rows and logs
+    at the same knobs."""
+    kw = dict(WIDE_KW, fp_bits=96, expand_chunk=64)
+    jck = jsd.ShardedDeviceChecker(JModel(WIDE), **kw)
+    jr = jck.run()
+    ck = _ck(WIDE, **kw)
+    r = ck.run()
+    assert (ck.K, jck.K) == (3, 3)
+    assert r.level_sizes == jr.level_sizes
+    _assert_same_shards(ck, jck)
 
 
 def test_fp_bits_and_expand_chunk_refused():

@@ -133,13 +133,12 @@ def test_kill_then_recover_sharded(tmp_path):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (("-sharded", "4", "-visited", "sort"),
-     "-visited sort is not ported yet (ROADMAP A14b)"),
-    (("-sharded", "4", "-sharded-dedup", "hash"),
-     "host-staged sharded driver (-sharded-engine host, -sharded-dedup "
-     "hash) is not ported yet (ROADMAP A14b)"),
-    (("-sharded", "4", "-sharded-engine", "host"),
-     "is not ported yet (ROADMAP A14b)"),
+    (("-visited", "sort", "-hbm-budget", "64M"),
+     "hbm_budget with visited_impl='sort' is unsupported"),
+    (("-engine", "host", "-hbm-budget", "64M"),
+     "-hbm-budget needs the device engine"),
+    (("-sharded-dedup", "hash"),
+     "-slices/-sharded-dedup require -sharded N"),
     (("-slices", "2"), "-slices/-sharded-dedup require -sharded N"),
     (("-sharded", "3", "-slices", "2"),
      "-sharded must be divisible by -slices"),
