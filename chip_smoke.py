@@ -112,6 +112,26 @@ in both dedup modes, card against CPU, and ``cli check -sharded 4
 -sharded-dedup hash``.  ``engines_launches`` counts phases 40-43 less
 the comparison runs of earlier paths among them.
 
+Phases 44-47 run this slice's telemetry (``obs/``), launch counters
+zeroed around them: 44 the scaled binding with a stream, a 0.5 s
+heartbeat and ``metrics_path``, and without them, in turns (the stream
+valid, its level records at phase 6's totals, a heartbeat line, host
+syncs and card syncs equal in all four runs, the attribution's
+expanded rows those of the levels); 45 the 253,361-state config's
+stream on the card and the CPU (level records, work units, flushes and
+result equal), the fused and stage work units, and a framed CLI run
+killed by ``PTT_FAULT=kill@level:8`` in a process of its own, whose
+stream has the fault record and whose resumed run's header names its
+frame; 46 the streams of a tiered run (cumulative ``spill`` records,
+K3 launched), ``-property`` (``sweep`` records), the 65,536-walker
+simulation, ``-sharded 4`` and ``-engine host``, ``-xprof`` on the
+scaled binding at levels 5:6 (a Chrome trace naming K1, K2 and H1),
+and ``trace``/``metrics``/``top``/``ledger`` over phases 44-45's
+streams; 47 ``scripts/torch_calibrate.py``'s unit costs on the card and
+a fused run's attribution beside the stage-timed seconds.
+``obs_launches`` counts phases 44-47 less their comparison runs
+without telemetry.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -129,6 +149,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import io
 import itertools
 import json
@@ -498,6 +519,11 @@ def main() -> int:
             CompactionModel,
         )
         from pulsar_tlaplus_tpu_torch.models import registry
+        from pulsar_tlaplus_tpu_torch.obs import attribution as obs_attribution
+        from pulsar_tlaplus_tpu_torch.obs import metrics as obs_metrics
+        from pulsar_tlaplus_tpu_torch.obs import report as obs_report
+        from pulsar_tlaplus_tpu_torch.obs import schema as obs_schema
+        from pulsar_tlaplus_tpu_torch.obs import trace as obs_trace
         from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
         from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
         from pulsar_tlaplus_tpu_torch.ops.dedup import KeySpec
@@ -3597,6 +3623,326 @@ def main() -> int:
             failures.append(f"43b: {name} never launched on the engines "
                             "path")
 
+    # ---- 44-47: run telemetry (obs/), launch counters zeroed around
+    # them; the comparison runs without telemetry stay off the count
+    kernels.reset_launches()
+    obs_off = collections.Counter()
+    obs_dir = tempfile.mkdtemp(prefix="ptt_obs_")
+    streams = {}
+
+    def obs_path(fn, *a):
+        """``fn(*a)``, a comparison run: its launches leave the count."""
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(*a)
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                obs_off[k] += v - before[k]
+
+    def stream_events(path):
+        errs = obs_schema.validate_stream(path)
+        if errs:
+            raise AssertionError(f"{path}: {errs[:3]}")
+        ev, bad = obs_report.load_events(path)
+        if bad:
+            raise AssertionError(f"{path}: {bad[:3]}")
+        return ev
+
+    def boundary_totals(ev):
+        return [e["distinct_states"] for e in ev
+                if e["event"] == "level" and not e.get("partial")]
+
+    def tel_scaled():
+        want = list(itertools.accumulate(untiered["scaled"][0]))
+        runs, beats = [], []
+        for i, on in enumerate((False, True, True, False)):
+            kw = dict(max_states=SCALED_TOTAL + 1)
+            if on:
+                s = os.path.join(obs_dir, f"scaled{i}.jsonl")
+                kw.update(telemetry=s, heartbeat_s=0.5,
+                          metrics_path=os.path.join(obs_dir,
+                                                    f"scaled{i}.metrics"))
+            ck = DeviceChecker(CompactionModel(scaled_cfg()), **kw)
+            window = ck.G
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                if on:
+                    r, cs = _card_syncs(torch, ck.run)
+                else:
+                    r, cs = obs_path(_card_syncs, torch, ck.run)
+            beats += [ln for ln in err.getvalue().splitlines()
+                      if ln.startswith("Progress(")]
+            if list(itertools.accumulate(r.level_sizes)) != want:
+                raise AssertionError(f"run {i}: level totals differ")
+            runs.append((on, r.wall_s, ck.last_stats["host_syncs"], cs,
+                         ck.last_stats))
+            if on:
+                streams.setdefault("scaled", s)
+        syncs = {(h, c) for _on, _w, h, c, _st in runs}
+        if len(syncs) != 1:
+            raise AssertionError(f"syncs differ with telemetry: {runs}")
+        ev = stream_events(streams["scaled"])
+        # level 1 (the initial states) has no record, as in the JAX
+        # engine's stream
+        if boundary_totals(ev) != want[1:]:
+            raise AssertionError(f"level records {boundary_totals(ev)}")
+        with open(os.path.join(obs_dir, "scaled1.metrics")) as f:
+            mrecs = [json.loads(ln) for ln in f]
+        if [m["distinct_states"] for m in mrecs] != want[1:]:
+            raise AssertionError("metrics_path records differ")
+        if not beats or not any(e["event"] == "progress" for e in ev):
+            raise AssertionError("no heartbeat line")
+        att = [e for e in ev if e["event"] == "attribution"][-1]["stages"]
+        res = [e for e in ev if e["event"] == "result"][-1]
+        sizes = res["level_sizes"]
+        # every level's frontier was expanded; a truncated run expanded
+        # whole windows of its last full level's frontier
+        if res["truncated"]:
+            extra = att["expand_rows"] - sum(sizes[:-2])
+            ok = 0 < extra <= sizes[-2] and (extra % window == 0
+                                             or extra == sizes[-2])
+        else:
+            ok = att["expand_rows"] == sum(sizes)
+        if not ok or att["append_rows"] != res["distinct_states"]:
+            raise AssertionError(f"attribution {att} vs level sizes "
+                                 f"{sizes}")
+        h, c = syncs.pop()
+        kinds = collections.Counter(e["event"] for e in ev)
+        return (f"stream valid ({dict(kinds)}); level totals = phase 6's; "
+                f"host_syncs {h} and card syncs {c} in all four runs; "
+                f"walls in turns (telemetry off/on/on/off): "
+                + ", ".join(f"{w:.4f}s" for _o, w, *_ in runs)
+                + f"; heartbeat: {beats[0]}; attribution {att}")
+
+    def tel_card_cpu():
+        notes = []
+        det = {}
+        for where, fuse in (("cuda", "level"), ("cpu", "level"),
+                            ("cuda", "stage")):
+            s = os.path.join(obs_dir, f"full_{where}_{fuse}.jsonl")
+            ck = DeviceChecker(CompactionModel(full_cfg), invariants=(),
+                               device=where, fuse=fuse, telemetry=s)
+            r = ck.run()
+            if (r.distinct_states, r.diameter) != (253361, 23):
+                raise AssertionError(f"{where} {fuse}: {r.distinct_states}")
+            ev = stream_events(s)
+            res = [e for e in ev if e["event"] == "result"][-1]
+            fl = [e for e in ev if e["event"] == "flush"]
+            det[where, fuse] = dict(
+                levels=[(e["level"], e["new_states"], e["distinct_states"],
+                         e["frontier"]) for e in ev if e["event"] == "level"],
+                work=[e for e in ev if e["event"] == "attribution"][-1][
+                    "stages"],
+                flushes=(len(fl), sum(e["flushes"] for e in fl)),
+                result={k: res[k] for k in (
+                    "distinct_states", "diameter", "level_sizes",
+                    "truncated", "violation")})
+            streams.setdefault(f"full_{fuse}", s)
+        if det["cuda", "level"] != det["cpu", "level"]:
+            raise AssertionError("card and CPU streams differ")
+        wf, ws = det["cuda", "level"]["work"], det["cuda", "stage"]["work"]
+        for k in ("expand_rows", "append_rows", "init_lanes"):
+            if wf[k] != ws[k]:
+                raise AssertionError(f"fused/stage {k}: {wf[k]} {ws[k]}")
+        a = CompactionModel(full_cfg).A
+        if (ws["probe_lanes"] != a * ws["expand_rows"] + ws["init_lanes"]
+                or wf["probe_lanes"] < ws["probe_lanes"]
+                or any(w["compact_elems"] != w["probe_lanes"]
+                       for w in (wf, ws))):
+            raise AssertionError(f"lane widths: fused {wf}, stage {ws}")
+        notes.append(f"253361/23 card = CPU (levels, work {wf}, flushes "
+                     f"{det['cpu', 'level']['flushes']}, result); stage work "
+                     f"{ws} (its own widths)")
+        # a framed run killed in a process of its own, then resumed here
+        frame = os.path.join(obs_dir, "kill.ckpt")
+        s1 = os.path.join(obs_dir, "killed.jsonl")
+        s2 = os.path.join(obs_dir, "resumed.jsonl")
+        env = dict(os.environ, PTT_FAULT="kill@level:8")
+        p = subprocess.run(
+            [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli", "check",
+             os.path.join(SPECS, "compaction.tla"), "-checkpoint", frame,
+             "-telemetry", s1], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=300)
+        if p.returncode != 137:
+            raise AssertionError(f"killed run: rc {p.returncode}\n"
+                                 f"{p.stderr[-2000:]}")
+        ev1, _ = obs_report.load_events(s1)
+        fault = [e for e in ev1 if e["event"] == "fault"]
+        frames = [e for e in ev1 if e["event"] == "ckpt_frame"]
+        if not fault or fault[-1]["kind"] != "kill" or not frames:
+            raise AssertionError(f"killed stream: {ev1[-3:]}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                           "-checkpoint", frame, "-recover",
+                           "-telemetry", s2])
+        ev2 = stream_events(s2)
+        hd = [e for e in ev2 if e["event"] == "run_header"][0]
+        if (rc, hd.get("resume_of"), hd.get("resume_frame_seq")) != (
+                0, ev1[0]["run_id"], frames[-1]["frame_seq"]) \
+                or "45198 distinct states" not in out.getvalue():
+            raise AssertionError(f"resumed: rc {rc}, header {hd}")
+        notes.append(f"kill@level:8 wrote fault {fault[-1]}; the resumed "
+                     f"header links resume_of {hd['resume_of']} frame "
+                     f"{hd['resume_frame_seq']}; 45198 states")
+        return "; ".join(notes)
+
+    def cli_stream(what, want, *argv, rc_ok=0):
+        """``cli`` with ``-telemetry``: the stream's events."""
+        s = os.path.join(obs_dir, f"{what}.jsonl")
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, "-telemetry", s])
+        if rc != rc_ok or want not in out.getvalue():
+            raise AssertionError(f"{what}: rc {rc}\n{out.getvalue()[-1500:]}")
+        return stream_events(s)
+
+    def tel_engines():
+        notes = []
+        spec = os.path.join(SPECS, "compaction.tla")
+        # phase 9's tiered 253,361-state run: windows small enough that
+        # the hot table evicts (K3)
+        kw = dict(invariants=(), sub_batch=4096, visited_cap=1 << 12)
+        b = tight_budget(DeviceChecker(CompactionModel(full_cfg),
+                                       hbm_budget="1T", **kw))
+        k3 = kernels.LAUNCHES["sieve_mask"]
+        s = os.path.join(obs_dir, "tiered.jsonl")
+        r = DeviceChecker(CompactionModel(full_cfg), hbm_budget=b,
+                          telemetry=s, **kw).run()
+        if (r.distinct_states, r.diameter) != (253361, 23):
+            raise AssertionError(f"tiered: {r.distinct_states}")
+        sp = [e for e in stream_events(s) if e["event"] == "spill"]
+        keys = ("keys_evicted", "rows_evicted", "bytes_raw",
+                "misses_resolved")
+        if not sp or kernels.LAUNCHES["sieve_mask"] == k3 or any(
+                a[k] > c[k] for a, c in zip(sp, sp[1:]) for k in keys):
+            raise AssertionError(f"tiered: {len(sp)} spill records")
+        notes.append(f"tiered: {len(sp)} cumulative spill records, K3 "
+                     f"{kernels.LAUNCHES['sieve_mask'] - k3} launches")
+        full = os.path.join(spec_dir, "compaction_full.cfg")
+        os.makedirs(spec_dir, exist_ok=True)
+        with open(os.path.join(SPECS, "compaction.cfg")) as f:
+            text = f.read()
+        with open(full, "w") as f:
+            f.write(text.replace("RetainNullKey = TRUE",
+                                 "RetainNullKey = FALSE").replace(
+                "ModelProducer = FALSE", "ModelProducer = TRUE"))
+        ev = cli_stream("property", "satisfied", "check", spec, "-config",
+                        full, "-property", "Termination", "-fairness",
+                        "wf_next")
+        sw = [e for e in ev if e["event"] == "sweep"]
+        if not sw or sw[-1]["chunk"] != sw[-1]["chunks"]:
+            raise AssertionError("property: no complete sweep")
+        notes.append(f"-property: {len(sw)} sweep records, "
+                     f"{sw[-1]['edges']} edges")
+        ev = cli_stream("sim", "walks", "simulate", "compaction",
+                        "-walkers", "65536")
+        sims = [e for e in ev if e["event"] == "sim"]
+        if not sims or sims[-1]["walkers"] != 65536:
+            raise AssertionError("simulate: no sim records")
+        notes.append(f"simulate 65536: {len(sims)} sim records, "
+                     f"{sims[-1]['steps']} steps")
+        ev = cli_stream("sharded", "45198 distinct", "check", spec,
+                        "-sharded", "4")
+        notes.append(f"-sharded 4: {len(ev)} records")
+        ev = cli_stream("host", "45198 distinct", "check", spec, "-engine",
+                        "host")
+        notes.append(f"-engine host: {len(ev)} records")
+        # the profiler window on the scaled binding, levels 5 and 6
+        scaled = os.path.join(spec_dir, "compaction_scaled.cfg")
+        with open(scaled, "w") as f:
+            f.write(text.replace("MessageSentLimit = 3",
+                                 "MessageSentLimit = 64")
+                    .replace("KeySpace = {1, 2}",
+                             "KeySpace = {1, 2, 3, 4, 5, 6, 7, 8}")
+                    .replace("MaxCrashTimes = 1", "MaxCrashTimes = 3")
+                    .replace("ModelProducer = FALSE", "ModelProducer = TRUE"))
+        xdir = os.path.join(obs_dir, "xprof")
+        t = time.time()
+        ev = cli_stream("xprof", "distinct states", "check", spec,
+                        "-config", scaled, "-maxstates",
+                        str(SCALED_TOTAL + 1), "-xprof", xdir,
+                        "-xprof-levels", "5:6", rc_ok=3)  # max_states
+        stop = [e for e in ev if e["event"] == "xprof"
+                and e["action"] == "stop"]
+        with open(stop[-1]["path"]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"}
+        syms = {k: any(k in n for n in names) for k in (
+            "member_kernel", "key_plane_kernel", "insert_tail_kernel")}
+        if not all(syms.values()):
+            raise AssertionError(f"xprof: kernel symbols {syms} among "
+                                 f"{len(names)} kernel names")
+        notes.append(f"-xprof 5:6: {len(names)} kernel names, K1/K2/H1 "
+                     f"present ({time.time() - t:.1f}s)")
+        # the readers over phases 44's and 45's streams
+        s44, s45 = streams["scaled"], streams["full_level"]
+        out = io.StringIO()
+        tr = os.path.join(obs_dir, "trace.json")
+        with contextlib.redirect_stdout(out):
+            rcs = [cli.main(["trace", s44, s45, "-o", tr]),
+                   cli.main(["metrics", "--stream", s44]),
+                   cli.main(["top", "--stream", s44, "--once"])]
+        text = out.getvalue()
+        expo = text.split("\n", 1)[1]
+        errs = (obs_trace.validate_trace(tr)
+                + obs_metrics.validate_exposition(
+                    expo[: expo.index("tpu-tlc top")]))
+        led = os.path.join(obs_dir, "ledger.jsonl")
+        with contextlib.redirect_stdout(out):
+            rcs += [cli.main(["ledger", "--ledger", led, "add", s44, s45]),
+                    cli.main(["ledger", "--ledger", led, "compare", s44,
+                              s45]),
+                    cli.main(["ledger", "--ledger", led, "gate",
+                              "--baseline", s44, "--current", s44])]
+        if rcs != [0] * 6 or errs:
+            raise AssertionError(f"readers: rcs {rcs}, {errs[:3]}")
+        notes.append("trace/metrics/top/ledger add|compare|gate rc 0 over "
+                     "phases 44-45's streams")
+        return "; ".join(notes)
+
+    def tel_calibrate():
+        spec = importlib.util.spec_from_file_location(
+            "torch_calibrate",
+            os.path.join(ROOT, "scripts", "torch_calibrate.py"))
+        calmod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(calmod)
+        cal, stage_ev = calmod.calibrate("full", sweep=True,
+                                         stream_dir=obs_dir)
+        s = os.path.join(obs_dir, "full_fused_attr.jsonl")
+        DeviceChecker(CompactionModel(full_cfg), invariants=(),
+                      telemetry=s).run()
+        rows = obs_attribution.attribute(stream_events(s), cal)
+        split = obs_report.stage_split(stage_ev)
+        cmp = []
+        for r in rows:
+            meas = (split.get(r["stage"]) or {}).get("device_s")
+            err = (f"{r['est_s'] / meas - 1:+.1%}" if meas else "n/a")
+            cmp.append(f"{r['stage']} est {r['est_s']}s vs stage-timed "
+                       f"{meas and round(meas, 4)}s ({err})")
+        print(f"[47 cuda unit costs] {smi}: {json.dumps(cal['units'])} "
+              f"(rtt_s {cal['rtt_s']})", flush=True)
+        return "; ".join(cmp)
+
+    _phase("44 telemetry on the main path (scaled, heartbeat, syncs)",
+           tel_scaled, failures)
+    _phase("45 the stream card against CPU, fused against stage, kill "
+           "and resume", tel_card_cpu, failures)
+    _phase("46 every engine's stream, -xprof, the readers", tel_engines,
+           failures)
+    _phase("47 calibration and attribution on the card", tel_calibrate,
+           failures)
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    obs_launches = {k: v - obs_off[k] for k, v in kernels.LAUNCHES.items()}
+    print(f"[47b launches on the telemetry path] {obs_launches} "
+          f"(comparison runs left out: {dict(obs_off)})", flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if obs_launches[name] <= 0:
+            failures.append(f"47b: {name} never launched on the telemetry "
+                            "path")
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -3639,6 +3985,7 @@ def main() -> int:
             survivability_launches=surv_launches[name],
             sharded_launches=shard_launches[name],
             engines_launches=engines_launches[name],
+            obs_launches=obs_launches[name],
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

@@ -9,13 +9,21 @@
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
         [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
         [-checkpoint PATH [-recover]] [-metrics FILE] [-chunk N]
+        [-telemetry FILE] [-progress SEC] [-xprof DIR [-xprof-levels LO:HI]]
         [-engine device|host] [-visited fpset|sort] [-compact logshift|sort]
         [-sharded N [-slices S] [-sharded-engine device|host]
          [-sharded-dedup sort|hash] | -workers N]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
-        [-checkpoint PATH [-recover]]
+        [-checkpoint PATH [-recover]] [-telemetry FILE] [-progress SEC]
+    python -m pulsar_tlaplus_tpu_torch.cli trace STREAM... [-o FILE]
+    python -m pulsar_tlaplus_tpu_torch.cli metrics --stream FILE
+    python -m pulsar_tlaplus_tpu_torch.cli top --stream FILE...
+        [--interval SEC] [--once]
+    python -m pulsar_tlaplus_tpu_torch.cli ledger [--ledger FILE]
+        add FILE... | list [--key K] | show REF | compare REF REF |
+        gate [--current REF] [--baseline REF] [--threshold REL] [--keys K...]
 
 ``check`` runs exhaustive BFS of the named spec on the GPU (``-cpu``: on
 the CPU) and prints a TLC-style summary.  A module of the registry runs
@@ -48,7 +56,15 @@ in the JAX CLI); ``-metrics FILE`` appends one JSON record a level.
 every 5 levels and at any truncation, the liveness sweep every 5
 chunks, the simulator every 8 segments), and SIGTERM/SIGINT then stops
 the run with a frame; ``-recover`` continues from the frame (and refuses
-when there is none).  Exit code 0 when the search completes clean (or
+when there is none).  ``-telemetry FILE`` writes every engine's
+versioned JSONL event stream (``obs/telemetry.py``), ``-progress SEC``
+a TLC-style progress line that often (neither reads the device), and
+``-xprof DIR`` a ``torch.profiler`` Chrome trace of the single-device
+engine's ``-xprof-levels`` window.  ``trace`` turns streams into a
+Perfetto trace, ``metrics --stream`` into Prometheus text, ``top
+--stream`` into a dashboard, and ``ledger`` keeps the cross-run
+regression ledger; their daemon and fleet modes (no ``--stream``,
+``--aggregate``, ``--dispatch``) wait for those tiers and exit 2.  Exit code 0 when the search completes clean (or
 the property holds, or the walks found nothing), 1 on a violation, a
 deadlock or a violated property (or an error), 3 when a budget, device
 memory or a preemption truncated the search (no verdict).
@@ -246,6 +262,8 @@ def _liveness(args, model, goal):
         device="cpu" if args.cpu else None,
         progress=True,
         checkpoint_path=args.checkpoint,
+        telemetry=args.telemetry,
+        heartbeat_s=args.progress,
     )
 
 
@@ -303,6 +321,8 @@ def _simulate(args, model, constants, invariants, n_walkers: int,
             device="cpu" if args.cpu else None,
             progress=True,
             checkpoint_path=args.checkpoint,
+            telemetry=args.telemetry,
+            heartbeat_s=args.progress,
         )
         if header is not None:
             header(sim.device)
@@ -479,10 +499,14 @@ def _check_interp(args, module, tlc_cfg, invariants) -> int:
             f"({'-interp forced' if args.interp else 'module not in the compiled registry'}); "
             "the interpreter path is exhaustive BFS only"
         )
-    if args.checkpoint or args.recover:
+    if (
+        args.checkpoint or args.recover or args.metrics
+        or args.telemetry or args.progress or args.xprof
+    ):
         sys.exit(
-            "tpu-tlc: -checkpoint/-recover are not supported on the "
-            "generic-interpreter path yet"
+            "tpu-tlc: -checkpoint/-recover/-metrics/-telemetry/"
+            "-progress/-xprof are not supported on the generic-"
+            "interpreter path yet"
         )
     if tlc_cfg.properties:
         print(
@@ -518,6 +542,17 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
     first line."""
     from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
 
+    if args.xprof and (
+        args.liveness_property or args.simulate or args.sharded
+        or args.engine != "device"
+    ):
+        # the level-windowed profiler exists only on the single-device
+        # engine: never let a user wait out a run believing otherwise
+        print(
+            "tpu-tlc: note: -xprof is only supported on the "
+            "single-device engine; no trace will be captured",
+            file=sys.stderr,
+        )
     if args.liveness_property:
         try:
             lck = _liveness(args, model, args.liveness_property)
@@ -548,6 +583,8 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
                 metrics_path=args.metrics,
                 checkpoint_path=args.checkpoint,
                 device="cpu" if args.cpu else None,
+                telemetry=args.telemetry,
+                heartbeat_s=args.progress,
             )
         else:
             ck = DeviceChecker(
@@ -565,6 +602,10 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
                 metrics_path=args.metrics,
                 visited_impl=args.visited,
                 compact_impl=args.compact,
+                telemetry=args.telemetry,
+                heartbeat_s=args.progress,
+                xprof_dir=args.xprof,
+                xprof_levels=args.xprof_window,
                 **({"sub_batch": args.chunk} if args.chunk else {}),
             )
     except (ValueError, RuntimeError) as e:
@@ -613,6 +654,8 @@ def _check_sharded(args, model, constants, invariants, header) -> int:
                 metrics_path=args.metrics,
                 checkpoint_path=args.checkpoint,
                 progress=True,
+                telemetry=args.telemetry,
+                heartbeat_s=args.progress,
             )
         else:
             ck = ShardedDeviceChecker(
@@ -629,6 +672,8 @@ def _check_sharded(args, model, constants, invariants, header) -> int:
                 device=dev,
                 visited_impl=args.visited,
                 compact_impl=args.compact,
+                telemetry=args.telemetry,
+                heartbeat_s=args.progress,
             )
     except (ValueError, RuntimeError) as e:
         sys.exit(f"tpu-tlc: {e}")
@@ -717,12 +762,307 @@ def _sim_args(p) -> None:
                    "swarm (default: one depth round)")
 
 
+def _tel_args(p) -> None:
+    """The telemetry options ``check`` and ``simulate`` share."""
+    p.add_argument(
+        "-telemetry", metavar="FILE",
+        help="write the structured run-event stream (versioned JSONL: "
+        "run header, per-level progress, per-flush fpset metrics, "
+        "checkpoint frames, recovery/fault events, final result) to "
+        "this file")
+    p.add_argument(
+        "-progress", type=float, default=None, metavar="SEC",
+        help="TLC-style periodic progress line every SEC seconds "
+        "(default off), reported from the last host snapshot: it adds "
+        "no device syncs")
+
+
 def _ckpt_args(p) -> None:
     p.add_argument("-checkpoint", default=None, metavar="PATH",
                    help="write resumable checkpoint frames to PATH "
                    "(SIGTERM/SIGINT then stops the run with a frame)")
     p.add_argument("-recover", action="store_true",
                    help="resume the run from the -checkpoint frame")
+
+
+# ------------------------------------------------------ stream readers
+
+DAEMON_REFUSAL = ("needs the checker daemon: not ported yet "
+                  "(ROADMAP A15d/A15e)")
+
+
+def _load_stream(path: str):
+    """``(events, rc)``: a stream's events with its parse warnings
+    printed, or rc 2 when it cannot be read."""
+    from pulsar_tlaplus_tpu_torch.obs import report
+
+    try:
+        events, errors = report.load_events(path)
+    except OSError as e:
+        print(f"tpu-tlc: {e}", file=sys.stderr)
+        return None, 2
+    for e in errors:
+        print(f"tpu-tlc: {path}: WARNING: {e}", file=sys.stderr)
+    return events, 0
+
+
+def _cmd_trace(args) -> int:
+    """Telemetry stream(s) -> Perfetto-loadable Chrome trace JSON."""
+    from pulsar_tlaplus_tpu_torch.obs import trace
+
+    # label streams by basename stem; name collisions pull in the
+    # parent directory (``jobs/*/events.jsonl``)
+    stems = [os.path.splitext(os.path.basename(p))[0] for p in args.stream]
+
+    def label(i: int) -> str:
+        if stems.count(stems[i]) == 1:
+            return stems[i]
+        parent = os.path.basename(
+            os.path.dirname(os.path.abspath(args.stream[i])))
+        return f"{parent}/{stems[i]}" if parent else stems[i]
+
+    streams = []
+    for i, p in enumerate(args.stream):
+        events, rc = _load_stream(p)
+        if rc:
+            return rc
+        if not events:
+            print(f"tpu-tlc: {p}: no telemetry events", file=sys.stderr)
+            return 2
+        streams.append((label(i), events))
+    tr = trace.write_trace(streams, args.output)
+    n = sum(1 for e in tr["traceEvents"] if e.get("ph") != "M")
+    print(
+        f"wrote {args.output}: {n} event(s) from {len(streams)} "
+        "stream(s) — open in https://ui.perfetto.dev"
+    )
+    return 0
+
+
+def _cmd_metrics(args) -> int:
+    """Prometheus text metrics derived from a telemetry stream tail
+    (``--stream``); scraping a daemon waits for its tier."""
+    from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+
+    if not args.stream:
+        print(f"tpu-tlc: metrics without --stream {DAEMON_REFUSAL}",
+              file=sys.stderr)
+        return 2
+    events, rc = _load_stream(args.stream)
+    if rc:
+        return rc
+    sys.stdout.write(metrics_mod.render_stream_metrics(events))
+    return 0
+
+
+def _cmd_top(args) -> int:
+    """The dashboard over tailed telemetry stream(s) (``--stream``);
+    ``--once`` renders one frame (no clear codes) and exits.  Polling a
+    daemon or a dispatcher waits for those tiers."""
+    from pulsar_tlaplus_tpu_torch.obs import top as top_mod
+
+    if not args.stream:
+        print(f"tpu-tlc: top without --stream {DAEMON_REFUSAL}",
+              file=sys.stderr)
+        return 2
+    model = top_mod.TopModel(", ".join(args.stream))
+    try:
+        while True:
+            try:
+                text = top_mod.tail_stream_frame(args.stream, model)
+            except OSError as e:
+                print(f"tpu-tlc: top failed: {e}", file=sys.stderr)
+                return 2
+            if args.once:
+                print(text)
+                return 0
+            sys.stdout.write(top_mod.CLEAR + text + "\n")
+            sys.stdout.flush()
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        print()
+        return 0
+
+
+def _cmd_ledger(args) -> int:
+    """The cross-run regression ledger (``obs/ledger.py``): ingest BENCH
+    artifacts and telemetry streams into an append-only JSONL ledger,
+    render trajectories and per-run deltas, and gate regressions."""
+    import json
+
+    from pulsar_tlaplus_tpu_torch.obs import ledger
+
+    path = args.ledger
+
+    def _rec_of(ref: str, recs):
+        # a REF naming an existing file is ingested on the fly
+        if os.path.exists(ref):
+            return ledger.record_from_file(ref)
+        return ledger.resolve(recs, ref)
+
+    if args.ledger_cmd == "add":
+        recs = []
+        for p in args.files:
+            try:
+                recs.append(ledger.record_from_file(p))
+            except (OSError, ValueError, json.JSONDecodeError) as e:
+                print(f"tpu-tlc: {p}: {e}", file=sys.stderr)
+                return 2
+        added = ledger.append(path, recs)
+        print(
+            f"ingested {added} new record(s) of {len(recs)} into "
+            f"{path} ({len(ledger.load(path))} total)"
+        )
+        return 0
+    recs = ledger.load(path)
+    if args.ledger_cmd == "list":
+        print(ledger.render_list(recs, key=args.key))
+        return 0
+    try:
+        if args.ledger_cmd == "show":
+            print(ledger.render_show(_rec_of(args.ref, recs)))
+            return 0
+        if args.ledger_cmd == "compare":
+            a = _rec_of(args.ref_a, recs)
+            b = _rec_of(args.ref_b, recs)
+            print(ledger.render_compare(a, b))
+            return 0
+        if args.ledger_cmd == "gate":
+            return _ledger_gate(args, recs, _rec_of)
+    except (KeyError, OSError, ValueError, json.JSONDecodeError) as e:
+        # exit 2 (an input failure): for ``gate`` a malformed file must
+        # never read as exit 1, "regression found"
+        msg = e.args[0] if isinstance(e, KeyError) else str(e)
+        print(f"tpu-tlc: {msg}", file=sys.stderr)
+        return 2
+    return 2
+
+
+def _ledger_gate(args, recs, rec_of) -> int:
+    from pulsar_tlaplus_tpu_torch.obs import ledger
+
+    if args.current:
+        cur = rec_of(args.current, recs)
+    elif recs:
+        cur = recs[-1]
+    else:
+        print("tpu-tlc: empty ledger, nothing to gate", file=sys.stderr)
+        return 2
+    if args.baseline:
+        base = rec_of(args.baseline, recs)
+    else:
+        # the newest record BEFORE the current one with the same config
+        # key, profile context and warm context
+        cut = next((i for i, r in enumerate(recs)
+                    if r.get("digest") == cur.get("digest")), len(recs))
+        base = next(
+            (r for r in reversed(recs[:cut])
+             if r.get("key") == cur.get("key")
+             and ledger.baseline_matches_profile(r, args.profile, cur)
+             and ledger.baseline_matches_warm(r, cur)),
+            None,
+        )
+        if base is None:
+            print(
+                "tpu-tlc: no baseline with a matching config "
+                f"key, profile context ({args.profile!r}), "
+                "and warm context "
+                f"({ledger.warm_of(cur)!r}) in the ledger "
+                "(pass --baseline REF)",
+                file=sys.stderr,
+            )
+            return 2
+    keys = tuple(args.keys) if args.keys else None
+    violations = ledger.gate(base, cur, threshold=args.threshold, keys=keys)
+    print(
+        f"baseline {base.get('source')} "
+        f"({base.get('digest', '?')[:8]}) vs current "
+        f"{cur.get('source')} ({cur.get('digest', '?')[:8]})"
+    )
+    print(ledger.render_gate(violations))
+    return 1 if violations else 0
+
+
+def _reader_parsers(sub) -> None:
+    """The ``trace``, ``metrics``, ``top`` and ``ledger`` subcommands."""
+    ptr = sub.add_parser(
+        "trace",
+        help="convert telemetry stream(s) into Perfetto-loadable Chrome "
+        "trace JSON: BFS levels, frame stalls, sweep chunks, daemon job "
+        "slices and fleet hops on one timeline",
+    )
+    ptr.add_argument("stream", nargs="+", help="telemetry JSONL file(s)")
+    ptr.add_argument("-o", "--output", default="trace.json",
+                     help="output trace file (default trace.json)")
+    pm = sub.add_parser(
+        "metrics",
+        help="Prometheus text metrics derived from a stream tail "
+        "(--stream)",
+    )
+    pm.add_argument("--stream", default=None, metavar="FILE",
+                    help="derive metrics from this telemetry JSONL")
+    pm.add_argument("--aggregate", action="store_true",
+                    help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+    pt = sub.add_parser(
+        "top",
+        help="dashboard: job table, rate sparklines, status line — "
+        "tailing stream(s) (--stream)",
+    )
+    pt.add_argument("--stream", action="append", default=None,
+                    metavar="FILE",
+                    help="tail telemetry JSONL file(s) (repeatable)")
+    pt.add_argument("--interval", type=float, default=2.0, metavar="SEC",
+                    help="refresh interval (default 2s)")
+    pt.add_argument("--once", action="store_true",
+                    help="render one frame (no ANSI clear) and exit")
+    pt.add_argument("--dispatch", action="store_true",
+                    help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+    pl = sub.add_parser(
+        "ledger",
+        help="cross-run regression ledger: ingest BENCH_*.json artifacts "
+        "and telemetry streams into an append-only JSONL ledger, render "
+        "trajectories and deltas, gate regressions",
+    )
+    pl.add_argument("--ledger", default="LEDGER.jsonl", metavar="FILE",
+                    help="ledger file (append-only JSONL; default "
+                    "./LEDGER.jsonl)")
+    lsub = pl.add_subparsers(dest="ledger_cmd", required=True)
+    pla = lsub.add_parser("add",
+                          help="ingest artifacts/streams (idempotent by "
+                          "digest)")
+    pla.add_argument("files", nargs="+",
+                     help="BENCH_*.json artifacts and/or telemetry "
+                     ".jsonl streams")
+    pll = lsub.add_parser("list",
+                          help="trajectory table of every ledger record")
+    pll.add_argument("--key", default=None,
+                     help="only records with this config key")
+    pls = lsub.add_parser("show", help="every key of one record")
+    pls.add_argument("ref", help="digest prefix, source name, 1-based "
+                     "index, or a file path (ingested on the fly)")
+    plc = lsub.add_parser("compare",
+                          help="per-key delta table between two runs")
+    plc.add_argument("ref_a", help="baseline record REF (or file path)")
+    plc.add_argument("ref_b", help="current record REF (or file path)")
+    plg = lsub.add_parser(
+        "gate",
+        help="exit 1 when the current run regresses past the threshold "
+        "vs its baseline (same config key by default)",
+    )
+    plg.add_argument("--current", default=None,
+                     help="current record REF or file path (default: "
+                     "newest ledger record)")
+    plg.add_argument("--baseline", default=None,
+                     help="baseline record REF or file path (default: "
+                     "newest earlier record with the same config key)")
+    plg.add_argument("--threshold", type=float, default=0.1, metavar="REL",
+                     help="relative regression tolerance (default 0.10 = "
+                     "10%%)")
+    plg.add_argument("--keys", nargs="*", default=None,
+                     help="gated keys (default: every known gate key)")
+    plg.add_argument("--profile", default="same", metavar="CTX",
+                     help="baseline profile context: same (default), "
+                     "none, any, or a profile-sig prefix")
 
 
 def main(argv=None) -> int:
@@ -786,6 +1126,15 @@ def main(argv=None) -> int:
                     "chunk (host engines, default 4096) expands")
     pc.add_argument("-metrics", default=None, metavar="FILE",
                     help="append per-level JSONL metrics to FILE")
+    _tel_args(pc)
+    pc.add_argument(
+        "-xprof", metavar="DIR",
+        help="write a torch.profiler Chrome trace of the -xprof-levels "
+        "window of the single-device engine into DIR")
+    pc.add_argument(
+        "-xprof-levels", metavar="LO:HI", default=None,
+        help="BFS level window for -xprof (e.g. 6:7; default: the whole "
+        "run)")
     pc.add_argument(
         "-fuse", choices=("level", "stage"), default="level",
         help="level (default): the fused level — a level's windows run "
@@ -848,8 +1197,24 @@ def main(argv=None) -> int:
     ps.add_argument("-cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
     _ckpt_args(ps)
+    _tel_args(ps)
+    _reader_parsers(sub)
     args = p.parse_args(argv)
-    return _cmd_simulate(args) if args.cmd == "simulate" else _check(args)
+    readers = {"trace": _cmd_trace, "metrics": _cmd_metrics,
+               "top": _cmd_top, "ledger": _cmd_ledger}
+    if args.cmd in readers:
+        return readers[args.cmd](args)
+    if args.cmd == "simulate":
+        return _cmd_simulate(args)
+    args.xprof_window = None
+    if args.xprof_levels:
+        from pulsar_tlaplus_tpu_torch.obs.telemetry import parse_level_window
+
+        try:
+            args.xprof_window = parse_level_window(args.xprof_levels)
+        except ValueError as e:
+            sys.exit(f"tpu-tlc: -xprof-levels: {e}")
+    return _check(args)
 
 
 if __name__ == "__main__":

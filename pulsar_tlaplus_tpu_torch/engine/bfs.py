@@ -30,7 +30,7 @@ from __future__ import annotations
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,7 @@ import torch
 from pulsar_tlaplus_tpu_torch.engine import core
 from pulsar_tlaplus_tpu_torch.engine.statelog import FileLog, MemoryLog
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
 from pulsar_tlaplus_tpu_torch.ops import fpset, hashtable
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, metrics
@@ -80,7 +81,9 @@ ENGINE_SIG = "bfs_host_torch_r1"
 
 class Checker:
     """BFS checker for a batched model with a host-driven level loop, on
-    one device (``cuda`` unless ``device`` names another)."""
+    one device (``cuda`` unless ``device`` names another).  ``telemetry``
+    takes the run's JSONL stream, ``heartbeat_s`` prints a progress line
+    that often."""
 
     def __init__(
         self,
@@ -99,6 +102,8 @@ class Checker:
         state_log_path: Optional[str] = None,
         dedup: str = "hash",
         device=None,
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
     ):
         if dedup not in ("hash", "sort"):
             raise ValueError(f"dedup must be 'hash' or 'sort': {dedup}")
@@ -129,6 +134,14 @@ class Checker:
         self.last_run_state: Optional[_RunState] = None
         self._cap0 = visited_cap
         self._ckpt_frames = 0
+        # telemetry (``obs/telemetry.py``): a stream a run, and the
+        # heartbeat from the level snapshot
+        self._telemetry_arg = telemetry
+        self.heartbeat_s = heartbeat_s
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
+        self._resume_meta: Dict[str, object] = {}
 
     # ------------------------------------------------------------ device
 
@@ -243,6 +256,18 @@ class Checker:
         """One record a level: ``frontier`` the states expanded,
         ``new_states`` the states found (the JAX host engine's keys)."""
         wall = time.time() - rs.t0
+        self._snap.update(level=len(rs.level_sizes),
+                          frontier=int(len(rs.frontier)),
+                          distinct_states=rs.n_total)
+        self.tel.emit(
+            "level",
+            level=len(rs.level_sizes),
+            new_states=int(level_count),
+            distinct_states=rs.n_total,
+            frontier=int(len(rs.frontier)),
+            wall_s=round(wall, 3),
+            states_per_sec=round(rs.n_total / max(wall, 1e-9), 1),
+        )
         metrics.append(self.metrics_path, {
             "level": len(rs.level_sizes),
             "new_states": level_count,
@@ -281,20 +306,36 @@ class Checker:
         else:
             for i, c in enumerate(rs.vk):
                 arrays[f"vk{i}"] = c.cpu().numpy().view(np.uint32)
-        ckpt.save_frame(
+        t = time.perf_counter()
+        nbytes, write_s, retries = ckpt.save_frame(
             self.checkpoint_path, self._config_sig(),
             dict(arrays, n_visited=np.int64(rs.n_visited),
                  level_sizes=np.asarray(rs.level_sizes, np.int64),
                  frontier=rs.frontier, frontier_gids=rs.frontier_gids),
             wall_s=time.time() - rs.t0,
             meta={"frame_seq": self._ckpt_frames + 1,
-                  "level": len(rs.level_sizes), "engine": "bfs_host"},
+                  "level": len(rs.level_sizes), "engine": "bfs_host",
+                  "run_id": self._run_id},
         )
         self._ckpt_frames += 1
+        self._ckpt_bytes += nbytes
+        self._ckpt_write_s += time.perf_counter() - t
+        self._ckpt_retries += retries
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._ckpt_frames,
+            bytes=nbytes,
+            write_s=round(write_s, 3),
+            stall_s=round(time.perf_counter() - t, 3),
+            retries=retries,
+            level=len(rs.level_sizes),
+            distinct_states=rs.n_total,
+        )
 
     def _restore(self, rs) -> None:
         d = ckpt.load_frame(self.checkpoint_path, self._config_sig(),
                             what="model configuration")
+        self._resume_meta = ckpt.frame_meta(d)
         rs.t0 = time.time() - float(d["wall_s"])
         if self.dedup_mode == "hash":
             self._cap = int(d["fp_tcap"])
@@ -328,9 +369,27 @@ class Checker:
     def run(self, resume: bool = False) -> CheckerResult:
         """Check the model; ``resume=True`` continues the
         ``checkpoint_path`` frame (wall time cumulative)."""
+        self._resume_meta = {}
+        self._ckpt_frames = self._ckpt_bytes = self._ckpt_retries = 0
+        self._ckpt_write_s = 0.0
+        with obs.run_scope(self, self._telemetry_arg, self.heartbeat_s,
+                           self.max_states):
+            return self._run(resume)
+
+    def _emit_header(self, resume: bool) -> None:
+        obs.emit_header(
+            self.tel, self.device, resume, self._resume_meta,
+            engine="bfs_host",
+            visited_impl=self.dedup_mode,
+            config_sig=self._config_sig(),
+            mode="check",
+            max_states=self.max_states,
+            invariants=list(self.invariant_names),
+        )
+
+    def _run(self, resume: bool) -> CheckerResult:
         if self.device.type == "cuda":
             kernels.selftest(self.device)  # K0; builds the kernels
-        self._ckpt_frames = 0
         self._aids = torch.from_numpy(
             np.asarray(self.model.action_ids, np.int32)).to(self.device)
         ckpt.cleanup_stale_tmp(self.checkpoint_path)
@@ -343,7 +402,9 @@ class Checker:
             self._log(f"resumed at level {len(rs.level_sizes)}: "
                       f"{rs.n_total} states, frontier {len(rs.frontier)}")
             metrics.rewind(self.metrics_path, len(rs.level_sizes))
+            self._emit_header(resume=True)
             return self._bfs_loop(rs)
+        self._emit_header(resume=False)
         self._cap = self._cap0
         rs.vk = self._empty_visited(self._cap)
         if self.dedup_mode == "hash":
@@ -380,6 +441,26 @@ class Checker:
             res.violation_gid = gid
             res.trace, res.trace_actions = core.build_log_trace(
                 self.model, gid, rs.log)
+        self.tel.emit(
+            "result",
+            distinct_states=rs.n_total,
+            diameter=len(rs.level_sizes),
+            wall_s=round(wall, 3),
+            states_per_sec=round(rs.n_total / max(wall, 1e-9), 1),
+            truncated=truncated,
+            stop_reason=res.stop_reason,
+            violation=res.violation,
+            violation_gid=res.violation_gid,
+            deadlock=res.deadlock,
+            level_sizes=[int(x) for x in rs.level_sizes],
+            stats={
+                "ckpt_frames": self._ckpt_frames,
+                "ckpt_bytes": self._ckpt_bytes,
+                "ckpt_write_s": round(self._ckpt_write_s, 3),
+                "ckpt_retries": self._ckpt_retries,
+                "visited_cap": self._cap,
+            },
+        )
         return res
 
     def _insert_initial(self, rs) -> Optional[CheckerResult]:

@@ -139,12 +139,39 @@ and goes on at degraded capacity (growth headroom one window,
 sites of ``utils/faults.py`` (``level``, ``flush``, ``frame``,
 ``spill``) are polled on the host.  With no ``checkpoint_path`` the
 level loop reads the device no more often than without these features.
+
+**Telemetry** (``telemetry``, ``heartbeat_s``, ``xprof_dir``; the JAX
+engine's stream, record for record: ``obs/telemetry.py``).  Every
+record rides a read the loop already makes: the fused level's
+``_lv_read`` carries the whole flush-metrics vector and the work vector
+in its one ``.tolist()``, the stage loop's flush read the flush
+metrics; the heartbeat thread reports from ``_snap``, the host's last
+snapshot, and never touches a tensor.  One ``fuse`` record is written a
+fused pass (``_lv_pass``: a ramp batch or one whole level between two
+boundary reads).  The JAX ``fuse`` record is one XLA dispatch of the
+level megakernel; a pass here is a host loop of many launches with the
+same reads at its ends, so ``dispatches`` is always 1 and counts passes.
+
+**Work units** (``ops/fpset.wkm_update``; the JAX definitions): the
+fused level adds a window's units to an int64 device vector, the stage
+loop adds them on the host.  ``expand_rows`` (the live frontier rows a
+window expands), ``append_rows`` (new states) and ``init_lanes`` are
+equal in both loops and equal the JAX engine's.  ``probe_lanes`` and
+``compact_elems`` are the lanes a flush presents, which in the JAX
+engine is the fixed accumulator width.  Here a window's flush presents
+its own lanes: the stage loop exactly the window's frontier rows times
+``A`` (or its initial states), the fused level the same except in the
+ramp, whose window is padded to the host's bound on the frontier (and
+runs as a no-op once the batch ends early).  So the fused level presents
+at least the stage loop's lanes, and ``groups`` counts each loop's own
+flushes.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -155,6 +182,8 @@ import torch
 from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
 from pulsar_tlaplus_tpu_torch.engine.core import build_trace
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
+from pulsar_tlaplus_tpu_torch.obs.telemetry import emit_result
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_rows, validate_impl
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, KeySpec, merge_lanes
@@ -187,6 +216,9 @@ RAMP_SPEC_LANES = 1 << 16
 # a time-budgeted fused level reads the device at least this often (in
 # windows): the JAX engine's max(8 * group, 32) flush groups
 TIMED_SYNC_EVERY = 32
+# the work vector's units, in its order (ops/fpset.py)
+WKM_KEYS = ("expand_rows", "probe_lanes", "compact_elems", "append_rows",
+            "groups")
 # the frame format's engine revision (a frame of another engine, the
 # JAX package's included, is refused)
 ENGINE_SIG = "device_bfs_torch_r1"
@@ -251,6 +283,12 @@ class DeviceChecker:
     rows (plus one append window).  ``checkpoint_path`` writes a frame
     every ``checkpoint_every`` levels; ``run(resume=True)`` continues
     from it.
+
+    ``telemetry`` (a path, or an ``obs.telemetry.Telemetry`` the caller
+    keeps) takes the run's JSONL event stream; ``heartbeat_s`` prints a
+    TLC-style progress line that often from the last host snapshot;
+    ``xprof_dir`` writes a ``torch.profiler`` Chrome trace of the levels
+    ``xprof_levels=(lo, hi)`` (default: the whole run) there.
     """
 
     def __init__(
@@ -284,6 +322,10 @@ class DeviceChecker:
         seed_cap: Optional[int] = None,
         hbm_headroom: Optional[float] = None,
         miss_batch: Optional[int] = None,
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
+        xprof_dir: Optional[str] = None,
+        xprof_levels: Optional[Tuple[int, int]] = None,
     ):
         if visited_impl not in ("fpset", "sort"):
             raise ValueError(
@@ -386,6 +428,39 @@ class DeviceChecker:
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.rec = recovery.RecoveryState(checkpoint_path)
         self._watcher = None
+        # telemetry: the stream opens a run with a fresh run_id; the
+        # heartbeat reports from ``_snap``, the last host snapshot, so
+        # neither reads the device
+        self._telemetry_arg = telemetry
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
+        self.heartbeat_s = heartbeat_s
+        self.xprof_dir = xprof_dir
+        self.xprof_levels = (tuple(int(x) for x in xprof_levels)
+                             if xprof_levels else None)
+        self._prof = None
+        # PTT_STAGE_TIMING=1: synchronize after every stage and charge
+        # its wall to ``stage_<name>_s`` (serializes the loop; each
+        # drain pays one round trip, which the report subtracts via
+        # ``rtt_s``).  The counts ``stage_<name>_n`` ride regardless.
+        self._stage_timing = os.environ.get(
+            "PTT_STAGE_TIMING", "0") not in ("", "0")
+        self._reset_telemetry()
+
+    def _reset_telemetry(self) -> None:
+        """A run's telemetry state: work units, stage counters, the
+        flush-record baseline, the profiler window."""
+        self._work: Dict[str, int] = {}
+        self._stages: Dict[str, float] = {}
+        self._stage_t = time.perf_counter()
+        self._fpm_host = self._fpm_prev = [0] * fpset.FPM_N
+        self._wkm_host = [0] * fpset.WKM_N
+        self._compact_prev, self._compact_prev_s = 0, 0.0
+        self._spill_mark, self._spill_degraded_emitted = 0, False
+        self._resume_meta: Dict[str, object] = {}
+        self._rtt_s = None
+        self._xprof_done = False
 
     # ------------------------------------------------- tiered-store sizing
 
@@ -463,6 +538,8 @@ class DeviceChecker:
                                  device=dev)
         self._fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64,
                                 device=dev)
+        self._wkm = torch.zeros((fpset.WKM_N,), dtype=torch.int64,
+                                device=dev)
         self._rehash_failed = torch.zeros((), dtype=torch.int64, device=dev)
         if self.tiered:
             self._gen = torch.zeros((self.TCAP0 + 1,), dtype=torch.int32,
@@ -472,7 +549,7 @@ class DeviceChecker:
         """Drop every device tensor of the run (before a rebuild from a
         frame), and PyTorch's cache of the freed blocks."""
         for attr in ("_tcols", "_claims", "_rows", "_parent", "_lane",
-                     "_gen", "_fpm", "_rehash_failed", "_nv_t", "_dead_t",
+                     "_gen", "_fpm", "_wkm", "_rehash_failed", "_nv_t", "_dead_t",
                      "_viol_t"):
             setattr(self, attr, None)
         self.last_bufs = {}
@@ -776,6 +853,168 @@ class DeviceChecker:
         self._host_wait_s += time.perf_counter() - t
         return out
 
+    # ------------------------------------------------------ telemetry
+
+    def _stage_open(self) -> None:
+        """Start the stage clock (PTT_STAGE_TIMING: after a drain)."""
+        if self._stage_timing:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._stage_t = time.perf_counter()
+
+    def _stage_mark(self, name: str) -> None:
+        """Count one ``name`` stage (``stage_<name>_n``); under
+        PTT_STAGE_TIMING also drain the device and charge the wall since
+        the last mark to ``stage_<name>_s``."""
+        st = self._stages
+        st[f"stage_{name}_n"] = st.get(f"stage_{name}_n", 0) + 1
+        if not self._stage_timing:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        st[f"stage_{name}_s"] = (st.get(f"stage_{name}_s", 0.0)
+                                 + now - self._stage_t)
+        self._stage_t = now
+
+    def _work_add(self, **units) -> None:
+        """Host-side work units (the stage loop's, and what the host
+        knows in both loops: initial lanes, a seed's states)."""
+        for k, v in units.items():
+            self._work[k] = self._work.get(k, 0) + int(v)
+
+    def _took_fpm(self, fpm: List[int]) -> None:
+        """A read carried the flush metrics: refresh the heartbeat
+        snapshot and write one ``flush`` record (deltas since the last)
+        and one ``compact`` record — host arithmetic on values already
+        read."""
+        self._fpm_host = fpm
+        nv = self._nv
+        self._snap["distinct_states"] = nv
+        if self.sorted:
+            return
+        tcap = max(self._tcols[0].shape[0] - 1, 1)
+        self._snap["occupancy"] = nv / tcap
+        self._snap["generated"] = fpm[3]
+        if not self.tel.enabled:
+            return
+        d = [a - b for a, b in zip(fpm, self._fpm_prev)]
+        if d[0] > 0:
+            self._fpm_prev = list(fpm)
+            self.tel.emit(
+                "flush",
+                flushes=d[0],
+                probe_rounds=d[1],
+                failures=d[2],
+                valid_lanes=d[3],
+                avg_probe_rounds=round(d[1] / max(d[0], 1), 2),
+                max_probe_rounds=fpm[4],
+                occupancy=round(nv / tcap, 4),
+                distinct_states=nv,
+            )
+        n = self._stages.get("stage_compact_n", 0)
+        if n > self._compact_prev:
+            f = dict(dispatches=n - self._compact_prev,
+                     impl=self.compact_impl)
+            cs = self._stages.get("stage_compact_s")
+            if cs is not None:
+                f["drain_s"] = round(cs - self._compact_prev_s, 4)
+                self._compact_prev_s = cs
+            self._compact_prev = n
+            self.tel.emit("compact", **f)
+
+    def _emit_header(self, resume: bool) -> None:
+        """The run header (``obs.emit_header``)."""
+        obs.emit_header(
+            self.tel, self.device, resume, self._resume_meta,
+            engine="device_bfs",
+            visited_impl=self.visited_impl,
+            compact_impl=self.compact_impl,
+            fuse=self.fuse,
+            fuse_group=self.RMAX,
+            config_sig=self._config_sig(),
+            max_states=self.SCAP,
+            sub_batch=self.G // self.FLUSH,
+            flush_factor=self.FLUSH,
+            key_cols=self.K,
+            key_exact=bool(self.keys.exact),
+            rows_window=self.rows_window,
+            invariants=list(self.invariant_names),
+            adapt=False,
+            hbm_budget=self.hbm_budget,
+            mode="check",
+        )
+
+    def _emit_spill(self, level: int) -> None:
+        """One cumulative ``spill`` record at a level boundary when the
+        tiered store moved anything since the last one."""
+        ts = self.tstore
+        if ts is None or not self.tel.enabled:
+            return
+        sp = ts.stats
+        degraded = bool(ts.degraded)
+        mark = (sp.evictions + sp.keys_evicted + sp.rows_evicted
+                + sp.misses_resolved)
+        if mark == self._spill_mark and not (
+                degraded and not self._spill_degraded_emitted):
+            return
+        ts.flush()  # byte counts final
+        self._spill_mark = mark
+        if degraded:
+            self._spill_degraded_emitted = True
+        self.tel.emit(
+            "spill",
+            tier="ram+disk" if ts.durable else "ram",
+            level=level,
+            keys_evicted=int(sp.keys_evicted),
+            rows_evicted=int(sp.rows_evicted),
+            bytes_raw=int(sp.bytes_raw),
+            bytes_comp=int(sp.bytes_comp),
+            transfer_s=round(sp.transfer_s, 4),
+            misses_resolved=int(sp.misses_resolved),
+            miss_hits=int(sp.miss_hits),
+            evictions=int(sp.evictions),
+            hot_keys=int(self._hot_n),
+            **({"degraded": True} if degraded else {}),
+        )
+
+    def _xprof_tick(self, level_next: int) -> None:
+        """Start the ``torch.profiler`` window at the first level of
+        ``xprof_levels`` (no window: the whole run) and stop it after
+        the last; one window a run."""
+        if not self.xprof_dir:
+            return
+        lo, hi = self.xprof_levels or (0, 1 << 30)
+        if self._prof is not None and level_next > hi:
+            self._xprof_close()
+        if (self._prof is None and not self._xprof_done
+                and lo <= level_next <= hi):
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.start()
+            self.tel.emit("xprof", action="start", level=level_next,
+                          dir=self.xprof_dir)
+
+    def _xprof_close(self) -> None:
+        """Stop the profiler window and write its Chrome trace
+        (``<xprof_dir>/trace_<run_id>.json``)."""
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        self._xprof_done = True
+        path = os.path.join(self.xprof_dir, f"trace_{self._run_id}.json")
+        try:
+            prof.stop()
+            os.makedirs(self.xprof_dir, exist_ok=True)
+            prof.export_chrome_trace(path)
+        finally:
+            self.tel.emit("xprof", action="stop", dir=self.xprof_dir,
+                          path=path)
+
     def _lanes(self, rows: torch.Tensor, rowvalid=None):
         """The window's successor lanes, expanded in chunks of
         ``expand_chunk`` rows: ``(packed [n*A, W], key cols, dead)``
@@ -834,6 +1073,7 @@ class DeviceChecker:
         initial state ``acc_base + j`` (init)."""
         nq = packed.shape[0]
         fail = self._flush_fault()
+        self._work_add(probe_lanes=nq, compact_elems=nq, groups=1)
         if self.tiered:
             self._ensure_hot_capacity(nq)
         else:
@@ -849,7 +1089,9 @@ class DeviceChecker:
             self._host_syncs += 1  # flush_acc_tiles read the count
         if fail:
             self._fpm[2] += 1
-        self._check_overflow(*self._read(self._fpm[2], self._rehash_failed))
+        *fpm, rehash = self._read(self._fpm, self._rehash_failed)
+        self._took_fpm(fpm)
+        self._check_overflow(fpm[2], rehash)
         if self.tiered:
             # every hot-new key stays inserted, false-new ones included
             self._hot_n += n_new
@@ -857,10 +1099,12 @@ class DeviceChecker:
                 n_new, is_new = self._resolve_cold_misses(
                     kcols, is_new, n_new
                 )
+        self._stage_mark("flush")
         if not n_new:
             return
         crows, idx = compact_rows(packed, is_new, self.compact_impl)
         crows, idx = crows[:n_new], idx[:n_new]
+        self._stage_mark("compact")
         nv = self._nv
         if self.tiered:
             self._tiered_ensure_windows(self._level_base, nv + n_new)
@@ -895,6 +1139,8 @@ class DeviceChecker:
                 for v, b in zip(self._viol, first_bad)
             ]
         self._nv = nv + n_new
+        self._work_add(append_rows=n_new)
+        self._stage_mark("append")
 
     def _drop_rows(self) -> None:
         """The frontier window is full: the rest of this level's rows are
@@ -951,12 +1197,19 @@ class DeviceChecker:
         returns the probe-failure counts and ``extra``."""
         n_inv = len(self.invariant_names)
         vals = self._read(self._nv_t, self._dead_t, self._viol_t,
-                          self._fpm[2], self._rehash_failed, *extra)
+                          self._fpm, self._rehash_failed, self._wkm,
+                          *extra)
         self._nv, self._dead = vals[0], vals[1]
         self._viol = vals[2: 2 + n_inv]
         self._nv_hi = self._nv
         self._since_sync = 0
-        return vals[2 + n_inv:]
+        o = 2 + n_inv
+        fpm = vals[o: o + fpset.FPM_N]
+        o += fpset.FPM_N
+        rehash = vals[o]
+        self._wkm_host = vals[o + 1: o + 1 + fpset.WKM_N]
+        self._took_fpm(fpm)
+        return [fpm[2], rehash, *vals[o + 1 + fpset.WKM_N:]]
 
     def _lv_sync(self, *extra: torch.Tensor) -> List[int]:
         """:meth:`_lv_read`, raise on a probe overflow, and grow the table
@@ -1005,11 +1258,14 @@ class DeviceChecker:
             return False
         return True
 
-    def _lv_flush(self, packed, kcols, acc_base, is_init: bool) -> None:
+    def _lv_flush(self, packed, kcols, acc_base, is_init: bool,
+                  rows=0) -> None:
         """The fused level's flush + compact + append of one window, with
         no host read: the compacted rows, parents and lanes of all ``nq``
         lanes go to gids ``nv + j`` (the rows past the new-state count
-        are overwritten by later windows)."""
+        are overwritten by later windows).  ``rows``: the live frontier
+        rows the window expanded (an int, or a device count), for the
+        work vector."""
         nq = packed.shape[0]
         dev = self.device
         fail = self._flush_fault()
@@ -1046,6 +1302,7 @@ class DeviceChecker:
                 self._viol_t, torch.where(bad < BIG, nv + bad, BIG)
             )
         self._nv_t = nv + n_new
+        self._wkm = fpset.wkm_update(self._wkm, rows, nq, nq, n_new, 1)
         self._nv_hi += nq
         self._since_sync += 1
 
@@ -1057,7 +1314,8 @@ class DeviceChecker:
             self._dead_t = torch.minimum(
                 self._dead_t, torch.where(d < BIG, base + d, BIG)
             )
-        self._lv_flush(packed, kcols, base, False)
+        live = rows.shape[0] if rowvalid is None else rowvalid.sum()
+        self._lv_flush(packed, kcols, base, False, live)
 
     def _lv_init(self) -> None:
         """The initial states in fused windows, then one read."""
@@ -1074,6 +1332,7 @@ class DeviceChecker:
                 self.keys, packed,
                 torch.ones((n,), dtype=torch.bool, device=dev),
             )
+            self._work_add(init_lanes=n)
             self._lv_flush(packed, kcols, f_off, True)
         self._lv_sync()
 
@@ -1173,12 +1432,15 @@ class DeviceChecker:
         step = self.G * self.A
         for f_off in range(0, n_init, step):
             n = min(step, n_init - f_off)
+            self._stage_open()
             idx = torch.arange(f_off, f_off + n, device=dev)
             packed = self.layout.pack(self.model.gen_initial(idx))
             kcols = tiles.key_plane(
                 self.keys, packed,
                 torch.ones((n,), dtype=torch.bool, device=dev),
             )
+            self._work_add(init_lanes=n)
+            self._stage_mark("init")
             self._flush(packed, kcols, f_off, True)
             if self._stop_reason() is not None:
                 break
@@ -1196,7 +1458,10 @@ class DeviceChecker:
         stop = False
         for f_off in range(start, nf, self.G):
             n = min(self.G, nf - f_off)
+            self._stage_open()
             packed, kcols = self._expand(level_base + f_off, n)
+            self._work_add(expand_rows=n)
+            self._stage_mark("expand")
             self._flush(packed, kcols, level_base + f_off, False)
             if self._stop_reason() is not None:
                 stop = True
@@ -1254,6 +1519,7 @@ class DeviceChecker:
         self._flush_seq = 0
         self._bufs_poisoned = False
         self._handoff = None  # (level, fused levels before it)
+        self._reset_telemetry()
         ckpt.cleanup_stale_tmp(self.checkpoint_path)
         # SIGTERM/SIGINT: a frame at the next level boundary, then a
         # resumable stop (only when there is a frame path to write)
@@ -1261,18 +1527,25 @@ class DeviceChecker:
             enabled=bool(self.checkpoint_path), log=self._log
         )
         self._watcher = watcher
-        try:
-            with watcher:
-                return self._run(t0, seed, resume)
-        finally:
-            self._watcher = None
+        with obs.run_scope(self, self._telemetry_arg, self.heartbeat_s,
+                           self.SCAP):
+            try:
+                with watcher:
+                    return self._run(t0, seed, resume)
+            finally:
+                self._watcher = None
+                self._xprof_close()
 
     def _run(self, t0, seed, resume: bool) -> CheckerResult:
         dev = self.device
         if dev.type == "cuda":
             # K0 on this card (builds and loads the kernels on first use)
             kernels.selftest(dev)
-        self._host_syncs = self._fuse_levels = 0
+        if self._stage_timing:
+            # the round trip a stage drain pays (the report subtracts
+            # stage_<name>_n x rtt_s)
+            self._rtt_s = round(obs.measure_rtt(dev), 6)
+        self._host_syncs = self._fuse_levels = self._fused_n = 0
         self._budget_overridden = False
         self._lv_active = False
         self._rows_ok = True
@@ -1292,7 +1565,9 @@ class DeviceChecker:
             t0 = time.time() - wall
             self.rec.arm()  # the frame on disk is valid
             metrics.rewind(self.metrics_path, len(level_sizes))
+            self._emit_header(resume=True)
         elif seed is not None:
+            self._emit_header(resume=False)
             if "oom" in faults.poll("level", 1):
                 raise faults.oom_error("level", 1)
             self._alloc()
@@ -1304,7 +1579,8 @@ class DeviceChecker:
             level_sizes = self._load_seed(seed)
             level_base, nf = self._nv - level_sizes[-1], level_sizes[-1]
             # the anchor record: the seed's levels, nothing expanded yet
-            self._emit_metrics(t0, len(level_sizes), 0, self._nv, nf)
+            self._emit_metrics(t0, len(level_sizes), 0, self._nv, nf,
+                               partial=True)
             fv = self._first_viol()
             if fv is not None:
                 # a violation inside the seed: the diameter is its level
@@ -1317,6 +1593,7 @@ class DeviceChecker:
             self._log(f"seed: {self._nv} states in {len(level_sizes)} "
                       "levels")
         else:
+            self._emit_header(resume=False)
             # level 1's fault site (the loop's count starts at 2)
             if "oom" in faults.poll("level", 1):
                 raise faults.oom_error("level", 1)
@@ -1359,6 +1636,10 @@ class DeviceChecker:
             # outside the except block: its traceback pins the loop's
             # tensors
             self.rec.degrade()
+            self.tel.emit("hbm_recovery",
+                          recovery_n=self.rec.hbm_recovered,
+                          group=self.group, distinct_states=last[0],
+                          error=last[2][:200])
             self._log(
                 "device memory exhausted: recovering from the last "
                 f"checkpoint frame (recovery #{self.rec.hbm_recovered}) — "
@@ -1432,6 +1713,7 @@ class DeviceChecker:
                                     stop_reason=why)
             before = list(level_sizes)
             level = len(level_sizes) + 1
+            self._xprof_tick(level)
             try:
                 # the fault sites: kill/sigterm fire inside poll; an
                 # injected oom takes the path of a real allocator failure
@@ -1441,7 +1723,10 @@ class DeviceChecker:
                 if self.fuse == "level" and not (
                     self.tiered and self._tiered_pressure()
                 ):
+                    fl0, wk0 = self._fpm_host[0], list(self._wkm_host)
+                    self._stage_open()
                     out = self._lv_pass(len(level_sizes), level_base, nf)
+                    self._emit_fuse(out, nf, fl0, wk0)
                 if isinstance(out, int):
                     # the stage loop's level, or the rest of a fused one
                     # from the window the capped tiers could not take
@@ -1465,6 +1750,8 @@ class DeviceChecker:
                     prev_nf = sz
                 if done and self.tiered and nf2:
                     self._tiered_boundary(lb2)
+                if done and self.tiered:
+                    self._emit_spill(len(level_sizes))
             except Exception as e:  # noqa: BLE001
                 if not recovery.is_resource_exhausted(e):
                     raise
@@ -1491,6 +1778,35 @@ class DeviceChecker:
                     and len(level_sizes) % self.checkpoint_every == 0):
                 self._save_frame(level_sizes, level_base, nf)
 
+    def _fold_wkm(self) -> None:
+        """Move the work vector's last-read totals into the host's."""
+        for k, v in zip(WKM_KEYS, self._wkm_host):
+            if v:
+                self._work_add(**{k: v})
+        self._wkm_host = [0] * fpset.WKM_N
+
+    def _emit_fuse(self, out, nf: int, fl0: int, wk0: List[int]) -> None:
+        """One ``fuse`` record a fused pass (``_lv_pass``): the levels it
+        closed, its flushes and its work-unit deltas, all from the read
+        that ended it."""
+        self._fused_n += 1
+        self._stage_mark("fused")
+        if not self.tel.enabled:
+            return
+        levels = len(out[0]) if not isinstance(out, int) and out[3] else 0
+        wd = [a - b for a, b in zip(self._wkm_host, wk0)]
+        self.tel.emit(
+            "fuse",
+            levels=levels,
+            dispatches=1,
+            flushes=self._fpm_host[0] - fl0,
+            frontier=int(nf),
+            work_expand_rows=wd[0],
+            work_probe_lanes=wd[1],
+            work_compact_elems=wd[2],
+            work_append_rows=wd[3],
+        )
+
     def _read_after_oom(self, level_sizes) -> None:
         """After device memory ran out with no frame: read the fused
         level's exact counters if that still works, and count the
@@ -1505,11 +1821,26 @@ class DeviceChecker:
             level_sizes.append(partial)
 
     def _emit_metrics(self, t0, level: int, new_states: int, nv: int,
-                      frontier: int) -> None:
-        """One ``metrics_path`` record (the JAX engine's keys):
-        ``frontier`` is the frontier expanded into the level,
-        ``host_wait_s`` the time the host spent blocked in reads."""
+                      frontier: int, partial: bool = False) -> None:
+        """One ``level`` telemetry record and one ``metrics_path`` record
+        (the JAX engine's keys): ``frontier`` is the frontier expanded
+        into the level, ``host_wait_s`` the time the host spent blocked
+        in reads; ``partial`` marks an anchor that is not a level
+        boundary (the seed's)."""
         wall = time.time() - t0
+        self._snap.update(level=level, frontier=int(frontier),
+                          distinct_states=int(nv), partial=partial)
+        self.tel.emit(
+            "level",
+            **({"partial": True} if partial else {}),
+            level=level,
+            new_states=int(new_states),
+            distinct_states=int(nv),
+            frontier=int(frontier),
+            wall_s=round(wall, 3),
+            states_per_sec=round(nv / max(wall, 1e-9), 1),
+            host_wait_s=round(self._host_wait_s, 3),
+        )
         metrics.append(self.metrics_path, {
             "level": level,
             "new_states": int(new_states),
@@ -1636,8 +1967,10 @@ class DeviceChecker:
                     viol = torch.minimum(
                         viol, torch.where(bad < BIG, s0 + bad, BIG))
             off += count
-        probe, rehash, got, *vs = self._read(
-            self._fpm[2], self._rehash_failed, nvis, viol)
+        vals = self._read(self._fpm, self._rehash_failed, nvis, viol)
+        fpm, vs = vals[: fpset.FPM_N], vals[fpset.FPM_N + 2:]
+        rehash, got = vals[fpset.FPM_N], vals[fpset.FPM_N + 1]
+        probe = fpm[2]
         if probe:
             raise RuntimeError("fpset probe overflow while loading the "
                                "seed — raise visited_cap")
@@ -1654,6 +1987,8 @@ class DeviceChecker:
                     vk, self._sorted_cols(cap - self.SEED_VCAP)))
         self._nv = n
         self._viol = vs
+        self._took_fpm(fpm)
+        self._work_add(append_rows=n)
         if self.tiered:
             self._hot_n = n
         return lsizes
@@ -1716,7 +2051,8 @@ class DeviceChecker:
             self.checkpoint_path, self._config_sig(), arrays,
             wall_s=time.time() - self._wall_t0,
             meta={"frame_seq": self._ckpt_frames + 1,
-                  "level": len(level_sizes), "engine": "device_bfs"},
+                  "level": len(level_sizes), "engine": "device_bfs",
+                  "run_id": self._run_id},
         )
         stall = time.perf_counter() - t_stall
         self._ckpt_frames += 1
@@ -1725,6 +2061,16 @@ class DeviceChecker:
         self._ckpt_last_s = stall
         self._ckpt_retries += retries
         self.rec.arm()
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._ckpt_frames,
+            bytes=nbytes,
+            write_s=round(write_s, 3),
+            stall_s=round(stall, 3),
+            retries=retries,
+            level=len(level_sizes),
+            distinct_states=nv,
+        )
         self._log(f"checkpoint: level {len(level_sizes)}, {nv} states "
                   f"({nbytes >> 10} KiB, {stall:.2f}s stall) -> "
                   f"{self.checkpoint_path}")
@@ -1771,6 +2117,7 @@ class DeviceChecker:
         """Rebuild the run's tensors and level frame from the frame;
         returns ``(level_sizes, level_base, nf, wall_s)``."""
         d = ckpt.load_frame(self.checkpoint_path, self._config_sig())
+        self._resume_meta = ckpt.frame_meta(d)
         dev, K, W = self.device, self.K, self.W
         nv = int(d["n_visited"])
         level_sizes = [int(x) for x in d["level_sizes"]]
@@ -1798,6 +2145,13 @@ class DeviceChecker:
         old = np.asarray(d["fpm"], np.int64).reshape(-1)
         fpm[: min(len(old), fpset.FPM_N)] = old[: fpset.FPM_N]
         self._fpm = torch.from_numpy(fpm).to(dev)
+        self._fpm_host = self._fpm_prev = [int(x) for x in fpm]
+        # the work vector restarts from the frame (after a recovery, the
+        # work read before it stays counted)
+        self._fold_wkm()
+        self._wkm = torch.zeros((fpset.WKM_N,), dtype=torch.int64,
+                                device=dev)
+        self._wkm_host = [0] * fpset.WKM_N
         rows = torch.from_numpy(
             np.asarray(d["rows"], np.uint32).view(np.int32).reshape(-1, W)
         ).to(dev)
@@ -1867,14 +2221,26 @@ class DeviceChecker:
         wall = time.time() - t0
         tcap = (self._tcols[0].shape[0] - (0 if self.sorted else 1)
                 if live else 0)
-        fpm = self._fpm.tolist() if live else [0] * fpset.FPM_N
+        if live:
+            # one read at the end: the flush metrics and the work vector
+            got = torch.cat([self._fpm, self._wkm]).tolist()
+            fpm, self._wkm_host = got[: fpset.FPM_N], got[fpset.FPM_N:]
+        else:
+            fpm = [0] * fpset.FPM_N
         fl, rounds, fails, valid_lanes, max_rounds = fpm
+        work = dict(self._work)
+        for k, v in zip(WKM_KEYS, self._wkm_host):
+            work[k] = work.get(k, 0) + v
         self.last_stats = dict(
             host_syncs=self._host_syncs,
+            stats_fetches=self._host_syncs,
+            fuse=self.fuse,
             fuse_levels=self._fuse_levels,
+            stage_fused_n=self._fused_n,
             syncs_per_level=round(
                 self._host_syncs / max(len(level_sizes), 1), 2
             ),
+            compact_impl=self.compact_impl,
             fpset_flushes=fl,
             fpset_probe_rounds=rounds,
             fpset_failures=fails,
@@ -1920,6 +2286,15 @@ class DeviceChecker:
                     self._handoff[1] if self._handoff else self._fuse_levels
                 ),
             )
+            self._emit_spill(len(level_sizes))
+        self.last_stats.update(self._stages)
+        self.last_stats["dispatches_per_level"] = round(
+            sum(v for k, v in self._stages.items() if k.endswith("_n"))
+            / max(len(level_sizes), 1), 2)
+        if self._rtt_s is not None:
+            self.last_stats["rtt_s"] = self._rtt_s
+        self.last_stats.update(
+            {f"work_{k}": int(v) for k, v in work.items() if v})
         res = CheckerResult(
             distinct_states=nv,
             diameter=len(level_sizes),
@@ -1944,4 +2319,5 @@ class DeviceChecker:
             )
         elif gid is not None:
             res.violation_gid = gid
+        emit_result(self.tel, res, self.last_stats)
         return res

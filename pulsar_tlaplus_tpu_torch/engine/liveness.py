@@ -69,6 +69,7 @@ from pulsar_tlaplus_tpu_torch.engine.device_bfs import DeviceChecker
 from pulsar_tlaplus_tpu_torch.engine.sharded_device import (
     ShardedDeviceChecker,
 )
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
 from pulsar_tlaplus_tpu_torch.ops import tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag, validate_impl
 from pulsar_tlaplus_tpu_torch.ops.dedup import lex_order
@@ -134,7 +135,10 @@ class LivenessChecker:
     and ``checkpoint_every`` (levels in the exploration, chunks in the
     sweep) write resumable frames.  ``compact_impl`` (``"logshift"`` or
     ``"sort"``, ``ops/compact.py``) is the exploration's and the
-    sweep's stream compaction.
+    sweep's stream compaction.  ``telemetry`` takes the run's JSONL
+    stream (the exploration's records, then one cumulative ``sweep``
+    record a chunk); ``heartbeat_s`` prints progress lines in both
+    phases.
     """
 
     def __init__(
@@ -156,6 +160,8 @@ class LivenessChecker:
         checkpoint_every: int = 5,
         n_devices: int = 1,
         compact_impl: str = "logshift",
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
     ):
         goals = getattr(model, "liveness_goals", {})
         if goal not in goals:
@@ -222,6 +228,25 @@ class LivenessChecker:
         self._resume_explore = False
         self._sweep_resume = None  # (src parts, dst parts, next chunk)
         self._watcher = None
+        # telemetry: one stream a run; the explorer writes into it too,
+        # with its own heartbeat, and the sweep's heartbeat reports from
+        # ``_snap``, which the chunk loop updates
+        self._telemetry_arg = telemetry
+        self.heartbeat_s = heartbeat_s
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
+        self._reset_telemetry()
+
+    def _reset_telemetry(self) -> None:
+        """A run's telemetry state: the clock, the frame writer's resume
+        meta and retries, the sweep's cumulative work units."""
+        self._t0 = time.time()
+        self._resume_meta: Dict[str, object] = {}
+        self._ckpt_retries = 0
+        self._work_sweep = {"sort_lanes": 0, "prop_lanes": 0,
+                            "prop_passes": 0, "compact_elems": 0}
+        self._hb = None
 
     def _log(self, msg: str) -> None:
         if self.progress:
@@ -242,10 +267,17 @@ class LivenessChecker:
             return self._explored
         t0 = time.time()
         ck = self._checker
+        # the explorer writes into this run's stream (it never closes a
+        # Telemetry it was handed) with its own heartbeat
+        ck._telemetry_arg = self.tel if self.tel.enabled else None
+        if self.heartbeat_s and not ck.heartbeat_s:
+            ck.heartbeat_s = self.heartbeat_s
         try:
             res = ck.run(resume=self._resume_explore)
         finally:
             self._resume_explore = False
+            # the explorer's run cleared the fault observer on exit
+            faults.set_observer(getattr(self, "_fault_observer", None))
         if res.truncated and res.stop_reason == "preempted":
             # the exploration wrote its own frame on the way out
             raise _Preempted(res.distinct_states, "explore")
@@ -395,6 +427,11 @@ class LivenessChecker:
             self._sweep_resume = None
             self._log(f"resumed the sweep at chunk {c0}/{len(starts)}")
         reads = 0
+        tlen = tcols[0].shape[0]
+        passes, d = 0, 1
+        while d <= min(SF * A, self.max_run):
+            passes, d = passes + 1, d << 1
+        n_edges = sum(len(p) for p in src_parts)
         for g0 in range(c0, len(starts), G):
             outs = [self._sweep_chunk(starts[i], n, tcols, tgid)
                     for i in range(g0, min(g0 + G, len(starts)))]
@@ -428,6 +465,30 @@ class LivenessChecker:
                 if k:
                     src_parts.append(starts[i] + idx // A)
                     dst_parts.append(dst)
+                    n_edges += k
+                # the chunk's work units (cumulative) and progress, from
+                # values already read
+                nq = (min(starts[i] + SF, n) - starts[i]) * A
+                ws = self._work_sweep
+                ws["sort_lanes"] += 2 * (tlen + nq)
+                ws["prop_lanes"] += passes * (tlen + nq)
+                ws["prop_passes"] += passes
+                ws["compact_elems"] += nq
+                self._snap.update(distinct_states=n, level=i + 1,
+                                  generated=n_edges)
+                self.tel.emit(
+                    "sweep",
+                    chunk=i + 1,
+                    chunks=len(starts),
+                    swept=min(starts[i] + SF, n),
+                    edges=n_edges,
+                    group=G,
+                    wall_s=round(time.time() - self._t0, 3),
+                    sort_lanes=ws["sort_lanes"],
+                    prop_lanes=ws["prop_lanes"],
+                    prop_passes=ws["prop_passes"],
+                    compact_elems=ws["compact_elems"],
+                )
                 preempt = (self._watcher is not None
                            and self._watcher.requested)
                 if self.checkpoint_path and i + 1 < len(starts) and (
@@ -464,43 +525,100 @@ class LivenessChecker:
         ``resume=True`` continues an interrupted run from
         ``checkpoint_path``: a sweep frame restores the explored rows and
         the edges so far; an exploration frame resumes the BFS."""
-        self._t0 = time.time()
+        self._reset_telemetry()
         ckpt.cleanup_stale_tmp(self.checkpoint_path)
         watcher = ckpt.PreemptionWatcher(
             enabled=bool(self.checkpoint_path), log=self._log
         )
         self._watcher = watcher
+        # the sweep's heartbeat starts after the exploration (which runs
+        # its own)
+        with obs.run_scope(self, self._telemetry_arg):
+            try:
+                with watcher:
+                    if resume:
+                        if not self.checkpoint_path:
+                            raise ValueError(
+                                "resume requires checkpoint_path")
+                        if not self._try_resume_sweep():
+                            # an exploration frame: resume the BFS first
+                            self._resume_explore = True
+                    self._emit_header(resume)
+                    lres = self._run_or_preempt()
+                    self._emit_result(lres)
+                    return lres
+            finally:
+                if self._hb is not None:
+                    self._hb.stop()
+                    self._hb = None
+                self._watcher = None
+
+    def _run_or_preempt(self) -> LivenessResult:
+        """:meth:`_run_check`, or the resumable result of a preemption."""
         try:
-            with watcher:
-                if resume:
-                    if not self.checkpoint_path:
-                        raise ValueError("resume requires checkpoint_path")
-                    if not self._try_resume_sweep():
-                        # an exploration frame: resume the BFS first
-                        self._resume_explore = True
-                try:
-                    return self._run_check()
-                except _Preempted as p:
-                    has_frame = bool(self.checkpoint_path) and \
-                        os.path.exists(self.checkpoint_path)
-                    return LivenessResult(
-                        False,
-                        "preempted (SIGTERM/SIGINT) during the "
-                        f"{p.phase} phase — " + (
-                            "a resumable frame is on disk; continue "
-                            "with run(resume=True)" if has_frame
-                            else "no frame was written yet; the run is "
-                            "NOT resumable"
-                        ),
-                        p.n,
-                        truncated=True,
-                        stop_reason="preempted",
-                    )
-        finally:
-            self._watcher = None
+            return self._run_check()
+        except _Preempted as p:
+            has_frame = bool(self.checkpoint_path) and \
+                os.path.exists(self.checkpoint_path)
+            return LivenessResult(
+                False,
+                "preempted (SIGTERM/SIGINT) during the "
+                f"{p.phase} phase — " + (
+                    "a resumable frame is on disk; continue "
+                    "with run(resume=True)" if has_frame
+                    else "no frame was written yet; the run is "
+                    "NOT resumable"
+                ),
+                p.n,
+                truncated=True,
+                stop_reason="preempted",
+            )
+
+    def _emit_header(self, resume: bool) -> None:
+        obs.emit_header(
+            self.tel, self.device, resume, self._resume_meta,
+            engine="liveness",
+            visited_impl=self._checker.visited_impl,
+            compact_impl=self.compact_impl,
+            config_sig=self._config_sig(),
+            hbm_budget=getattr(self._checker, "hbm_budget", None),
+            mode="liveness",
+            goal=self.goal_name,
+            fairness=self.fairness,
+            n_devices=self.n_devices,
+            sweep_chunk=self.SF,
+            sweep_group=self._sweep_group_size(),
+        )
+
+    def _emit_result(self, lres: LivenessResult) -> None:
+        """The sweep's ``attribution`` record (when it swept) and the
+        ``result`` record."""
+        ws = {k: int(v) for k, v in self._work_sweep.items() if v}
+        if ws:
+            self.tel.emit("attribution",
+                          stages={f"sweep_{k}": v for k, v in ws.items()})
+        self.tel.emit(
+            "result",
+            distinct_states=lres.distinct_states,
+            diameter=self.last_stats.get("diameter"),
+            wall_s=round(time.time() - self._t0, 3),
+            truncated=lres.truncated,
+            stop_reason=lres.stop_reason,
+            holds=None if lres.truncated else lres.holds,
+            reason=lres.reason,
+            goal=self.goal_name,
+            fairness=self.fairness,
+            ckpt_frames=getattr(self, "_sweep_frames", 0),
+            ckpt_retries=self._ckpt_retries,
+            **{f"work_sweep_{k}": v for k, v in ws.items()},
+        )
 
     def _run_check(self) -> LivenessResult:
         n, n_init = self._explore()
+        if self.heartbeat_s:
+            self._snap["distinct_states"] = n
+            self._hb = obs.Heartbeat(self.heartbeat_s, self._snap,
+                                     telemetry=self.tel).start()
         t0 = time.time()
         goal = self._goal(n)
         self.last_stats["goal_s"] = time.time() - t0
@@ -549,9 +667,21 @@ class LivenessChecker:
             self.checkpoint_path, self._config_sig(), arrays,
             wall_s=time.time() - self._t0,
             meta={"frame_seq": self._sweep_frames, "phase": "sweep",
-                  "engine": "liveness"},
+                  "engine": "liveness", "run_id": self._run_id},
         )
         stall = time.perf_counter() - t
+        self._ckpt_retries += retries
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._sweep_frames,
+            bytes=nbytes,
+            write_s=round(_write_s, 3),
+            stall_s=round(stall, 3),
+            retries=retries,
+            phase="sweep",
+            chunk=next_chunk,
+            distinct_states=n,
+        )
         self.last_stats.update(
             sweep_frames=self._sweep_frames, sweep_frame_bytes=nbytes,
             sweep_frame_s=round(stall, 3), ckpt_retries=retries,
@@ -570,6 +700,7 @@ class LivenessChecker:
             raise
         except ValueError:
             return False
+        self._resume_meta = ckpt.frame_meta(d)
         n, W = int(d["n"]), self.model.layout.W
         self._explored = (n, int(d["n_init"]))
         self.last_stats.update(distinct_states=n,

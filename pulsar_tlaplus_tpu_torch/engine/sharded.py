@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from pulsar_tlaplus_tpu_torch.engine import core
 from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
 from pulsar_tlaplus_tpu_torch.engine.statelog import MemoryLog
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
 from pulsar_tlaplus_tpu_torch.ops import dedup, fpset, hashtable
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
 from pulsar_tlaplus_tpu_torch.parallel import mesh as mesh_mod
@@ -98,6 +99,8 @@ class ShardedChecker:
         checkpoint_every: int = 5,
         progress: bool = False,
         device=None,
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
     ):
         if dedup_mode not in ("sort", "hash"):
             raise ValueError(
@@ -130,6 +133,14 @@ class ShardedChecker:
         self.progress = progress
         self._cap0 = visited_cap
         self._ckpt_frames = 0
+        # telemetry (``obs/telemetry.py``): a stream a run, and the
+        # heartbeat from the level snapshot
+        self._telemetry_arg = telemetry
+        self.heartbeat_s = heartbeat_s
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
+        self._resume_meta: Dict[str, object] = {}
 
     # ----------------------------------------------------------- device
 
@@ -333,6 +344,25 @@ class ShardedChecker:
             res.violation_gid = gid
             res.trace, res.trace_actions = core.build_log_trace(
                 self.model, gid, self._log_store)
+        self.tel.emit(
+            "result",
+            distinct_states=n,
+            diameter=len(level_sizes),
+            wall_s=round(wall, 3),
+            states_per_sec=round(n / max(wall, 1e-9), 1),
+            truncated=truncated,
+            stop_reason=res.stop_reason,
+            violation=res.violation,
+            deadlock=res.deadlock,
+            level_sizes=[int(x) for x in level_sizes],
+            stats={
+                "ckpt_frames": self._ckpt_frames,
+                "ckpt_bytes": self._ckpt_bytes,
+                "ckpt_write_s": round(self._ckpt_write_s, 3),
+                "ckpt_retries": self._ckpt_retries,
+                "n_shards": self.n_shards,
+            },
+        )
         return res
 
     def _over_budget(self, budget_t0: float) -> bool:
@@ -374,16 +404,32 @@ class ShardedChecker:
             packed=log.packed_matrix(), parent=log.parents(),
             action=log.actions(),
         )
-        ckpt.save_frame(
+        t = time.perf_counter()
+        nbytes, write_s, retries = ckpt.save_frame(
             self.checkpoint_path, self._config_sig(), arrays,
             wall_s=time.time() - t0,
             meta={"frame_seq": self._ckpt_frames + 1,
-                  "level": len(level_sizes), "engine": "sharded_host"},
+                  "level": len(level_sizes), "engine": "sharded_host",
+                  "run_id": self._run_id},
         )
         self._ckpt_frames += 1
+        self._ckpt_bytes += nbytes
+        self._ckpt_write_s += time.perf_counter() - t
+        self._ckpt_retries += retries
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._ckpt_frames,
+            bytes=nbytes,
+            write_s=round(write_s, 3),
+            stall_s=round(time.perf_counter() - t, 3),
+            retries=retries,
+            level=len(level_sizes),
+            distinct_states=int(self._n_visited.sum()),
+        )
 
     def _restore(self):
         d = ckpt.load_frame(self.checkpoint_path, self._config_sig())
+        self._resume_meta = ckpt.frame_meta(d)
         cap = d["vk0"].shape[1] - (1 if self.dedup_mode == "hash" else 0)
         self._cap = cap
         self._vk = self._empty_vk(cap)
@@ -407,12 +453,33 @@ class ShardedChecker:
     # -------------------------------------------------------------- run
 
     def run(self, resume: bool = False) -> CheckerResult:
+        """Check the model; ``resume=True`` continues the
+        ``checkpoint_path`` frame."""
+        self._resume_meta = {}
+        self._ckpt_frames = self._ckpt_bytes = self._ckpt_retries = 0
+        self._ckpt_write_s = 0.0
+        with obs.run_scope(self, self._telemetry_arg, self.heartbeat_s,
+                           self.max_states):
+            return self._run(resume)
+
+    def _emit_header(self, resume: bool) -> None:
+        obs.emit_header(
+            self.tel, self.device, resume, self._resume_meta,
+            engine="sharded_host",
+            n_devices=self.n_shards,
+            visited_impl=self.dedup_mode,
+            config_sig=self._config_sig(),
+            mode="check",
+            max_states=self.max_states,
+            invariants=list(self.invariant_names),
+        )
+
+    def _run(self, resume: bool) -> CheckerResult:
         m, nd, F = self.model, self.n_shards, self.F
         for dev in self.mesh.distinct_devices():
             if dev.type == "cuda":
                 kernels.selftest(dev)  # K0 on each card
         t0 = budget_t0 = time.time()
-        self._ckpt_frames = 0
         ckpt.cleanup_stale_tmp(self.checkpoint_path)
         self._log_store = MemoryLog(self.layout.W)
         self._n_total = 0
@@ -429,7 +496,9 @@ class ShardedChecker:
                 self._claims = [fpset.new_claims(self._cap, dev)
                                 for dev in self.mesh.devices]
             metrics.rewind(self.metrics_path, len(level_sizes))
+            self._emit_header(resume=True)
         else:
+            self._emit_header(resume=False)
             self._cap = self._cap0
             self._vk = self._empty_vk(self._cap)
             if self.dedup_mode == "hash":
@@ -484,11 +553,23 @@ class ShardedChecker:
             self._log(f"level {len(level_sizes)}: +{level_sizes[-1]} (total "
                       f"{self._n_total}, "
                       f"{self._n_total / max(wall, 1e-9):.0f} st/s)")
+            nfr = int(sum(len(f) for f in frontier))
+            self._snap.update(level=len(level_sizes), frontier=nfr,
+                              distinct_states=self._n_total)
+            self.tel.emit(
+                "level",
+                level=len(level_sizes),
+                new_states=int(level_sizes[-1]),
+                distinct_states=self._n_total,
+                frontier=nfr,
+                wall_s=round(wall, 3),
+                states_per_sec=round(self._n_total / max(wall, 1e-9), 1),
+            )
             metrics.append(self.metrics_path, {
                 "level": len(level_sizes),
                 "new_states": level_sizes[-1],
                 "distinct_states": self._n_total,
-                "frontier": int(sum(len(f) for f in frontier)),
+                "frontier": nfr,
                 "wall_s": round(wall, 3),
                 "states_per_sec": round(self._n_total / max(wall, 1e-9), 1),
                 "visited_cap_per_shard": self._cap,

@@ -82,6 +82,8 @@ import torch
 from pulsar_tlaplus_tpu_torch.engine.bfs import CheckerResult
 from pulsar_tlaplus_tpu_torch.engine.core import build_trace
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
+from pulsar_tlaplus_tpu_torch.obs.telemetry import emit_result
 from pulsar_tlaplus_tpu_torch.ops import fpset, tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag, validate_impl
 from pulsar_tlaplus_tpu_torch.ops.dedup import (
@@ -199,7 +201,10 @@ class ShardedDeviceChecker:
     ``"logshift"`` or ``"sort"``.  ``max_states`` and ``time_budget_s``
     stop the run (truncated); ``checkpoint_path`` writes a frame every
     ``checkpoint_every`` levels; ``metrics_path`` takes one record a
-    level."""
+    level.  ``telemetry`` takes the run's JSONL stream (its ``flush``
+    records sum the shards' flush metrics, the deepest probe's max, as
+    the JAX engine's); ``heartbeat_s`` prints a progress line that
+    often."""
 
     SEED_CHUNK = 1 << 15
 
@@ -227,6 +232,8 @@ class ShardedDeviceChecker:
         device=None,
         visited_impl: str = "fpset",
         compact_impl: str = "logshift",
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
     ):
         if visited_impl not in ("fpset", "sort"):
             raise ValueError(
@@ -305,6 +312,13 @@ class ShardedDeviceChecker:
         # level number -> every shard's state count when it ended
         self.level_shard_totals: Dict[int, List[int]] = {}
         self._last_fpm = None
+        # telemetry (``obs/telemetry.py``): the stream a run, and the
+        # heartbeat from the last fetch's snapshot
+        self._telemetry_arg = telemetry
+        self.heartbeat_s = heartbeat_s
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
 
     # -------------------------------------------------------- capacities
 
@@ -756,6 +770,7 @@ class ShardedDeviceChecker:
             (crows, cpar, clane), _ = compact_by_flag(
                 ~flag, (self._arows[p][:h], self._apar[p][:h],
                         self._alane[p][:h]), self.compact_impl)
+            self._compact_n += 1
             n_new = flag.sum()
             nv = self._nvis[p]
             pos = torch.arange(h, device=dev)
@@ -807,6 +822,7 @@ class ShardedDeviceChecker:
         if out[:, 3 + n_inv].any():
             raise _RouteOverflow
         self._last_fpm = out[:, 4 + n_inv:]
+        self._took_stats(out)
         if self._last_fpm[:, 2].any():
             raise RuntimeError(
                 "fpset probe overflow on "
@@ -814,6 +830,58 @@ class ShardedDeviceChecker:
                 "table broke its load contract"
             )
         return out
+
+    def _took_stats(self, out: np.ndarray) -> None:
+        """A fetch's host matrix: refresh the heartbeat snapshot and
+        write one ``flush`` record (the shards' flush metrics summed, the
+        deepest probe's max; deltas since the last) and one ``compact``
+        record — host arithmetic on the values just read."""
+        nv = int(out[:, 0].sum())
+        occ = float(out[:, 1].max()) / max(self.TCAP, 1)
+        self._snap["distinct_states"] = nv
+        self._snap["occupancy"] = occ
+        if not self.tel.enabled:
+            return
+        fpm = self._last_fpm
+        cur = [int(fpm[:, i].sum()) for i in range(4)] + [
+            int(fpm[:, 4].max())]
+        d = [a - b for a, b in zip(cur, self._fpm_prev)]
+        if d[0] > 0:
+            self._fpm_prev = cur
+            self.tel.emit(
+                "flush",
+                flushes=d[0],
+                probe_rounds=d[1],
+                failures=d[2],
+                valid_lanes=d[3],
+                avg_probe_rounds=round(d[1] / max(d[0], 1), 2),
+                max_probe_rounds=cur[4],
+                occupancy=round(occ, 4),
+                distinct_states=nv,
+            )
+        if self._compact_n > self._compact_prev:
+            self.tel.emit("compact",
+                          dispatches=self._compact_n - self._compact_prev,
+                          impl=self.compact_impl)
+            self._compact_prev = self._compact_n
+
+    def _emit_header(self, resume: bool) -> None:
+        obs.emit_header(
+            self.tel, self.device, resume, self._resume_meta,
+            engine="sharded_device",
+            n_devices=self.N,
+            n_slices=self.D,
+            visited_impl=self.visited_impl,
+            compact_impl=self.compact_impl,
+            config_sig=self._config_sig(),
+            mode="check",
+            max_states=self.SCAP,
+            sub_batch=self.G,
+            flush_factor=self.FLUSH,
+            key_cols=self.K,
+            key_exact=bool(self.keys.exact),
+            invariants=list(self.invariant_names),
+        )
 
     # --------------------------------------------------------------- run
 
@@ -828,15 +896,20 @@ class ShardedDeviceChecker:
         self._ckpt_write_s = 0.0
         self._bufs_poisoned = False
         self._flush_seq = 0
+        self._fpm_prev = [0] * FPM_N
+        self._compact_n = self._compact_prev = 0
+        self._resume_meta: Dict[str, object] = {}
         ckpt.cleanup_stale_tmp(self.checkpoint_path)
         watcher = ckpt.PreemptionWatcher(
             enabled=bool(self.checkpoint_path), log=self._log)
         self._watcher = watcher
-        try:
-            with watcher:
-                return self._run(resume, seed)
-        finally:
-            self._watcher = None
+        with obs.run_scope(self, self._telemetry_arg, self.heartbeat_s,
+                           self.SCAP):
+            try:
+                with watcher:
+                    return self._run(resume, seed)
+            finally:
+                self._watcher = None
 
     def _run(self, resume: bool, seed) -> CheckerResult:
         t0 = time.time()
@@ -856,7 +929,9 @@ class ShardedDeviceChecker:
             t0 = time.time() - wall
             self.rec.arm()  # the frame on disk is valid
             metrics.rewind(self.metrics_path, len(level_sizes))
+            self._emit_header(resume=True)
             return self._run_levels(t0, level_sizes, lb, nf)
+        self._emit_header(resume=False)
         self._alloc()
         if seed is not None:
             level_sizes, lb, nf = self._load_seed(seed)
@@ -932,6 +1007,9 @@ class ShardedDeviceChecker:
             # outside the except block: its traceback pins the tensors
             self.rec.degrade()
             self.group = max(1, self.group // 2)
+            self.tel.emit("hbm_recovery", recovery_n=self._hbm_recovered,
+                          group=self.group, distinct_states=last[0],
+                          error=last[2][:200])
             self._log(
                 "device memory exhausted on the mesh: recovering from the "
                 f"last checkpoint frame (recovery #{self._hbm_recovered}, "
@@ -1008,7 +1086,8 @@ class ShardedDeviceChecker:
             if level_count or stop:
                 level_sizes.append(max(level_count, 0))
                 self.level_route_bytes.append(self._routed_bytes - routed0)
-                self._level_done(t0, level_sizes, int(nv2.sum()))
+                self._level_done(t0, level_sizes, int(nv2.sum()),
+                                 int(nf.sum()))
             if stop:
                 reason = self._stop_reason(stats, t0) or {"truncated": True}
                 if reason.get("truncated"):
@@ -1082,8 +1161,23 @@ class ShardedDeviceChecker:
         stats = self._fetch()
         return stats, stats[:, 0].copy(), stop
 
-    def _level_done(self, t0, level_sizes, total: int) -> None:
+    def _level_done(self, t0, level_sizes, total: int,
+                    frontier: int) -> None:
+        """The level's log line, ``level`` record and ``metrics_path``
+        record (``frontier``: the frontier expanded into it)."""
         wall = time.time() - t0
+        self._snap.update(level=len(level_sizes), distinct_states=total,
+                          frontier=frontier)
+        self.tel.emit(
+            "level",
+            level=len(level_sizes),
+            new_states=int(level_sizes[-1]),
+            distinct_states=total,
+            frontier=frontier,
+            wall_s=round(wall, 3),
+            states_per_sec=round(total / max(wall, 1e-9), 1),
+            host_wait_s=round(self._host_wait_s, 3),
+        )
         self._log(f"level {len(level_sizes)}: +{level_sizes[-1]} (total "
                   f"{total}, {total / max(wall, 1e-9):.0f} st/s)")
         metrics.append(self.metrics_path, {
@@ -1275,7 +1369,8 @@ class ShardedDeviceChecker:
             self.checkpoint_path, self._config_sig(), arrays,
             wall_s=time.time() - t0,
             meta={"frame_seq": self._ckpt_frames + 1,
-                  "level": len(level_sizes), "engine": "sharded_device"},
+                  "level": len(level_sizes), "engine": "sharded_device",
+                  "run_id": self._run_id},
         )
         stall = time.perf_counter() - t_stall
         self._ckpt_frames += 1
@@ -1283,6 +1378,16 @@ class ShardedDeviceChecker:
         self._ckpt_write_s += stall
         self._ckpt_retries += retries
         self.rec.arm()  # a fresh frame re-arms the recovery
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._ckpt_frames,
+            bytes=nbytes,
+            write_s=round(_write_s, 3),
+            stall_s=round(stall, 3),
+            retries=retries,
+            level=len(level_sizes),
+            distinct_states=int(nvis.sum()),
+        )
         self._log(f"checkpoint: level {len(level_sizes)}, "
                   f"{int(nvis.sum())} states ({nbytes >> 10} KiB, "
                   f"{stall:.2f}s stall) -> {self.checkpoint_path}")
@@ -1292,6 +1397,7 @@ class ShardedDeviceChecker:
         """Rebuild every shard from the frame; returns ``(level_sizes,
         lb, nf, wall_s)``."""
         d = self.load_checkpoint()
+        self._resume_meta = ckpt.frame_meta(d)
         W, K = self.W, self.K
         nvis = np.asarray(d["n_visited"], np.int64)
         nkeys = np.asarray(d["n_keys"], np.int64)
@@ -1437,4 +1543,5 @@ class ShardedDeviceChecker:
                     _ShardLog(self._lane, self.SB), gid,
                     len(level_sizes) + 2,
                 )
+        emit_result(self.tel, res, self.last_stats)
         return res

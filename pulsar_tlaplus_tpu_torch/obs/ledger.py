@@ -1,0 +1,624 @@
+"""Cross-run regression ledger — every bench artifact and telemetry
+result, one append-only JSONL file, comparable forever (round 14).
+
+The ROADMAP's standing complaint: BENCH artifacts stop at r05, nothing
+compares runs across rounds, and the real-chip consolidation bench has
+no tool to diff against when it lands.  The ledger fixes the tooling
+half:
+
+- :func:`record_from_bench` ingests any ``BENCH_*.json`` — every
+  declared ``bench_schema`` version (1-7) plus the pre-schema r1-r4
+  artifacts and the wrapped shape (``{"parsed": {...}}``);
+- :func:`record_from_stream` ingests a telemetry stream's result via
+  the same ``report.bench_keys`` layer the bench itself uses;
+- records are keyed by **config signature + engine + fuse/visited/
+  compact mode** (:func:`config_key`) so trajectories group runs that
+  are actually comparable, deduplicated by content digest so
+  re-ingesting is idempotent;
+- ``cli.py ledger list|show|compare|gate`` renders trajectory tables
+  and per-key deltas between any two runs, and ``gate`` exits nonzero
+  on regressions past a threshold — the tool the BENCH_r06+
+  consolidation needs on day one, and a tier-1 gate against a pinned
+  mini-bench record so a PR that silently regresses dispatches/level
+  or work-units/state fails the suite.
+
+Gate semantics: each gated key has a direction (``higher`` is better
+for rates, ``lower`` for dispatch/work economy); a relative move past
+the threshold in the bad direction is a violation.  Deterministic keys
+(``dispatches_per_level``, ``work_units_per_state``) gate reliably on
+any machine; rate keys are meaningful only across runs on the same
+hardware.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+from pulsar_tlaplus_tpu_torch.obs import report
+
+LEDGER_SCHEMA = 1
+
+# scalar artifact keys copied into a record's ``values``; everything
+# else (nested dicts, arrays) stays in the source artifact
+_SCALAR = (int, float, bool, str, type(None))
+
+# gated keys and their good direction.  The deterministic economy keys
+# come first — they are what the tier-1 gate pins; the rate keys gate
+# real-chip trajectories on stable hardware.
+GATE_DIRECTIONS: Dict[str, str] = {
+    "dispatches_per_level": "lower",
+    "work_units_per_state": "lower",
+    "fpset_avg_probe_rounds": "lower",
+    "value": "higher",
+    "states_per_sec": "higher",
+    "sustained_final_60s_sps": "higher",
+    "sustained_last_level_sps": "higher",
+    "distinct_states": "higher",
+    # tiered-store economy (r16): compressed spill bytes per distinct
+    # state is deterministic on a fixed codec (the 1B byte-rate
+    # arithmetic's input); the overlap ratio gates real-chip
+    # trajectories (timing-dependent — NOT in the deterministic set)
+    "spill_bytes_per_state": "lower",
+    "spill_overlap_ratio": "higher",
+    # swarm simulation (r18): walks/s gates real-chip throughput
+    # trajectories; steps/state is DETERMINISTIC for a fixed (seed,
+    # n_walkers, depth, budget) — a change means the walk stream
+    # itself changed, which is the regression the tier-1 sim gate pins
+    "walks_per_sec": "higher",
+    "steps_per_state": "lower",
+    # fleet dispatcher (r20): queue throughput and route latency gate
+    # service-tier trajectories; replication wire bytes gate the sieve
+    # codec's economy (fewer bytes shipped for the same warm coverage)
+    "fleet_jobs_per_sec": "higher",
+    "fleet_route_ms": "lower",
+    "fleet_replicated_wire_bytes": "lower",
+    # fleet survivability (r21, bench_schema 11): how long a drained
+    # backend's queued jobs take to land elsewhere, and how long a
+    # rejoined backend's lost jobs take to deliver their real result
+    # — both lower-better service-tier latencies
+    "fleet_failover_ms": "lower",
+    "fleet_reconcile_ms": "lower",
+    # dense-tile kernels (r23, bench_schema 12): flush-stage probe
+    # throughput — the head-to-head signal for the impl knobs.  The
+    # impls are NOT part of config_key (every impl is an exact
+    # reformulation, same comparability class), which is exactly what
+    # lets a tile-impl record gate against the legacy baseline.
+    "probe_lanes_per_sec": "higher",
+}
+# the machine-independent subset — the tier-1 gate's default
+DETERMINISTIC_GATE_KEYS = (
+    "dispatches_per_level", "work_units_per_state",
+)
+# the spill-path deterministic subset (byte counts are
+# codec-deterministic): like DETERMINISTIC_GATE_KEYS above, this is
+# the documented key set the tier-1 spill gate passes EXPLICITLY
+# (tests/test_store.py) when gating a tiered record against the
+# committed tiered baseline
+SPILL_GATE_KEYS = ("spill_bytes_per_state",)
+# the simulation-path deterministic subset (fixed seed + budget =>
+# the identical walk stream): the tier-1 sim gate's explicit key set
+# (tests/test_sim.py) against the committed sim baseline
+SIM_GATE_KEYS = ("steps_per_state",)
+# the fleet-path gate subset (r21): the tier-1 fleet gate's explicit
+# key set (tests/test_fleet.py) against the committed mini
+# fleet-bench baseline.  Wire bytes are codec-deterministic for a
+# fixed workload; the latency keys ride along so a committed
+# baseline documents the survivability envelope too.
+FLEET_GATE_KEYS = ("fleet_replicated_wire_bytes",)
+# the dense-tile kernel gate subset (r23): the impl knobs may not
+# change the state-determined economy (tests/test_tiles.py gates a
+# tile-impl record against the committed legacy mini baseline on
+# exactly these keys; probe_lanes_per_sec is wall-clock and gates
+# real-chip trajectories only)
+TILES_GATE_KEYS = DETERMINISTIC_GATE_KEYS
+
+
+def _digest(values: dict) -> str:
+    blob = json.dumps(values, sort_keys=True, default=str)
+    return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+def _engine_kind(engine: Optional[str]) -> str:
+    if not engine:
+        return "?"
+    for known in (
+        "device_bfs", "sharded_device", "liveness", "sharded", "sim",
+        "bfs",
+    ):
+        if known in engine:
+            return known
+    return str(engine).split()[0][:24]
+
+
+def _workload_tag(values: dict) -> str:
+    """A stable workload identifier: the stream's config signature
+    hash when present, the canonical bench workload for the scaled
+    compaction bench, else a hash of the metric string."""
+    sig = values.get("config_sig")
+    if sig:
+        return hashlib.sha1(str(sig).encode()).hexdigest()[:8]
+    metric = str(values.get("metric", ""))
+    if "compaction.tla" in metric:
+        return "scaled-compaction"
+    if metric:
+        return hashlib.sha1(metric.encode()).hexdigest()[:8]
+    return "?"
+
+
+def config_key(values: dict) -> str:
+    """Config signature + engine + fuse/visited/compact mode — the
+    grouping under which two runs are comparable."""
+    return "|".join(
+        [
+            _workload_tag(values),
+            _engine_kind(values.get("engine")),
+            f"visited={values.get('visited_impl', '?')}",
+            f"compact={values.get('compact_impl', '?')}",
+            f"fuse={values.get('fuse', '?')}",
+        ]
+    )
+
+
+def _derive(values: dict) -> dict:
+    """Derived economy keys: total work units per distinct state —
+    the fused-era throughput-efficiency signal the gate pins."""
+    n = values.get("distinct_states")
+    if isinstance(n, (int, float)) and n:
+        work = sum(
+            int(values[k])
+            for k in (
+                "work_expand_rows", "work_probe_lanes",
+                "work_compact_elems", "work_append_rows",
+            )
+            if isinstance(values.get(k), (int, float))
+        )
+        if work:
+            values["work_units_per_state"] = round(work / n, 2)
+        comp = values.get("spill_bytes_comp")
+        if (
+            "spill_bytes_per_state" not in values
+            and isinstance(comp, (int, float))
+        ):
+            values["spill_bytes_per_state"] = round(comp / n, 2)
+    # flush-stage probe throughput (r23): derived for pre-schema-12
+    # artifacts and mini bench records that carry the raw inputs
+    lanes = values.get("work_probe_lanes")
+    wall = values.get("wall_s")
+    if (
+        values.get("probe_lanes_per_sec") is None
+        and isinstance(lanes, (int, float)) and lanes
+        and isinstance(wall, (int, float)) and wall
+    ):
+        values["probe_lanes_per_sec"] = round(lanes / wall, 1)
+    return values
+
+
+def record_from_bench(
+    d: dict, source: str = "", round_n: Optional[int] = None
+) -> dict:
+    """Ledger record from a BENCH artifact dict (wrapped artifacts
+    ``{"parsed": {...}}`` unwrap; pre-schema r1-r4 artifacts ingest
+    with ``bench_schema`` 0)."""
+    if "parsed" in d and isinstance(d["parsed"], dict):
+        if round_n is None and isinstance(d.get("n"), int):
+            round_n = d["n"]
+        d = d["parsed"]
+    values = {
+        k: v for k, v in d.items() if isinstance(v, _SCALAR)
+    }
+    _derive(values)
+    rec = {
+        "ledger_v": LEDGER_SCHEMA,
+        "kind": "bench",
+        "source": os.path.basename(source) if source else "<dict>",
+        "round": round_n,
+        "bench_schema": int(d.get("bench_schema") or 0),
+        "key": config_key(values),
+        "values": values,
+    }
+    rec["digest"] = _digest(values)
+    return rec
+
+
+def record_from_stream(events: List[dict], source: str = "") -> dict:
+    """Ledger record from a telemetry stream's events, through the
+    same ``report.bench_keys`` aggregation the bench artifact uses."""
+    values = dict(report.bench_keys(events))
+    hd = report.header(events) or {}
+    if hd.get("config_sig"):
+        values["config_sig"] = hd["config_sig"]
+    if hd.get("fuse") and "fuse" not in values:
+        values["fuse"] = hd["fuse"]
+    if hd.get("profile_sig"):
+        # tuned-profile attribution (r15, schema v8): lets list/
+        # compare/gate split tuned vs default trajectories
+        values["profile_sig"] = hd["profile_sig"]
+    if hd.get("warm"):
+        # warm-start attribution (r19, schema v12): a warm-continue
+        # run's counters cover only the continued SUFFIX of the
+        # search — gate must never baseline a cold run against one
+        values["warm"] = hd["warm"]
+    values = {
+        k: v for k, v in values.items() if isinstance(v, _SCALAR)
+    }
+    _derive(values)
+    rec = {
+        "ledger_v": LEDGER_SCHEMA,
+        "kind": "stream",
+        "source": os.path.basename(source) if source else "<stream>",
+        "round": None,
+        "bench_schema": 0,
+        "key": config_key(values),
+        "values": values,
+    }
+    rec["digest"] = _digest(values)
+    return rec
+
+
+def record_from_file(path: str) -> dict:
+    """Sniff by extension: ``.jsonl`` = telemetry stream (or a ledger
+    record line), ``.json`` = bench artifact."""
+    if path.endswith(".jsonl"):
+        events, _errs = report.load_events(path)
+        if (
+            len(events) == 1
+            and events[0].get("ledger_v")
+            and "values" in events[0]
+        ):
+            # a single pre-built ledger record (the pinned-baseline
+            # shape the tier-1 gate ships)
+            return events[0]
+        if not any(
+            e.get("event") in ("run_header", "result") for e in events
+        ):
+            # the ledger is append-only with no delete verb — a junk
+            # record ingested from a non-telemetry .jsonl (a ledger
+            # file itself, say) would pollute it permanently
+            raise ValueError(
+                f"{path}: not a telemetry stream (no run_header/"
+                "result records) — refusing to ingest"
+            )
+        return record_from_stream(events, source=path)
+    with open(path) as f:
+        d = json.load(f)
+    m = None
+    base = os.path.basename(path)
+    if base.startswith("BENCH_r"):
+        try:
+            m = int(base[len("BENCH_r"):].split(".")[0])
+        except ValueError:
+            m = None
+    return record_from_bench(d, source=path, round_n=m)
+
+
+# ---------------------------------------------------------- the file
+
+
+def load(path: str) -> List[dict]:
+    recs: List[dict] = []
+    if not os.path.exists(path):
+        return recs
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(rec, dict) and "values" in rec:
+                recs.append(rec)
+    return recs
+
+
+def append(path: str, recs: List[dict]) -> int:
+    """Append records not already present (by digest) — append-only,
+    idempotent re-ingest.  Returns the number actually added."""
+    have = {r.get("digest") for r in load(path)}
+    added = 0
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "a") as f:
+        for rec in recs:
+            if rec.get("digest") in have:
+                continue
+            rec = dict(rec)
+            rec.setdefault("ingested_unix", round(time.time(), 1))
+            f.write(json.dumps(rec, sort_keys=True) + "\n")
+            have.add(rec.get("digest"))
+            added += 1
+    return added
+
+
+def resolve(recs: List[dict], ref: str) -> dict:
+    """A record by 1-based index, digest prefix, or source name."""
+    if ref.isdigit() and 1 <= int(ref) <= len(recs):
+        return recs[int(ref) - 1]
+    hits = [
+        r for r in recs
+        if str(r.get("digest", "")).startswith(ref)
+        or r.get("source") == ref
+        or r.get("source") == os.path.basename(ref)
+    ]
+    if len(hits) == 1:
+        return hits[0]
+    if not hits:
+        raise KeyError(
+            f"no ledger record matches {ref!r} "
+            f"(have {len(recs)} record(s) — try `ledger list`)"
+        )
+    raise KeyError(
+        f"{ref!r} is ambiguous: "
+        + ", ".join(str(r.get("digest")) for r in hits[:5])
+    )
+
+
+def validate_ledger(path: str) -> List[str]:
+    """Schema violations in one ledger file (empty = clean): each line
+    a JSON object with ledger_v/digest/key/values, digests unique and
+    consistent with the values they claim to fingerprint."""
+    errors: List[str] = []
+    seen: Dict[str, int] = {}
+    n = 0
+    try:
+        f = open(path)
+    except OSError as e:
+        return [f"{path}: unreadable ({e})"]
+    with f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            n += 1
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                errors.append(f"{path}:{i}: unparseable JSON ({e})")
+                continue
+            if not isinstance(rec, dict):
+                errors.append(f"{path}:{i}: not a JSON object")
+                continue
+            for k in ("ledger_v", "digest", "key", "values"):
+                if k not in rec:
+                    errors.append(f"{path}:{i}: missing {k!r}")
+            if not isinstance(rec.get("values"), dict):
+                errors.append(f"{path}:{i}: values is not an object")
+                continue
+            dg = rec.get("digest")
+            if isinstance(dg, str):
+                if dg in seen:
+                    errors.append(
+                        f"{path}:{i}: duplicate digest {dg} "
+                        f"(first at line {seen[dg]})"
+                    )
+                seen[dg] = i
+                if dg != _digest(rec["values"]):
+                    errors.append(
+                        f"{path}:{i}: digest {dg} does not match the "
+                        "record's values (tampered or hand-edited)"
+                    )
+    if n == 0:
+        errors.append(f"{path}: empty ledger")
+    return errors
+
+
+# ---------------------------------------------------------- rendering
+
+
+def _fmt(v) -> str:
+    if v is None:
+        return "—"
+    if isinstance(v, float):
+        return f"{v:,.2f}"
+    if isinstance(v, int):
+        return f"{v:,}"
+    return str(v)[:40]
+
+
+LIST_COLS = (
+    "value", "distinct_states", "levels", "dispatches_per_level",
+    "work_units_per_state", "stop_reason", "profile_sig",
+)
+
+
+def profile_of(rec: dict) -> Optional[str]:
+    """The tuned-profile signature a record ran under (None =
+    untuned) — the tuned-vs-default grouping key."""
+    p = (rec.get("values") or {}).get("profile_sig")
+    return str(p) if p else None
+
+
+def baseline_matches_profile(rec: dict, want: str, cur: dict) -> bool:
+    """Whether ``rec`` is an acceptable gate baseline under the
+    ``--profile`` context: ``"same"`` = identical profile context to
+    the current record (tuned gates against tuned, default against
+    default — the default policy), ``"none"`` = only untuned
+    baselines (is tuning a regression vs hand defaults?), ``"any"``
+    = no filter, anything else = a profile-sig prefix."""
+    p = profile_of(rec)
+    if want == "any":
+        return True
+    if want == "same":
+        return p == profile_of(cur)
+    if want == "none":
+        return p is None
+    return p is not None and p.startswith(want)
+
+
+def warm_of(rec: dict) -> str:
+    """A record's warm-start context, normalized: ``continue`` /
+    ``reseed`` for warm-started runs, ``cold`` for everything else
+    (including every pre-v12 record)."""
+    w = (rec.get("values") or {}).get("warm")
+    return str(w) if w in ("continue", "reseed") else "cold"
+
+
+def baseline_matches_warm(rec: dict, cur: dict) -> bool:
+    """Whether ``rec`` is an acceptable default-gate baseline for
+    ``cur`` under the warm-start context: like-for-like only.  A
+    warm-CONTINUE record's wall/rate/dispatch counters cover only the
+    resumed suffix of the search, so letting one baseline a cold run
+    (or vice versa) would make every gate comparison structurally
+    meaningless — the r19 ledger-hardening satellite."""
+    return warm_of(rec) == warm_of(cur)
+
+
+def render_list(recs: List[dict], key: Optional[str] = None) -> str:
+    """Trajectory table: one row per record, grouped by config key —
+    the perf-over-rounds view the ROADMAP says is invisible."""
+    rows = [r for r in recs if key is None or r.get("key") == key]
+    if not rows:
+        return "(no ledger records" + (f" for key {key}" if key else "") + ")"
+    lines = [
+        "| # | digest | source | key | "
+        + " | ".join(LIST_COLS) + " |",
+        "|" + "---|" * (4 + len(LIST_COLS)),
+    ]
+    for i, r in enumerate(rows, 1):
+        v = r.get("values", {})
+        lines.append(
+            f"| {i} | {r.get('digest', '?')[:8]} "
+            f"| {r.get('source', '?')} | {r.get('key', '?')} | "
+            + " | ".join(_fmt(v.get(c)) for c in LIST_COLS)
+            + " |"
+        )
+    return "\n".join(lines)
+
+
+def render_show(rec: dict) -> str:
+    head = (
+        f"record {rec.get('digest')} — {rec.get('source')} "
+        f"(kind {rec.get('kind')}, bench_schema "
+        f"{rec.get('bench_schema')})\nkey: {rec.get('key')}\n"
+    )
+    v = rec.get("values", {})
+    body = "\n".join(
+        f"  {k}: {_fmt(v[k])}" for k in sorted(v)
+    )
+    return head + body
+
+
+def compare(a: dict, b: dict) -> List[Dict[str, object]]:
+    """Per-key deltas between two records: every numeric key present
+    in either, with absolute and relative change (b vs a)."""
+    va, vb = a.get("values", {}), b.get("values", {})
+    keys = sorted(set(va) | set(vb))
+    rows: List[Dict[str, object]] = []
+    for k in keys:
+        x, y = va.get(k), vb.get(k)
+        numeric = isinstance(x, (int, float)) and isinstance(
+            y, (int, float)
+        ) and not isinstance(x, bool) and not isinstance(y, bool)
+        if not numeric and x == y:
+            continue  # unchanged non-numerics are noise
+        row: Dict[str, object] = {"key": k, "a": x, "b": y}
+        if numeric:
+            row["delta"] = round(y - x, 4)
+            row["pct"] = (
+                round(100.0 * (y - x) / abs(x), 2) if x else None
+            )
+        rows.append(row)
+    return rows
+
+
+def render_compare(a: dict, b: dict) -> str:
+    rows = compare(a, b)
+    head = (
+        f"comparing A={a.get('source')} ({a.get('digest', '?')[:8]}) "
+        f"-> B={b.get('source')} ({b.get('digest', '?')[:8]})\n"
+    )
+    if a.get("key") != b.get("key"):
+        head += (
+            "WARNING: config keys differ — the runs are not directly "
+            f"comparable\n  A: {a.get('key')}\n  B: {b.get('key')}\n"
+        )
+    if not rows:
+        return head + "(no differing keys)"
+    lines = [
+        "| key | A | B | delta | % |",
+        "|---|---|---|---|---|",
+    ]
+    for r in rows:
+        pct = (
+            f"{r['pct']:+.1f}%"
+            if isinstance(r.get("pct"), (int, float)) else "—"
+        )
+        lines.append(
+            f"| {r['key']} | {_fmt(r.get('a'))} | {_fmt(r.get('b'))} "
+            f"| {_fmt(r.get('delta'))} | {pct} |"
+        )
+    return head + "\n".join(lines)
+
+
+# --------------------------------------------------------------- gate
+
+
+def gate(
+    baseline: dict,
+    current: dict,
+    threshold: float = 0.1,
+    keys: Optional[Tuple[str, ...]] = None,
+) -> List[Dict[str, object]]:
+    """Regressions of ``current`` vs ``baseline`` past ``threshold``
+    (relative).  Returns violation rows (empty = gate passes).
+    Explicitly requested keys the gate does not know how to judge
+    raise — a typo'd ``--keys`` must never pass vacuously."""
+    if keys:
+        unknown = [k for k in keys if k not in GATE_DIRECTIONS]
+        if unknown:
+            raise KeyError(
+                f"unknown gate key(s) {unknown} — known: "
+                + ", ".join(sorted(GATE_DIRECTIONS))
+            )
+    use = keys or tuple(GATE_DIRECTIONS)
+    va = baseline.get("values", {})
+    vb = current.get("values", {})
+    out: List[Dict[str, object]] = []
+    for k in use:
+        direction = GATE_DIRECTIONS.get(k)
+        if direction is None:
+            continue
+        x, y = va.get(k), vb.get(k)
+        if not isinstance(x, (int, float)) or not isinstance(
+            y, (int, float)
+        ) or isinstance(x, bool) or isinstance(y, bool):
+            continue
+        if x == 0:
+            continue
+        rel = (y - x) / abs(x)
+        bad = (
+            rel > threshold if direction == "lower"
+            else rel < -threshold
+        )
+        if bad:
+            out.append(
+                {
+                    "key": k,
+                    "direction": direction,
+                    "baseline": x,
+                    "current": y,
+                    "rel": round(rel, 4),
+                    "threshold": threshold,
+                }
+            )
+    return out
+
+
+def render_gate(violations: List[Dict[str, object]]) -> str:
+    if not violations:
+        return "gate: PASS (no regressions past threshold)"
+    lines = ["gate: FAIL —"]
+    for v in violations:
+        lines.append(
+            f"  {v['key']}: {_fmt(v['baseline'])} -> "
+            f"{_fmt(v['current'])} ({v['rel'] * 100:+.1f}%, "
+            f"{v['direction']} is better, threshold "
+            f"±{v['threshold'] * 100:.0f}%)"
+        )
+    return "\n".join(lines)

@@ -1,0 +1,1153 @@
+"""Flight deck: Prometheus text-exposition metrics from a run's stream —
+the stream side of ``pulsar_tlaplus_tpu/obs/metrics.py``.
+
+:func:`stream_metrics` derives the ``ptt_*`` families from a telemetry
+stream's tail (last ``level``/``flush`` records, event sums), so a solo
+``-telemetry`` run exports them via ``cli.py metrics --stream
+run.jsonl``; daemon (``job_*``) and dispatcher streams render their
+families too, since these are pure functions over records.  The live
+scrapes of a daemon or a dispatcher (``scheduler_metrics``,
+``fleet_metrics``) come with those tiers (ROADMAP A15d/A15e).
+
+Exposition format: the Prometheus text format, one ``# HELP``/``# TYPE``
+pair per family.  :func:`parse_exposition` is the minimal inverse used
+by the tests and by ``cli.py top``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+# the daemon's job lifecycle states (``service/jobs.py`` of the JAX
+# package; the port's daemon is ROADMAP A15d)
+QUEUED = "queued"
+RUNNING = "running"
+SUSPENDED = "suspended"
+DONE = "done"
+FAILED = "failed"
+CANCELLED = "cancelled"
+STATES = (QUEUED, RUNNING, SUSPENDED, DONE, FAILED, CANCELLED)
+
+# ---------------------------------------------------------- histograms
+
+# The ONE fixed bucket ladder every ptt_*_seconds latency histogram
+# uses (r22).  Fixed — never adaptive — so a live dispatcher scrape
+# and a stream replay re-bin the identical observations into the
+# identical cumulative counts, and so two backends' histograms are
+# always mergeable bucket-for-bucket.  Spans sub-ms routing decisions
+# to multi-minute end-to-end jobs.
+LATENCY_BUCKETS_S: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+)
+
+
+def _fmt_le(b: float) -> str:
+    return f"{b:g}"
+
+
+class Histogram:
+    """A fixed-bucket latency histogram (Prometheus semantics: the
+    rendered ``_bucket`` series are CUMULATIVE and end at
+    ``le="+Inf"``; ``_sum``/``_count`` ride beside them).  ``counts``
+    holds per-bucket (non-cumulative) tallies, one extra slot for
+    +Inf — cumulation happens at render time."""
+
+    def __init__(self, bounds: Tuple[float, ...] = LATENCY_BUCKETS_S):
+        self.bounds = tuple(bounds)
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, seconds: float) -> None:
+        s = float(seconds)
+        i = len(self.bounds)
+        for j, b in enumerate(self.bounds):
+            if s <= b:
+                i = j
+                break
+        self.counts[i] += 1
+        self.sum += s
+        self.count += 1
+
+    def copy(self) -> "Histogram":
+        h = Histogram(self.bounds)
+        h.counts = list(self.counts)
+        h.sum = self.sum
+        h.count = self.count
+        return h
+
+    def cumulative(self) -> List[Tuple[str, int]]:
+        """[(le_label, cumulative_count)] ending at ("+Inf", count)."""
+        out: List[Tuple[str, int]] = []
+        acc = 0
+        for b, n in zip(self.bounds, self.counts):
+            acc += n
+            out.append((_fmt_le(b), acc))
+        out.append(("+Inf", self.count))
+        return out
+
+
+def histogram_quantile(
+    q: float, cumulative: List[Tuple[float, float]]
+) -> Optional[float]:
+    """Prometheus-style quantile estimate from cumulative
+    ``[(le, count)]`` pairs (le may be ``float("inf")``): linear
+    interpolation within the bucket the rank falls in, the upper
+    bound for the +Inf bucket's lower edge.  None on an empty
+    histogram — absent beats a fabricated zero."""
+    pairs = sorted(cumulative, key=lambda p: p[0])
+    if not pairs or pairs[-1][1] <= 0:
+        return None
+    total = pairs[-1][1]
+    rank = q * total
+    prev_le, prev_n = 0.0, 0.0
+    for le, n in pairs:
+        if n >= rank:
+            if le == float("inf"):
+                return prev_le  # unbounded bucket: report its floor
+            if n == prev_n:
+                return le
+            frac = (rank - prev_n) / (n - prev_n)
+            return prev_le + (le - prev_le) * frac
+        prev_le, prev_n = le, n
+    return pairs[-1][0]
+
+
+# ------------------------------------------------------------ families
+
+
+class Family:
+    """One metric family: name, type, help, and labelled samples.
+    ``kind`` may be ``histogram`` (r22): such a family holds
+    :class:`Histogram` samples added via :meth:`add_hist` and renders
+    the Prometheus ``_bucket``/``_sum``/``_count`` triplet."""
+
+    def __init__(self, name: str, kind: str, help_: str):
+        self.name = name
+        self.kind = kind  # "gauge" | "counter" | "histogram"
+        self.help = help_
+        self.samples: List[Tuple[Dict[str, str], float]] = []
+        self.hist_samples: List[Tuple[Dict[str, str], Histogram]] = []
+
+    def add(self, value, labels: Optional[Dict[str, str]] = None):
+        if value is None:
+            return self
+        self.samples.append((dict(labels or {}), float(value)))
+        return self
+
+    def add_hist(
+        self, hist: Optional[Histogram],
+        labels: Optional[Dict[str, str]] = None,
+    ):
+        if hist is None or hist.count <= 0:
+            return self
+        self.hist_samples.append((dict(labels or {}), hist))
+        return self
+
+
+def _fmt_labels(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{_esc(v)}"' for k, v in sorted(labels.items())
+    )
+    return "{" + inner + "}"
+
+
+def render_exposition(families: List[Family]) -> str:
+    """Families -> Prometheus text exposition (families with no
+    samples are skipped — absent beats a fabricated zero)."""
+    lines: List[str] = []
+    for f in families:
+        if f.kind == "histogram":
+            if not f.hist_samples:
+                continue
+            lines.append(f"# HELP {f.name} {f.help}")
+            lines.append(f"# TYPE {f.name} histogram")
+            for labels, h in f.hist_samples:
+                for le, n in h.cumulative():
+                    lab = _fmt_labels({**labels, "le": le})
+                    lines.append(f"{f.name}_bucket{lab} {n}")
+                lab = _fmt_labels(labels)
+                lines.append(f"{f.name}_sum{lab} {round(h.sum, 6)}")
+                lines.append(f"{f.name}_count{lab} {h.count}")
+            continue
+        if not f.samples:
+            continue
+        lines.append(f"# HELP {f.name} {f.help}")
+        lines.append(f"# TYPE {f.name} {f.kind}")
+        for labels, value in f.samples:
+            lab = _fmt_labels(labels)
+            if value == int(value):
+                lines.append(f"{f.name}{lab} {int(value)}")
+            else:
+                lines.append(f"{f.name}{lab} {value}")
+    return "\n".join(lines) + "\n"
+
+
+def _esc(v) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"')
+
+
+def parse_exposition(text: str):
+    """Prometheus text -> {name: [(labels, value)]}, plus the TYPE map
+    — the minimal scrape parser ``top`` and the tests use."""
+    out: Dict[str, List[Tuple[Dict[str, str], float]]] = {}
+    types: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(None, 3)
+            types[name] = kind
+            continue
+        if line.startswith("#"):
+            continue
+        try:
+            key, val_s = line.rsplit(None, 1)
+            value = float(val_s)
+        except ValueError:
+            raise ValueError(f"unparseable sample line: {line!r}")
+        labels: Dict[str, str] = {}
+        name = key
+        if "{" in key:
+            name, rest = key.split("{", 1)
+            if not rest.endswith("}"):
+                raise ValueError(f"unbalanced labels: {line!r}")
+            body = rest[:-1]
+            if body:
+                for part in body.split(","):
+                    k, v = part.split("=", 1)
+                    v = v.strip('"')
+                    labels[k] = (
+                        v.replace('\\"', '"').replace("\\\\", "\\")
+                    )
+        out.setdefault(name, []).append((labels, value))
+    return out, types
+
+
+def validate_exposition(text: str, label: str = "<exposition>"):
+    """Structural violations in a Prometheus text exposition (empty
+    list = clean) — the histogram-consistency cross-check behind
+    ``check_telemetry_schema.py --metrics``.
+
+    For every TYPE-histogram family, each label-set's bucket series
+    must: carry parseable ``le`` labels ending at ``+Inf``; be
+    cumulative (monotone non-decreasing by ascending ``le``); agree
+    with its ``_count`` sample (+Inf bucket == count); and carry a
+    ``_sum`` bounded by what the buckets admit — at least
+    sum(bucket_count * lower_edge), and (when no observation landed
+    past the last finite bucket) at most sum(bucket_count * le).  A
+    scrape that re-bins, drops a bucket, or double-counts fails here
+    rather than silently skewing every derived quantile."""
+    errors: List[str] = []
+    try:
+        samples, types = parse_exposition(text)
+    except ValueError as e:
+        return [f"{label}: {e}"]
+    for fam, kind in sorted(types.items()):
+        if kind != "histogram":
+            continue
+        # group bucket samples by their non-le label set
+        series: Dict[tuple, List[Tuple[float, float]]] = {}
+        for labels, v in samples.get(fam + "_bucket", []):
+            rest = tuple(
+                sorted((k, x) for k, x in labels.items() if k != "le")
+            )
+            le_s = labels.get("le")
+            try:
+                le = float(le_s)
+            except (TypeError, ValueError):
+                errors.append(
+                    f"{label}: {fam}_bucket has unparseable "
+                    f"le={le_s!r}"
+                )
+                continue
+            series.setdefault(rest, []).append((le, v))
+        counts = {
+            tuple(sorted(lb.items())): v
+            for lb, v in samples.get(fam + "_count", [])
+        }
+        sums = {
+            tuple(sorted(lb.items())): v
+            for lb, v in samples.get(fam + "_sum", [])
+        }
+        if not series:
+            errors.append(f"{label}: histogram {fam} has no buckets")
+        for rest, pairs in sorted(series.items()):
+            where = f"{label}: {fam}{dict(rest) or ''}"
+            pairs.sort(key=lambda p: p[0])
+            if pairs[-1][0] != float("inf"):
+                errors.append(f"{where}: no +Inf bucket")
+            prev = 0.0
+            for le, v in pairs:
+                if v < prev:
+                    errors.append(
+                        f"{where}: bucket le={le:g} count {v:g} < "
+                        f"previous {prev:g} (buckets are cumulative)"
+                    )
+                prev = v
+            total = counts.get(rest)
+            if total is None:
+                errors.append(f"{where}: missing _count sample")
+            elif pairs[-1][0] == float("inf") and total != pairs[-1][1]:
+                errors.append(
+                    f"{where}: _count {total:g} != +Inf bucket "
+                    f"{pairs[-1][1]:g}"
+                )
+            s = sums.get(rest)
+            if s is None:
+                errors.append(f"{where}: missing _sum sample")
+                continue
+            if total is not None and total == 0 and s != 0:
+                errors.append(
+                    f"{where}: _sum {s:g} with zero _count"
+                )
+            # bounds the buckets admit (1e-6 slack: _sum is rounded)
+            lo = hi = 0.0
+            prev_cum = 0.0
+            prev_le = 0.0
+            unbounded = False
+            for le, v in pairs:
+                n_in = v - prev_cum
+                lo += n_in * prev_le
+                if le == float("inf"):
+                    unbounded = unbounded or n_in > 0
+                else:
+                    hi += n_in * le
+                prev_cum, prev_le = v, le
+            if s < lo - 1e-6:
+                errors.append(
+                    f"{where}: _sum {s:g} below bucket floor {lo:g}"
+                )
+            if not unbounded and s > hi + 1e-6:
+                errors.append(
+                    f"{where}: _sum {s:g} above bucket ceiling {hi:g}"
+                )
+    return errors
+
+
+# ----------------------------------------------- shared engine families
+
+
+def _engine_families(
+    stats: Dict[str, object], snap: Dict[str, object]
+) -> List[Family]:
+    """The engine-health families BOTH modes emit, from a last-stats
+    dict + heartbeat-style snapshot (either live objects or their
+    stream-derived equivalents)."""
+    f_distinct = Family(
+        "ptt_distinct_states", "gauge",
+        "Distinct states found by the focal run",
+    ).add(snap.get("distinct_states"))
+    f_rate = Family(
+        "ptt_states_per_sec", "gauge",
+        "Recent distinct-state discovery rate",
+    ).add(snap.get("states_per_sec"))
+    f_level = Family(
+        "ptt_bfs_level", "gauge", "Current BFS level (search depth)"
+    ).add(snap.get("level"))
+    f_frontier = Family(
+        "ptt_frontier_states", "gauge", "Current BFS frontier size"
+    ).add(snap.get("frontier"))
+    f_occ = Family(
+        "ptt_fpset_occupancy", "gauge",
+        "Visited-set hash table load factor",
+    ).add(snap.get("occupancy"))
+    f_probe = Family(
+        "ptt_fpset_max_probe_rounds", "gauge",
+        "Worst single flush's probe depth (schedule tuning signal)",
+    ).add(stats.get("fpset_max_probe_rounds"))
+    f_lanes = Family(
+        "ptt_fpset_valid_lanes_total", "counter",
+        "Candidate lanes examined (duplicate-rate denominator)",
+    ).add(stats.get("fpset_valid_lanes"))
+    f_flushes = Family(
+        "ptt_fpset_flushes_total", "counter",
+        "Visited-set flush dispatches",
+    ).add(stats.get("fpset_flushes"))
+    f_hbm = Family(
+        "ptt_hbm_recoveries_total", "counter",
+        "Device-memory exhaustion recoveries",
+    ).add(stats.get("hbm_recovered"))
+    f_frames = Family(
+        "ptt_ckpt_frames_total", "counter",
+        "Checkpoint frames written",
+    ).add(stats.get("ckpt_frames"))
+    f_stall = Family(
+        "ptt_ckpt_stall_seconds_total", "counter",
+        "Run-loop seconds blocked on checkpoint frame writes",
+    ).add(stats.get("ckpt_write_s"))
+    f_fetches = Family(
+        "ptt_stats_fetches_total", "counter",
+        "Hot-path device stats fetches (the one engine sync)",
+    ).add(stats.get("stats_fetches"))
+    # fused-era work units (r14): the in-kernel per-stage counters the
+    # cost-attribution model prices — a dashboard can watch work per
+    # state drift without any stage-timing rerun
+    work_fams = [
+        Family(
+            "ptt_work_expand_rows_total", "counter",
+            "Live frontier rows fed through expand windows",
+        ).add(stats.get("work_expand_rows")),
+        Family(
+            "ptt_work_probe_lanes_total", "counter",
+            "Candidate lanes presented to the fpset flush",
+        ).add(stats.get("work_probe_lanes")),
+        Family(
+            "ptt_work_compact_elems_total", "counter",
+            "Elements moved by stream compaction",
+        ).add(stats.get("work_compact_elems")),
+        Family(
+            "ptt_work_append_rows_total", "counter",
+            "Deduped rows landed by the append stage",
+        ).add(stats.get("work_append_rows")),
+    ]
+    # tiered-store spill families (r16): the budget knob's live
+    # observables — eviction traffic, raw-vs-compressed bytes, miss
+    # resolution, and transfer seconds (docs/memory.md)
+    spill_fams = [
+        Family(
+            "ptt_spill_keys_evicted_total", "counter",
+            "Visited keys evicted to the cold tiers",
+        ).add(stats.get("spill_keys_evicted")),
+        Family(
+            "ptt_spill_rows_evicted_total", "counter",
+            "Aged row-store states spilled to the cold tiers",
+        ).add(stats.get("spill_rows_evicted")),
+        Family(
+            "ptt_spill_bytes_raw_total", "counter",
+            "Raw bytes spilled (pre-compression plane width)",
+        ).add(stats.get("spill_bytes_raw")),
+        Family(
+            "ptt_spill_bytes_comp_total", "counter",
+            "Encoded bytes spilled (delta + zlib)",
+        ).add(stats.get("spill_bytes_comp")),
+        Family(
+            "ptt_spill_transfer_seconds_total", "counter",
+            "Spill transfer work (D2H gather + encode + write)",
+        ).add(stats.get("spill_transfer_s")),
+        Family(
+            "ptt_spill_misses_resolved_total", "counter",
+            "Hot-filter survivors resolved against the cold tiers",
+        ).add(stats.get("spill_misses_resolved")),
+    ]
+    # swarm-simulation families (r18): the streaming walker engine's
+    # cumulative counters + the advisory duplicate estimate — present
+    # only when the focal run is a simulation (absent beats zero)
+    sim_fams = [
+        Family(
+            "ptt_sim_steps_total", "counter",
+            "Random steps taken across the walker swarm",
+        ).add(stats.get("sim_steps")),
+        Family(
+            "ptt_sim_states_total", "counter",
+            "States visited by the swarm (not distinct)",
+        ).add(stats.get("sim_states")),
+        Family(
+            "ptt_sim_walks_total", "counter",
+            "Completed behaviors (walker-rounds finished)",
+        ).add(stats.get("sim_walks")),
+        Family(
+            "ptt_sim_violations_total", "counter",
+            "Walker-steps that hit an invariant violation",
+        ).add(stats.get("sim_violations")),
+        Family(
+            "ptt_sim_walkers", "gauge",
+            "Walker swarm width (vectorized walks per dispatch)",
+        ).add(stats.get("sim_walkers")),
+        Family(
+            "ptt_sim_walks_per_sec", "gauge",
+            "Completed-behavior throughput",
+        ).add(stats.get("walks_per_sec")),
+        Family(
+            "ptt_sim_dup_ratio_est", "gauge",
+            "Sampled-duplicate estimate (advisory coverage signal)",
+        ).add(stats.get("sim_dup_ratio_est")),
+    ]
+    return [
+        f_distinct, f_rate, f_level, f_frontier, f_occ, f_probe,
+        f_lanes, f_flushes, f_hbm, f_frames, f_stall, f_fetches,
+    ] + work_fams + spill_fams + sim_fams
+
+
+def _admission_families(
+    admitted: Dict[str, float],
+    rejected: Dict[Tuple[str, str], float],
+    deduped: Dict[str, float],
+) -> List[Family]:
+    """The r17 admission-control families — admitted / rejected /
+    shed by reason, per tenant (the ``ptt_admission_*``
+    contract; load sheds are the ``reason="queue_full"`` slice of
+    rejected plus their own total for alerting)."""
+    f_adm = Family(
+        "ptt_admission_admitted_total", "counter",
+        "Submits admitted past quota checks, by tenant",
+    )
+    for tenant, n in sorted(admitted.items()):
+        f_adm.add(n, {"tenant": tenant})
+    f_rej = Family(
+        "ptt_admission_rejected_total", "counter",
+        "Submits rejected at the door, by tenant and reason",
+    )
+    f_shed = Family(
+        "ptt_admission_shed_total", "counter",
+        "Submits shed by the global queue cap, by tenant",
+    )
+    for (tenant, reason), n in sorted(rejected.items()):
+        f_rej.add(n, {"tenant": tenant, "reason": reason})
+        if reason == "queue_full":
+            f_shed.add(n, {"tenant": tenant})
+    f_dedup = Family(
+        "ptt_admission_deduped_total", "counter",
+        "Retried submits answered by an existing job (submit_id)",
+    )
+    for tenant, n in sorted(deduped.items()):
+        f_dedup.add(n, {"tenant": tenant})
+    return [f_adm, f_rej, f_shed, f_dedup]
+
+
+def _warm_families(
+    counts: Dict[Tuple[str, str], float],
+    cache_bytes: Optional[float] = None,
+) -> List[Family]:
+    """The r19 incremental-checking families: one counter per warm
+    outcome — ``hit`` (continue), ``reseed``, ``cold`` — labelled by
+    the machine-readable reason, plus the artifact store's byte
+    gauge.  Identically named from the live daemon and a stream tail
+    (docs/incremental.md / docs/observability.md)."""
+    fams = {
+        "continue": Family(
+            "ptt_warm_hit_total", "counter",
+            "Jobs warm-started by resuming an artifact frame "
+            "(continue mode), by reason",
+        ),
+        "reseed": Family(
+            "ptt_warm_reseed_total", "counter",
+            "Jobs warm-started across a constant widening (reseed "
+            "mode), by reason",
+        ),
+        "cold": Family(
+            "ptt_warm_cold_total", "counter",
+            "Jobs that ran a full cold recheck, by typed reason",
+        ),
+    }
+    for (mode, reason), n in sorted(counts.items()):
+        fam = fams.get(mode)
+        if fam is not None:
+            fam.add(n, {"reason": str(reason)})
+    out = list(fams.values())
+    if cache_bytes is not None:
+        out.append(
+            Family(
+                "ptt_warm_cache_bytes", "gauge",
+                "Warm-artifact store size on disk",
+            ).add(cache_bytes)
+        )
+    return out
+
+
+# the six fleet latency histograms (r22): metric family name ->
+# (help, the dispatcher-stream event + millisecond field each
+# observation rides, so stream replay re-bins identically to the
+# live scrape — the r12 live-vs-stream contract)
+FLEET_HIST_SPECS: Tuple[Tuple[str, str, str, str], ...] = (
+    ("ptt_fleet_route_seconds",
+     "Routing decision latency (submit arrival to backend pick)",
+     "route", "route_ms"),
+    ("ptt_fleet_submit_ack_seconds",
+     "Submit latency end-to-end (arrival to backend ack relayed)",
+     "route", "ack_ms"),
+    ("ptt_fleet_job_e2e_seconds",
+     "End-to-end job latency (submit accepted to observed terminal)",
+     "complete", "e2e_ms"),
+    ("ptt_fleet_watch_leg_seconds",
+     "Watch-relay leg duration (owner re-resolution cadence)",
+     "relay", "leg_ms"),
+    ("ptt_fleet_failover_seconds",
+     "Failover pass duration (drain detected to jobs resubmitted)",
+     "failover", "wall_ms"),
+    ("ptt_fleet_reconcile_seconds",
+     "Reconcile pass duration (rejoin detected to lost jobs "
+     "answered for)",
+     "partition", "wall_ms"),
+)
+
+
+def new_fleet_hists() -> Dict[str, Histogram]:
+    """One fixed-bucket histogram per fleet latency family — the
+    shared shape for the dispatcher's live state and the stream
+    replay."""
+    return {name: Histogram() for name, _h, _e, _f in FLEET_HIST_SPECS}
+
+
+def _fleet_hist_families(
+    hists: Optional[Dict[str, Histogram]],
+) -> List[Family]:
+    out: List[Family] = []
+    for name, help_, _ev, _field in FLEET_HIST_SPECS:
+        out.append(
+            Family(name, "histogram", help_).add_hist(
+                (hists or {}).get(name)
+            )
+        )
+    return out
+
+
+def fleet_hists_from_events(events: List[dict]) -> Dict[str, Histogram]:
+    """Re-bin a dispatcher stream's latency observations into the
+    same fixed buckets the live dispatcher maintains — family-for-
+    family (and bucket-for-bucket) identical to a live scrape over
+    the same history."""
+    hists = new_fleet_hists()
+    by_event: Dict[Tuple[str, str], str] = {
+        (ev, field): name
+        for name, _h, ev, field in FLEET_HIST_SPECS
+    }
+    for e in events:
+        ev = e.get("event")
+        for (src_ev, field), name in by_event.items():
+            if ev == src_ev and isinstance(
+                e.get(field), (int, float)
+            ):
+                hists[name].observe(float(e[field]) / 1000.0)
+    return hists
+
+
+def _fleet_families(
+    backends: Dict[str, str],
+    routes: Dict[Tuple[str, str], float],
+    route_s: float,
+    repl_blobs: Dict[str, float],
+    repl_bytes: Dict[str, float],
+    failovers: Dict[str, float],
+    resubmitted: Dict[str, float],
+    reconciled: Optional[Dict[str, float]] = None,
+    partitions: Optional[Dict[str, float]] = None,
+    recoveries: float = 0.0,
+    persist_failures: float = 0.0,
+    holds: float = 0.0,
+    held_sheds: float = 0.0,
+    hists: Optional[Dict[str, Histogram]] = None,
+) -> List[Family]:
+    """The r20 fleet-dispatcher families (docs/fleet.md): backend
+    health by address, submit placements by backend and routing
+    reason (``sticky`` / ``least_loaded`` / ``only_backend``),
+    cumulative placement latency, the replication sieve's shipped
+    blobs + delta-compressed wire bytes by destination, and
+    failover drains + the queued jobs they resubmitted.  r21 adds
+    the survivability families: lost jobs reconciled by a rejoined
+    backend, partition windows closed, ``--recover`` passes, and
+    fleet_jobs.json persist failures.  Identically named from the
+    live dispatcher and a stream tail."""
+    f_back = Family(
+        "ptt_fleet_backends", "gauge",
+        "Registered backends by address and health state",
+    )
+    for addr, state in sorted(backends.items()):
+        f_back.add(1, {"backend": addr, "state": state})
+    f_routes = Family(
+        "ptt_fleet_routes_total", "counter",
+        "Submits placed, by backend and routing reason",
+    )
+    for (addr, reason), n in sorted(routes.items()):
+        f_routes.add(n, {"backend": addr, "reason": reason})
+    f_route_s = Family(
+        "ptt_fleet_route_seconds_total", "counter",
+        "Cumulative placement latency (admission to backend ack)",
+    ).add(round(route_s, 6) if routes else None)
+    f_blobs = Family(
+        "ptt_fleet_replicated_blobs_total", "counter",
+        "Warm-artifact blobs shipped by the sieve, by destination",
+    )
+    for addr, n in sorted(repl_blobs.items()):
+        f_blobs.add(n, {"backend": addr})
+    f_bytes = Family(
+        "ptt_fleet_replicated_wire_bytes_total", "counter",
+        "Delta-compressed replication bytes on the wire, by "
+        "destination",
+    )
+    for addr, n in sorted(repl_bytes.items()):
+        f_bytes.add(n, {"backend": addr})
+    f_fail = Family(
+        "ptt_fleet_failovers_total", "counter",
+        "Backend drains (stopped answering), by backend",
+    )
+    for addr, n in sorted(failovers.items()):
+        f_fail.add(n, {"backend": addr})
+    f_resub = Family(
+        "ptt_fleet_resubmitted_total", "counter",
+        "Queued jobs resubmitted elsewhere on failover, by the "
+        "drained backend",
+    )
+    for addr, n in sorted(resubmitted.items()):
+        f_resub.add(n, {"backend": addr})
+    f_recon = Family(
+        "ptt_fleet_reconciled_total", "counter",
+        "Lost jobs answered for by a rejoined backend (lost -> "
+        "real state), by backend",
+    )
+    for addr, n in sorted((reconciled or {}).items()):
+        f_recon.add(n, {"backend": addr})
+    f_part = Family(
+        "ptt_fleet_partitions_total", "counter",
+        "Partition windows closed (a drained backend rejoined "
+        "still holding its jobs), by backend",
+    )
+    for addr, n in sorted((partitions or {}).items()):
+        f_part.add(n, {"backend": addr})
+    f_recov = Family(
+        "ptt_fleet_recoveries_total", "counter",
+        "dispatch --recover passes (job table rebuilt from the "
+        "backends' authoritative tables)",
+    ).add(recoveries or None)
+    f_persist = Family(
+        "ptt_fleet_persist_failures_total", "counter",
+        "fleet_jobs.json persists that failed BOTH attempts "
+        "(the dispatcher kept serving memory-only)",
+    ).add(persist_failures or None)
+    # r22: the all-backends-down queue-and-hold, previously counted
+    # host-side only (the held_sheds snapshot key never reached a
+    # family) — now a first-class pair so a hold storm is visible in
+    # both the live scrape and the stream replay
+    f_holds = Family(
+        "ptt_fleet_holds_total", "counter",
+        "Submits held through an all-backends-down window",
+    ).add(holds or None)
+    f_sheds = Family(
+        "ptt_fleet_held_sheds_total", "counter",
+        "Submits shed because the hold buffer was full (typed "
+        "capacity rejection)",
+    ).add(held_sheds or None)
+    return [
+        f_back, f_routes, f_route_s, f_blobs, f_bytes, f_fail,
+        f_resub, f_recon, f_part, f_recov, f_persist, f_holds,
+        f_sheds,
+    ] + _fleet_hist_families(hists)
+
+
+# -------------------------------------------------------- file scrape
+
+
+def stream_metrics(events: List[dict]) -> List[Family]:
+    """The same families derived from a telemetry stream's tail —
+    identically NAMED whether the stream came from a daemon
+    (``service.jsonl``: job families too) or a solo engine run."""
+    stats: Dict[str, object] = {}
+    snap: Dict[str, object] = {}
+    last_level = None
+    occupancy = None
+    max_probe = 0
+    lanes = flushes = frames = 0
+    stall = 0.0
+    hbm = 0
+    work: Dict[str, int] = {}
+    last_cum: Dict[str, object] = {}  # newest cumulative-event values (spill/sim)
+    adm_admitted: Dict[str, float] = {}
+    adm_rejected: Dict[Tuple[str, str], float] = {}
+    adm_deduped: Dict[str, float] = {}
+    warm_counts: Dict[Tuple[str, str], float] = {}
+    # fleet dispatcher stream (r20): backend state is the LAST signal
+    # seen per backend — a route marks it up, a failover marks it down
+    fleet_backends: Dict[str, str] = {}
+    fleet_routes: Dict[Tuple[str, str], float] = {}
+    fleet_route_s = 0.0
+    fleet_blobs: Dict[str, float] = {}
+    fleet_bytes: Dict[str, float] = {}
+    fleet_failovers: Dict[str, float] = {}
+    fleet_resub: Dict[str, float] = {}
+    # fleet survivability stream (r21): reconciled lost jobs,
+    # partition windows closed, --recover passes
+    fleet_recon: Dict[str, float] = {}
+    fleet_part: Dict[str, float] = {}
+    fleet_recoveries = 0.0
+    # fleet observability stream (r22): the queue-and-hold pair, the
+    # persist-failure counter (newest cumulative value wins — the
+    # event carries the counter so replay can't double-count), and
+    # whether any r22 event/field appeared (gates the histograms)
+    fleet_holds = 0.0
+    fleet_sheds = 0.0
+    fleet_persist = 0.0
+    fleet_seen = False
+    for e in events:
+        ev = e.get("event")
+        if ev == "route":
+            addr = str(e.get("backend", "?"))
+            key = (addr, str(e.get("reason", "?")))
+            fleet_routes[key] = fleet_routes.get(key, 0) + 1
+            fleet_backends[addr] = "up"
+            if isinstance(e.get("route_ms"), (int, float)):
+                fleet_route_s += float(e["route_ms"]) / 1000.0
+        elif ev == "replicate":
+            dst = str(e.get("dst", "?"))
+            fleet_blobs[dst] = (
+                fleet_blobs.get(dst, 0) + float(e.get("blobs", 0) or 0)
+            )
+            fleet_bytes[dst] = (
+                fleet_bytes.get(dst, 0)
+                + float(e.get("wire_bytes", 0) or 0)
+            )
+        elif ev == "failover":
+            addr = str(e.get("backend", "?"))
+            fleet_failovers[addr] = fleet_failovers.get(addr, 0) + 1
+            fleet_resub[addr] = (
+                fleet_resub.get(addr, 0)
+                + float(e.get("resubmitted", 0) or 0)
+            )
+            fleet_backends[addr] = "down"
+        elif ev == "reconcile":
+            addr = str(e.get("backend", "?"))
+            fleet_recon[addr] = fleet_recon.get(addr, 0) + 1
+            fleet_backends[addr] = "up"
+        elif ev == "partition":
+            addr = str(e.get("backend", "?"))
+            fleet_part[addr] = fleet_part.get(addr, 0) + 1
+            fleet_backends[addr] = "up"  # rejoined when this fired
+        elif ev == "recover":
+            fleet_recoveries += 1
+        elif ev == "hold":
+            fleet_holds += 1
+            fleet_seen = True
+        elif ev == "shed":
+            fleet_sheds += 1
+            fleet_seen = True
+        elif ev == "persist_fail":
+            # the event carries the CUMULATIVE counter: newest wins
+            if isinstance(e.get("n"), (int, float)):
+                fleet_persist = max(fleet_persist, float(e["n"]))
+            fleet_seen = True
+        elif ev in ("complete", "relay"):
+            fleet_seen = True
+        if ev == "warm":
+            # mirror the live daemon's counting points exactly: a cold
+            # PLAN is final (the job never reaches install), a
+            # continue/reseed plan counts at INSTALL where the digest
+            # verify decides hit vs demoted-cold
+            phase = e.get("phase")
+            if (phase == "plan" and e.get("mode") == "cold") or (
+                phase == "install"
+            ):
+                key = (str(e.get("mode")), str(e.get("reason")))
+                warm_counts[key] = warm_counts.get(key, 0) + 1
+        if ev == "admission":
+            tenant = str(e.get("tenant", "?"))
+            action = e.get("action")
+            if action == "admit":
+                adm_admitted[tenant] = adm_admitted.get(tenant, 0) + 1
+            elif action == "dedup":
+                adm_deduped[tenant] = adm_deduped.get(tenant, 0) + 1
+            elif action in ("reject", "shed"):
+                key = (tenant, str(e.get("reason", "?")))
+                adm_rejected[key] = adm_rejected.get(key, 0) + 1
+        if ev == "sim":
+            # cumulative v11 counters: the NEWEST record is the total
+            # — the event fallback so a live/crashed simulation's
+            # stream still exports ptt_sim_* before any result record
+            # NOTE: sim states are NOT distinct (the swarm never
+            # dedups) — they must never feed ptt_distinct_states /
+            # ptt_states_per_sec; the ptt_sim_* families carry them
+            for src, dst in (
+                ("steps", "sim_steps"), ("states", "sim_states"),
+                ("walks", "sim_walks"),
+                ("violations", "sim_violations"),
+                ("walkers", "sim_walkers"),
+                ("dup_ratio_est", "sim_dup_ratio_est"),
+                ("steps_per_sec", "steps_per_sec"),
+            ):
+                if isinstance(e.get(src), (int, float)):
+                    last_cum[dst] = e[src]
+        if ev == "spill":
+            # cumulative v9 counters: the NEWEST record is the total —
+            # the event fallback so a live/crashed tiered run's stream
+            # still exports ptt_spill_* (result stats only exist after
+            # a clean run end)
+            for k in (
+                "keys_evicted", "rows_evicted", "bytes_raw",
+                "bytes_comp", "transfer_s", "misses_resolved",
+            ):
+                if isinstance(e.get(k), (int, float)):
+                    last_cum[f"spill_{k}"] = e[k]
+        if ev == "fuse":
+            # per-dispatch work deltas (v7): the event-sum fallback so
+            # a crashed run's stream still exports ptt_work_* families
+            for k in (
+                "work_expand_rows", "work_probe_lanes",
+                "work_compact_elems", "work_append_rows",
+            ):
+                if isinstance(e.get(k), (int, float)):
+                    work[k] = work.get(k, 0) + int(e[k])
+        if ev == "level":
+            last_level = e
+        elif ev == "progress":
+            # newest heartbeat wins (overwritten by the last level
+            # record below, when the stream has any): keeping a stale
+            # first snapshot beside a fresh rate would render a live
+            # run as frozen
+            snap["distinct_states"] = e.get("distinct_states")
+            snap["states_per_sec"] = e.get("states_per_sec")
+        elif ev == "flush":
+            flushes += int(e.get("flushes", 0))
+            lanes += int(e.get("valid_lanes", 0))
+            max_probe = max(max_probe, int(e.get("max_probe_rounds", 0)))
+            if e.get("occupancy") is not None:
+                occupancy = e["occupancy"]
+        elif ev == "ckpt_frame":
+            frames += 1
+            stall += float(e.get("stall_s", e.get("write_s", 0.0)) or 0)
+        elif ev == "hbm_recovery":
+            hbm += 1
+        elif ev == "result":
+            rstats = e.get("stats") or {}
+            if isinstance(rstats, dict):
+                stats.update(rstats)
+            snap["distinct_states"] = e.get("distinct_states")
+    if last_level is not None:
+        snap["distinct_states"] = last_level.get("distinct_states")
+        snap["states_per_sec"] = last_level.get("states_per_sec")
+        snap["level"] = last_level.get("level")
+        snap["frontier"] = last_level.get("frontier")
+    if occupancy is not None:
+        snap.setdefault("occupancy", occupancy)
+    stats.setdefault("fpset_valid_lanes", lanes or None)
+    stats.setdefault("fpset_flushes", flushes or None)
+    stats.setdefault("fpset_max_probe_rounds", max_probe or None)
+    stats.setdefault("ckpt_frames", frames or None)
+    stats.setdefault("ckpt_write_s", round(stall, 3) if frames else None)
+    stats.setdefault("hbm_recovered", hbm or None)
+    for k, v in work.items():
+        stats.setdefault(k, v or None)
+    for k, v in last_cum.items():
+        stats.setdefault(k, v)
+
+    fams = _engine_families(stats, snap)
+    if adm_admitted or adm_rejected or adm_deduped:
+        fams += _admission_families(
+            adm_admitted, adm_rejected, adm_deduped
+        )
+    if warm_counts:
+        fams += _warm_families(warm_counts)
+    if (
+        fleet_backends or fleet_routes or fleet_blobs
+        or fleet_failovers or fleet_recon or fleet_recoveries
+        or fleet_seen
+    ):
+        fams += _fleet_families(
+            fleet_backends, fleet_routes, fleet_route_s,
+            fleet_blobs, fleet_bytes, fleet_failovers, fleet_resub,
+            reconciled=fleet_recon,
+            partitions=fleet_part,
+            recoveries=fleet_recoveries,
+            persist_failures=fleet_persist,
+            holds=fleet_holds,
+            held_sheds=fleet_sheds,
+            hists=fleet_hists_from_events(events),
+        )
+
+    # daemon streams additionally carry the job lifecycle
+    from pulsar_tlaplus_tpu_torch.obs import report
+
+    rows = report.job_table(events)
+    if rows:
+        # reconstruct the same LIFECYCLE states the live daemon labels
+        # ptt_jobs with (STATES) — a dashboard query on
+        # {state="running"} must read identically from either source
+        last_lifecycle: Dict[str, str] = {}
+        for e in events:
+            jid = e.get("job_id")
+            ev = e.get("event", "")
+            if jid is None:
+                continue
+            if ev == "job_submit":
+                last_lifecycle.setdefault(jid, QUEUED)
+            elif ev in ("job_start", "job_resume"):
+                last_lifecycle[jid] = RUNNING
+            elif ev == "job_suspend":
+                last_lifecycle[jid] = SUSPENDED
+        counts: Dict[str, int] = {}
+        for r in rows:
+            if r.get("cancelled"):
+                state = CANCELLED
+            elif r.get("status") is None:
+                state = last_lifecycle.get(r["job_id"], QUEUED)
+            elif r["status"] in ("ok", "violation", "deadlock",
+                                 "truncated"):
+                state = DONE
+            elif r["status"] in STATES:
+                state = str(r["status"])
+            else:
+                state = DONE
+            counts[state] = counts.get(state, 0) + 1
+        f_jobs = Family(
+            "ptt_jobs", "gauge", "Jobs in the stream by lifecycle state"
+        )
+        for state in STATES:
+            f_jobs.add(counts.get(state, 0), {"state": state})
+        fams.append(f_jobs)
+        fams.append(
+            Family(
+                "ptt_job_slices_total", "counter",
+                "Scheduling slices run across all jobs in the stream",
+            ).add(sum(int(r["slices"]) for r in rows))
+        )
+        fams.append(
+            Family(
+                "ptt_job_suspends_total", "counter",
+                "Frame-boundary suspensions across all jobs",
+            ).add(sum(int(r["suspends"]) for r in rows))
+        )
+    return fams
+
+
+def render_stream_metrics(events: List[dict]) -> str:
+    return render_exposition(stream_metrics(events))
+
+
+# ---------------------------------------------------- aggregate scrape
+
+
+def _family_of(sample_name: str, types: Dict[str, str]) -> str:
+    """The family a sample line belongs to: histogram sub-samples
+    (``x_bucket``/``x_sum``/``x_count``) fold back into ``x``."""
+    for suf in ("_bucket", "_sum", "_count"):
+        base = sample_name[: -len(suf)]
+        if sample_name.endswith(suf) and types.get(base) == "histogram":
+            return base
+    return sample_name
+
+
+def _ingest_exposition(
+    text: str,
+    backend: Optional[str],
+    blocks: Dict[str, dict],
+    order: List[str],
+) -> None:
+    """Fold one exposition text into the merged family blocks,
+    stamping every sample with the ``backend`` label (None = the
+    dispatcher's own families, re-emitted verbatim).  Merging by
+    family keeps the output well-formed: one ``# TYPE`` block per
+    family even when N backends export the same name."""
+    helps: Dict[str, str] = {}
+    types: Dict[str, str] = {}
+    samples: List[Tuple[str, Dict[str, str], str]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            _h, _k, name, help_ = line.split(None, 3)
+            helps[name] = help_
+            continue
+        if line.startswith("# TYPE "):
+            _h, _k, name, kind = line.split(None, 3)
+            types[name] = kind
+            continue
+        if line.startswith("#"):
+            continue
+        key, val_s = line.rsplit(None, 1)
+        name, labels = key, {}
+        if "{" in key:
+            name, rest = key.split("{", 1)
+            body = rest[:-1] if rest.endswith("}") else rest
+            for part in body.split(","):
+                if not part:
+                    continue
+                k, v = part.split("=", 1)
+                labels[k] = v.strip('"')
+        samples.append((name, labels, val_s))
+    for name, labels, val_s in samples:
+        fam = _family_of(name, types)
+        b = blocks.get(fam)
+        if b is None:
+            b = {
+                "kind": types.get(fam),
+                "help": helps.get(fam),
+                "lines": [],
+            }
+            blocks[fam] = b
+            order.append(fam)
+        if backend is not None:
+            labels = {**labels, "backend": backend}
+        b["lines"].append((name, labels, val_s))
+
+
+def aggregate_exposition(
+    own_text: str, scraped: Dict[str, Optional[str]]
+) -> str:
+    """The dispatcher's ``metrics --aggregate`` answer (r22): its OWN
+    families verbatim, every live backend's families re-emitted with
+    a ``backend`` label, and fleet rollups (summed job-table /
+    queue-depth gauges) — one scrape, the whole fleet.  A backend
+    down mid-scrape is skipped and reported in
+    ``ptt_fleet_scrape_errors`` instead of failing the scrape."""
+    blocks: Dict[str, dict] = {}
+    order: List[str] = []
+    _ingest_exposition(own_text, None, blocks, order)
+
+    roll_jobs: Dict[str, float] = {}
+    roll_queue = 0.0
+    roll_active = 0.0
+    saw_jobs = False
+    errors: List[str] = []
+    for addr in sorted(scraped):
+        text = scraped[addr]
+        if text is None:
+            errors.append(addr)
+            continue
+        out, _types = parse_exposition(text)
+        for labels, v in out.get("ptt_jobs", []):
+            st = labels.get("state", "?")
+            roll_jobs[st] = roll_jobs.get(st, 0.0) + v
+            saw_jobs = True
+        for _labels, v in out.get("ptt_queue_depth", []):
+            roll_queue += v
+        for _labels, v in out.get("ptt_active_job", []):
+            roll_active += v
+
+    roll_fams: List[Family] = []
+    if saw_jobs:
+        f_jobs = Family(
+            "ptt_fleet_jobs", "gauge",
+            "Backend job tables summed, by lifecycle state "
+            "(aggregate scrape rollup)",
+        )
+        for st, n in sorted(roll_jobs.items()):
+            f_jobs.add(n, {"state": st})
+        roll_fams += [
+            f_jobs,
+            Family(
+                "ptt_fleet_queue_depth", "gauge",
+                "Jobs waiting across every backend FIFO",
+            ).add(roll_queue),
+            Family(
+                "ptt_fleet_active_jobs", "gauge",
+                "Jobs holding a device across the fleet",
+            ).add(roll_active),
+        ]
+    f_err = Family(
+        "ptt_fleet_scrape_errors", "gauge",
+        "Backends that could not be scraped this aggregate pass",
+    )
+    for addr in errors:
+        f_err.add(1, {"backend": addr})
+    roll_fams.append(f_err)
+    _ingest_exposition(
+        render_exposition(roll_fams), None, blocks, order
+    )
+
+    for addr in sorted(scraped):
+        text = scraped[addr]
+        if text is not None:
+            _ingest_exposition(text, addr, blocks, order)
+
+    lines: List[str] = []
+    for fam in order:
+        b = blocks[fam]
+        if b["help"]:
+            lines.append(f"# HELP {fam} {b['help']}")
+        if b["kind"]:
+            lines.append(f"# TYPE {fam} {b['kind']}")
+        for name, labels, val_s in b["lines"]:
+            lines.append(f"{name}{_fmt_labels(labels)} {val_s}")
+    return "\n".join(lines) + "\n"

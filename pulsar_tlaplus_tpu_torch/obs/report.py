@@ -1,0 +1,447 @@
+"""Telemetry aggregation — JSONL stream -> per-stage table + BENCH keys
+(the counterpart of ``pulsar_tlaplus_tpu/obs/report.py``).
+
+The consumers this serves (so bench numbers stop being hand-copied):
+
+- the BASELINE.md per-stage table (expand / flush / append splits, the
+  round-6 comparison shape) from a ``PTT_STAGE_TIMING=1`` run's stage
+  timings, **RTT-corrected**: the barrier pays one host-device round
+  trip per drain, so raw ``stage_<name>_s`` overstates device time by
+  ``stage_<name>_n x rtt_s`` — the probe measured once at warmup.
+  Subtraction happens HERE, not at collection (the raw numbers stay
+  honest in the stream; the correction is a documented view).
+- the ``fpset_*`` / ``ckpt_*`` BENCH artifact keys (BENCH_r06/r07
+  asks), read from the final ``result`` record's stats and
+  cross-checkable against the per-event stream.
+
+``scripts/torch_telemetry_report.py`` is the CLI over this module.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional, Tuple
+
+# canonical stage order for the per-stage table (matches BASELINE.md;
+# r10 splits the append's stream compaction into its own "compact"
+# dispatch, so the old append column reads as compact + append; r13
+# fuses the whole per-level chain into the "fused" megakernel — a
+# fused run's expand/flush/compact/append columns show only the init
+# path's dispatches)
+STAGE_ORDER = (
+    "fused", "expand", "flush", "compact", "append", "init", "shift",
+)
+
+
+def load_events(path: str) -> Tuple[List[dict], List[str]]:
+    """Parse a stream; returns (events, errors).  A torn final line
+    (crash mid-write) is reported, never raised — a telemetry file
+    from a killed run must still aggregate."""
+    events: List[dict] = []
+    errors: List[str] = []
+    with open(path) as f:
+        for i, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                errors.append(f"line {i}: unparseable ({e})")
+                continue
+            if not isinstance(rec, dict):
+                errors.append(f"line {i}: not an object")
+                continue
+            events.append(rec)
+    return events, errors
+
+
+def _last(events: List[dict], kind: str) -> Optional[dict]:
+    for e in reversed(events):
+        if e.get("event") == kind:
+            return e
+    return None
+
+
+def header(events: List[dict]) -> Optional[dict]:
+    return _last(events, "run_header")
+
+
+def result(events: List[dict]) -> Optional[dict]:
+    return _last(events, "result")
+
+
+# ------------------------------------------------------- stage table
+
+
+def stage_split(events: List[dict]) -> Dict[str, dict]:
+    """Per-stage ``{name: {raw_s, n, device_s}}`` from the final
+    result's stats.  ``device_s`` is the RTT-corrected estimate
+    (``raw_s - n x rtt_s``, floored at 0); without timings (the
+    zero-sync default mode) only the dispatch counts ``n`` are
+    present and ``raw_s``/``device_s`` are None."""
+    res = result(events)
+    if res is None:
+        return {}
+    stats = res.get("stats", {}) or {}
+    rtt = stats.get("rtt_s") or 0.0
+    out: Dict[str, dict] = {}
+    names = set()
+    for k in stats:
+        if k.startswith("stage_") and (
+            k.endswith("_s") or k.endswith("_n")
+        ):
+            names.add(k[len("stage_"):].rsplit("_", 1)[0])
+    for name in names:
+        n = stats.get(f"stage_{name}_n")
+        raw = stats.get(f"stage_{name}_s")
+        dev = None
+        if raw is not None:
+            dev = max(raw - (n or 0) * rtt, 0.0)
+        out[name] = {"raw_s": raw, "n": n, "device_s": dev}
+    return out
+
+
+def _ordered(names) -> List[str]:
+    known = [s for s in STAGE_ORDER if s in names]
+    return known + sorted(n for n in names if n not in STAGE_ORDER)
+
+
+def render_stage_table(
+    streams: List[Tuple[str, List[dict]]]
+) -> str:
+    """Markdown per-stage table over 1+ labelled streams — the
+    BASELINE.md round-6 differential shape when given two (e.g. a
+    ``--visited sort`` run vs the fpset default); the last column is
+    ``first/last`` ratio when exactly two streams carry timings."""
+    splits = [(lbl, stage_split(evs), result(evs)) for lbl, evs in streams]
+    names = _ordered({n for _l, sp, _r in splits for n in sp})
+    two = len(splits) == 2
+    head = ["Stage"] + [lbl for lbl, _sp, _r in splits]
+    if two:
+        head.append("ratio")
+    lines = [
+        "| " + " | ".join(head) + " |",
+        "|" + "---|" * len(head),
+    ]
+
+    def fmt(sp, name):
+        d = sp.get(name)
+        if d is None:
+            return "—"
+        if d["device_s"] is None:
+            return f"({d['n']} dispatches)" if d["n"] else "—"
+        n = f" ({d['n']})" if d["n"] else ""
+        return f"{d['device_s']:.1f} s{n}"
+
+    for name in names:
+        row = [name] + [fmt(sp, name) for _l, sp, _r in splits]
+        if two:
+            a = splits[0][1].get(name, {}).get("device_s")
+            b = splits[1][1].get(name, {}).get("device_s")
+            row.append(
+                f"{a / b:.1f}x" if a and b else "—"
+            )
+        lines.append("| " + " | ".join(row) + " |")
+    walls = [r.get("wall_s") if r else None for _l, _sp, r in splits]
+    row = ["**total wall**"] + [
+        f"{w:.1f} s" if w is not None else "—" for w in walls
+    ]
+    if two:
+        row.append(
+            f"{walls[0] / walls[1]:.1f}x"
+            if walls[0] and walls[1]
+            else "—"
+        )
+    lines.append("| " + " | ".join(row) + " |")
+    res0 = splits[0][2]
+    if res0 is not None and (res0.get("stats", {}) or {}).get("rtt_s"):
+        lines.append("")
+        lines.append(
+            f"(stage seconds are RTT-corrected: raw barrier time minus "
+            f"dispatches x {res0['stats']['rtt_s']:.4f}s measured "
+            "round-trip)"
+        )
+    return "\n".join(lines)
+
+
+# -------------------------------------------------------- bench keys
+
+
+def bench_keys(events: List[dict]) -> Dict[str, object]:
+    """Every ``fpset_*`` / ``ckpt_*`` / survivability key a BENCH_*
+    artifact carries, straight from the stream — no hand-copying.
+    Primary source: the final ``result`` record; keys that can also be
+    derived from per-event records (frame bytes/stalls, flush deltas)
+    fall back to those when the run died before a result."""
+    res = result(events) or {}
+    stats = res.get("stats", {}) or {}
+    out: Dict[str, object] = {
+        k: v
+        for k, v in stats.items()
+        if k.startswith(("fpset_", "ckpt_", "work_", "spill_", "sim_"))
+        or k in (
+            "hbm_budget",
+            # swarm-simulation throughput keys (r18, bench_schema 9)
+            "walks_per_sec", "steps_per_sec", "steps_per_state",
+        )
+    }
+    for k in (
+        "distinct_states", "diameter", "wall_s", "states_per_sec",
+        "truncated", "stop_reason", "hbm_recovered",
+        "fp_collision_prob",
+    ):
+        if k in res:
+            out[k] = res[k]
+    if "host_wait_s" in stats:
+        out["host_wait_s"] = stats["host_wait_s"]
+    if "stats_fetches" in stats:
+        out["stats_fetches"] = stats["stats_fetches"]
+    # event-derived fallbacks / cross-checks
+    frames = [e for e in events if e.get("event") == "ckpt_frame"]
+    if frames:
+        out.setdefault("ckpt_frames", len(frames))
+        out.setdefault(
+            "ckpt_bytes", sum(int(e.get("bytes", 0)) for e in frames)
+        )
+        out.setdefault(
+            "ckpt_write_s",
+            round(
+                sum(
+                    float(e.get("stall_s", e.get("write_s", 0.0)))
+                    for e in frames
+                ),
+                3,
+            ),
+        )
+        out.setdefault(
+            "ckpt_retries",
+            sum(int(e.get("retries", 0)) for e in frames),
+        )
+    flushes = [e for e in events if e.get("event") == "flush"]
+    if flushes and "fpset_flushes" not in out:
+        fl = sum(int(e.get("flushes", 0)) for e in flushes)
+        rd = sum(int(e.get("probe_rounds", 0)) for e in flushes)
+        out["fpset_flushes"] = fl
+        out["fpset_probe_rounds"] = rd
+        out["fpset_avg_probe_rounds"] = round(rd / max(fl, 1), 2)
+        out["fpset_failures"] = sum(
+            int(e.get("failures", 0)) for e in flushes
+        )
+        out["fpset_valid_lanes"] = sum(
+            int(e.get("valid_lanes", 0)) for e in flushes
+        )
+    recov = [e for e in events if e.get("event") == "hbm_recovery"]
+    if recov:
+        out.setdefault("hbm_recovered", len(recov))
+    if "compact_impl" in stats:
+        out["compact_impl"] = stats["compact_impl"]
+    # dense-tile kernel selection (r23, bench_schema 12): which impl
+    # served each kernel this run
+    for k in ("probe_impl", "expand_impl", "sieve_impl"):
+        if k in stats:
+            out[k] = stats[k]
+    # level fusion (r13): the dispatch-economy keys — megakernel
+    # dispatches, levels it closed, and the run's dispatches/level
+    for k in ("fuse", "dispatches_per_level", "stage_fused_n",
+              "fuse_levels"):
+        if k in stats:
+            out[k] = stats[k]
+    fuses = [e for e in events if e.get("event") == "fuse"]
+    if fuses and "stage_fused_n" not in out:
+        out["stage_fused_n"] = sum(
+            int(e.get("dispatches", 0)) for e in fuses
+        )
+        out["fuse_levels"] = sum(int(e.get("levels", 0)) for e in fuses)
+    sims = [e for e in events if e.get("event") == "sim"]
+    if sims and "sim_steps" not in out:
+        # cumulative contract: the newest record is the total — the
+        # fallback for a simulation stream whose run died pre-result
+        last = sims[-1]
+        for src, dst in (
+            ("steps", "sim_steps"), ("states", "sim_states"),
+            ("walks", "sim_walks"), ("violations", "sim_violations"),
+            ("walkers", "sim_walkers"),
+            ("dup_ratio_est", "sim_dup_ratio_est"),
+        ):
+            if last.get(src) is not None:
+                out[dst] = last[src]
+    hd = header(events)
+    if hd is not None:
+        out["engine"] = hd.get("engine")
+        if hd.get("mode"):
+            out["mode"] = hd.get("mode")
+        out["visited_impl"] = hd.get("visited_impl")
+        if "compact_impl" not in out and hd.get("compact_impl"):
+            out["compact_impl"] = hd.get("compact_impl")
+        for k in ("probe_impl", "expand_impl", "sieve_impl"):
+            if k not in out and hd.get(k):
+                out[k] = hd.get(k)
+        if "fuse" not in out and hd.get("fuse"):
+            out["fuse"] = hd.get("fuse")
+        out["run_id"] = hd.get("run_id")
+    return out
+
+
+# ------------------------------------------------------- service jobs
+
+
+def job_table(events: List[dict]) -> List[Dict[str, object]]:
+    """Per-job lifecycle rows from a daemon stream's ``job_*`` events
+    (schema v4+, docs/service.md): one row per job_id in submission
+    order — spec, slices run, suspensions (mesh time-slice handoffs),
+    the terminal status (``None`` while still in flight), and (v5
+    streams) the measured context-switch costs: cumulative suspend
+    frame write/stall seconds, cumulative resume restore seconds, and
+    the engine wall the slices actually delivered — the real-chip
+    serve bench reads suspend/resume overhead straight from here."""
+    jobs: Dict[str, Dict[str, object]] = {}
+    for e in events:
+        ev = e.get("event", "")
+        if not ev.startswith("job_"):
+            continue
+        jid = e.get("job_id")
+        if jid is None:
+            continue
+        row = jobs.setdefault(
+            jid,
+            {
+                "job_id": jid, "spec": None, "slices": 0,
+                "suspends": 0, "status": None, "cancelled": False,
+                "resumes": 0, "restore_s": 0.0, "frame_write_s": 0.0,
+                "frame_stall_s": 0.0, "slice_wall_s": 0.0,
+                "run_ids": [],
+            },
+        )
+        if e.get("engine_run_id"):
+            # the slice's engine run id (r12): the join key into the
+            # job's own events.jsonl stream
+            if e["engine_run_id"] not in row["run_ids"]:
+                row["run_ids"].append(e["engine_run_id"])
+        if isinstance(e.get("trace_id"), str):
+            # the fleet trace id (r22, v15): the join key into the
+            # dispatcher stream's route/failover/complete chain
+            row["trace_id"] = e["trace_id"]
+        if ev == "job_submit":
+            row["spec"] = e.get("spec", row["spec"])
+        elif ev in ("job_start", "job_resume"):
+            row["spec"] = e.get("spec", row["spec"])
+            row["slices"] = max(
+                int(row["slices"]), int(e.get("slice", 0))
+            )
+            if ev == "job_resume":
+                row["resumes"] = int(row["resumes"]) + 1
+                if isinstance(e.get("restore_s"), (int, float)):
+                    row["restore_s"] = round(
+                        float(row["restore_s"]) + float(e["restore_s"]),
+                        3,
+                    )
+        elif ev == "job_suspend":
+            row["suspends"] = int(row["suspends"]) + 1
+            for k in ("frame_write_s", "frame_stall_s", "slice_wall_s"):
+                if isinstance(e.get(k), (int, float)):
+                    row[k] = round(float(row[k]) + float(e[k]), 3)
+        elif ev == "job_result":
+            row["status"] = e.get("status")
+            if isinstance(e.get("wall_s"), (int, float)):
+                # total engine wall across all slices (r12) — includes
+                # the final slice that slice_wall_s sums can't see
+                row["wall_s"] = float(e["wall_s"])
+        elif ev == "job_cancel":
+            row["cancelled"] = True
+    return list(jobs.values())
+
+
+def fleet_job_index(fleet_events: List[dict]) -> Dict[str, dict]:
+    """Per-``trace_id`` routing facts from a DISPATCHER stream (r22,
+    v15): the backend that ultimately owned the job, the hop count
+    (1 initial placement + one per failover resubmission), and the
+    dispatcher-measured end-to-end latency from the ``complete``
+    event.  This is the join index ``render_job_table`` uses to add
+    fleet columns when a dispatcher stream rides along a backend
+    stream — the e2e-vs-on-device gap is the fleet's routing +
+    queueing overhead for that job."""
+    idx: Dict[str, dict] = {}
+
+    def row(tid: str) -> dict:
+        return idx.setdefault(
+            tid, {"backend": None, "hops": 1, "e2e_ms": None}
+        )
+
+    for e in fleet_events:
+        ev = e.get("event")
+        if ev == "route" and isinstance(e.get("trace_id"), str):
+            row(e["trace_id"])["backend"] = e.get("backend")
+        elif ev == "failover":
+            for tid in e.get("trace_ids") or []:
+                if isinstance(tid, str):
+                    row(tid)["hops"] = int(row(tid)["hops"]) + 1
+        elif ev == "complete" and isinstance(e.get("trace_id"), str):
+            r = row(e["trace_id"])
+            if e.get("backend"):
+                # the completing backend wins: after a failover it is
+                # not the one the route event named
+                r["backend"] = e.get("backend")
+            if isinstance(e.get("e2e_ms"), (int, float)):
+                r["e2e_ms"] = float(e["e2e_ms"])
+    return idx
+
+
+def render_job_table(
+    events: List[dict], fleet_events: List[dict] = None
+) -> str:
+    """Markdown view of :func:`job_table` for a daemon stream.  The
+    overhead columns are per-transition averages: frame write+stall
+    seconds per suspend and restore seconds per resume (the two halves
+    of one mesh context switch), rendered "—" for pre-v5 streams that
+    never measured them.  With ``fleet_events`` (a dispatcher stream,
+    r22) the table gains the fleet columns — owning backend, hop
+    count, and the dispatcher-measured end-to-end seconds beside the
+    on-device wall — joined per job via its v15 ``trace_id``."""
+    rows = job_table(events)
+    if not rows:
+        return "(no job_* events in this stream)"
+    fleet = fleet_job_index(fleet_events) if fleet_events else None
+    lines = [
+        "| job | spec | slices | suspends | wall s "
+        "| susp s (write+stall) | restore s | status |"
+        + (" backend | hops | e2e s |" if fleet is not None else ""),
+        "|---|---|---|---|---|---|---|---|"
+        + ("---|---|---|" if fleet is not None else ""),
+    ]
+    for r in rows:
+        n_susp = int(r["suspends"])
+        n_res = int(r["resumes"])
+        susp = (
+            f"{(r['frame_write_s'] + r['frame_stall_s']) / n_susp:.3f}"
+            if n_susp and (r["frame_write_s"] or r["frame_stall_s"])
+            else "—"
+        )
+        rest = (
+            f"{r['restore_s'] / n_res:.3f}"
+            if n_res and r["restore_s"]
+            else "—"
+        )
+        # total wall from job_result when the stream carries it; the
+        # suspended-slices sum is only a lower bound (no final slice)
+        total_wall = r.get("wall_s") or r["slice_wall_s"]
+        wall = f"{total_wall:.2f}" if total_wall else "—"
+        line = (
+            f"| {r['job_id']} | {r['spec'] or '?'} | {r['slices']} "
+            f"| {r['suspends']} | {wall} | {susp} | {rest} "
+            f"| {r['status'] or 'in flight'} |"
+        )
+        if fleet is not None:
+            fr = fleet.get(r.get("trace_id") or "", {})
+            e2e = fr.get("e2e_ms")
+            e2e_s = (
+                f"{e2e / 1000.0:.2f}"
+                if isinstance(e2e, (int, float))
+                else "—"
+            )
+            line += (
+                f" {fr.get('backend') or '—'} "
+                f"| {fr.get('hops') or '—'} | {e2e_s} |"
+            )
+        lines.append(line)
+    return "\n".join(lines)

@@ -1,0 +1,947 @@
+"""Telemetry core — versioned JSONL run events, the TLC-style progress
+heartbeat, and the host-device round-trip probe — the counterpart of
+``pulsar_tlaplus_tpu/obs/telemetry.py``, record for record (the same
+:data:`SCHEMA_VERSION` and :data:`EVENTS`).
+
+Every engine emits into one append-only JSONL stream (``--telemetry
+out.jsonl`` / ``-telemetry``): a run header, per-level progress
+records, per-flush fpset aggregates, checkpoint-frame writes with their
+write-stall seconds, HBM-recovery and fault-injection events, and the
+final result.  The design rules:
+
+- **Versioned schema.**  Every record carries ``v`` (the schema
+  version), ``event``, ``t`` (monotonic seconds since the stream
+  opened — wall-clock jumps can never reorder records), ``seq`` (a
+  per-stream counter), and ``run_id``.  :data:`EVENTS` is the
+  authoritative required-field table; ``scripts/
+  check_telemetry_schema.py`` validates against it.
+- **Zero hot-path syncs.**  Emission sites are host-side points the
+  engines already pass through (the stats fetch, level boundaries,
+  checkpoint writes).  Telemetry never adds a device round trip — the
+  heartbeat below reports from the *last fetched* stats snapshot, and
+  the zero-sync device counters ride the engines' existing reads (the
+  flush metrics and the work vector join the one ``.tolist()`` of
+  ``device_bfs.DeviceChecker._lv_read``).
+- **Crash-durable lines.**  The stream is opened line-buffered and
+  every record is one ``write()`` of a complete line, so a ``kill -9``
+  (or the ``PTT_FAULT`` kill site) can lose at most the record being
+  written — never corrupt earlier ones.  Fault events are emitted
+  *before* the fault fires for exactly this reason.
+- **Resume linking.**  Checkpoint frames embed the writer's
+  ``run_id`` and ``frame_seq`` (utils/ckpt.py frame meta); a resumed
+  run's header carries them back as ``resume_of`` /
+  ``resume_frame_seq``, so a chain of interrupted runs is one
+  navigable story across stream files.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+import uuid
+from typing import Callable, Dict, Optional, Tuple, Union
+
+# v1: the round-8 stream.  v2 (round 9): ``ckpt_frame`` records carry
+# the frame writer's ``retries`` count, and the liveness engine emits
+# ``sweep`` records.  v3 (round 10): the device engines emit
+# ``compact`` records — per-stats-fetch deltas of the stream-compaction
+# dispatch counters (the log-shift vs sort differential signal) — and
+# their run headers carry ``compact_impl``.  v4 (round 11): the checker
+# daemon (service/) emits ``job_*`` job-lifecycle events and ``serve``
+# daemon-lifecycle events into its own stream (docs/service.md); per-
+# job engine streams are unchanged, but a stream may now legitimately
+# interleave several run_ids (one per scheduling slice / daemon
+# restart) — the validator additionally requires per-run_id strictly
+# increasing ``seq``.  v5 (round 12, the flight deck): the daemon's
+# ``job_suspend`` records carry ``slice_wall_s`` (the suspended slice's
+# engine wall — the mesh time-slice length actually delivered) and
+# ``job_resume`` records carry ``restore_s`` (run-start to the first
+# level boundary of the resumed slice: frame load + device rebuild =
+# the context-switch restore cost the ROADMAP serve bench asks for);
+# ``obs/trace.py`` renders suspend->resume gaps as explicit
+# "context-switch" spans from exactly these fields.  v6 (round 13, the
+# fused level megakernel): the device engine emits one ``fuse`` record
+# per megakernel dispatch (levels closed, flushes run), its run header
+# carries ``fuse``/``fuse_group``, intra-level ``level`` records are
+# tagged ``partial`` so boundary records stay unambiguous, and the
+# result stats carry ``stage_fused_n``/``dispatches_per_level``; the
+# validator additionally cross-checks a fused run's boundary level
+# records against the result's ``level_sizes`` (strictly increasing
+# levels, per-level sizes summing to the distinct-state count).
+# v7 (round 14, fused-era cost attribution): ``fuse`` records carry
+# per-dispatch work-unit deltas (``work_expand_rows``,
+# ``work_probe_lanes``, ``work_compact_elems``, ``work_append_rows``)
+# accumulated INSIDE the megakernel's while loop and riding the one
+# stats fetch; engines emit one ``attribution`` record (the per-stage
+# work-unit totals, the machine-readable input to the calibrated cost
+# model in ``obs/attribution.py``) before the result; the liveness
+# sweep's ``sweep`` records carry cumulative sweep work units
+# (``sort_lanes``, ``prop_lanes``, ``compact_elems``); result stats
+# carry the ``work_*`` totals.
+# v8 (round 15, the self-tuning checker): run headers carry
+# ``profile_sig`` — the tuned profile that shaped the run's knobs
+# (null on untuned runs; the field itself is REQUIRED at v8 so the
+# ledger can always split tuned vs default trajectories) — and the
+# online-adaptation controller emits one ``tune`` record per knob
+# adjustment (knob, value, prev, reason) at the dispatch boundary
+# where it applied (tune/online.py; docs/tuning.md).
+# v9 (round 16, the tiered state store): run headers carry
+# ``hbm_budget`` — the device-memory byte budget the run was tiered
+# under (null on untiered runs; REQUIRED at v9 like profile_sig so
+# spill trajectories always split cleanly) — and tiered engines emit
+# one ``spill`` record per eviction/spill boundary: the tier written,
+# keys/rows evicted, raw vs compressed bytes, transfer seconds, and
+# misses resolved — ALL CUMULATIVE per run, so the validator can
+# cross-check that per-level spill bytes are monotone-cumulative
+# (a spill event whose counters go backwards is a torn writer or a
+# re-based store; docs/memory.md).
+# v10 (round 17, the hardened open-network daemon): run headers carry
+# ``tenant`` — the bearer-token-derived tenant the run was executed
+# for (null on standalone runs; REQUIRED at v10 like profile_sig /
+# hbm_budget so per-tenant trajectories always split) — and the
+# service layer emits three new events: ``admission`` (one per submit
+# decision: admit / reject / shed / dedup, with tenant + reason),
+# ``auth`` (TCP handshake accept/reject), and ``deadline`` (a job
+# cancelled by the deadline sweep, ``stop_reason="deadline"``).  The
+# ``spill`` record may carry ``degraded: true`` when the spill tier
+# lost durability to ENOSPC (stop_reason="spill_enospc").
+# v11 (round 18, the swarm simulation subsystem): run headers carry
+# ``mode`` — the workload class (``check`` for exhaustive BFS,
+# ``liveness`` for the two-phase liveness engine, ``simulate`` for the
+# streaming walker swarm; REQUIRED at v11 like profile_sig /
+# hbm_budget / tenant so workload trajectories always split) — and the
+# simulation engine (sim/engine.py) emits one ``sim`` record per
+# segment dispatch: CUMULATIVE steps / walkers / violations plus the
+# states/walks totals, stutter and enabled-lane counters, and the
+# sampled-duplicate estimator — cumulative so the validator can
+# cross-check monotonicity exactly like ``spill`` (a sim record whose
+# counters go backwards is a torn writer or a silently re-based walk
+# stream; docs/simulation.md).
+# v12 (round 19, incremental checking): run headers carry ``warm`` —
+# the warm-start mode the run executed under (``continue`` when it
+# resumed a prior run's artifact frame, ``reseed`` when it was seeded
+# from a prior fingerprint set across a constant widening, null on
+# cold/standalone runs; REQUIRED at v12 like profile_sig / hbm_budget /
+# tenant / mode so warm trajectories always split — and so the ledger
+# can refuse a warm-continue partial as a cold run's gate baseline) —
+# and the daemon emits one ``warm`` event per reuse decision: the
+# planned/installed mode with a machine-readable reason (``sig_match``,
+# ``widened:AXIS``, or the cold fallback reason — module_edit,
+# invariant_change, binding_change, narrowed, layout_change,
+# digest_mismatch, torn_artifact, ... — docs/incremental.md).
+# v13 (round 20, fleet/): the dispatcher's own stream — one ``route``
+# record per submit placement (which backend, why), one ``replicate``
+# record per artifact sieve pass (what shipped vs what the peer
+# already held), one ``failover`` record per backend drain (how many
+# queued jobs were resubmitted elsewhere).
+# v14 (round 21, fleet survivability): three more dispatcher events —
+# one ``reconcile`` record per lost job whose rejoined backend
+# answered for it (which backend, which job, the real terminal state
+# that replaced ``lost``), one ``partition`` record per drained
+# backend that rejoined still holding its jobs (the signature of a
+# partition window closing, as opposed to a restart), and one
+# ``recover`` record per ``dispatch --recover`` pass (how many
+# persisted jobs were confirmed / adopted / typed lost against the
+# backends' authoritative job tables, and whether a torn
+# fleet_jobs.json was quarantined first).
+# v15 (round 22, the fleet observability plane): every accepted
+# submit is minted a ``trace_id`` by the dispatcher and the id is
+# stamped on every hop of the job's journey — the dispatcher's
+# ``route`` / ``replicate`` / ``failover`` / ``reconcile`` records,
+# the backend daemon's ``job_*`` lifecycle events (forwarded on the
+# wire), and every engine ``run_header`` (null on standalone runs;
+# REQUIRED at v15 like profile_sig / tenant / mode / warm so traced
+# and untraced trajectories always split) — which is what lets
+# ``obs/trace.py`` stitch one dispatcher stream plus N backend
+# streams into ONE Perfetto timeline with cross-backend flow arrows.
+# The dispatcher additionally emits latency observations so the
+# fixed-bucket histogram families (obs/metrics.py ``ptt_*_seconds``)
+# derive identically from a live scrape and a stream replay:
+# ``route`` records carry ``route_ms`` (decision) and ``ack_ms``
+# (submit acked end-to-end), ``failover`` records carry ``wall_ms``
+# and the failed-over jobs' ``trace_ids``, ``partition`` records
+# carry the reconcile pass ``wall_ms``, ``replicate`` records carry
+# the transfer ``wall_ms`` and the triggering job's ``trace_id`` —
+# and four NEW events: ``complete`` (the dispatcher observed a routed
+# job reach a terminal state: end-to-end ``e2e_ms`` from accept to
+# observed-terminal), ``relay`` (one watch-relay leg, ``leg_ms``),
+# ``hold`` / ``shed`` (the all-backends-down queue-and-hold admitting
+# or overflowing a submit), and ``persist_fail`` (a fleet_jobs.json
+# persist that stayed failed after the retry — the counter was
+# previously invisible to stream replay).
+# v16 (round 23, the dense-tile kernel layer): every run header
+# carries the per-kernel impl selection — ``probe_impl`` /
+# ``expand_impl`` / ``sieve_impl`` (legacy|tile|pallas, ops/tiles.py;
+# null on engines without the knobs) — REQUIRED at v16 like the other
+# header attribution fields so impl trajectories always split in the
+# ledger without a stats join.
+# Validators accept <= SCHEMA_VERSION and hold a record only to the
+# fields its OWN version requires (FIELD_SINCE) — pre-r10 streams stay
+# valid.
+SCHEMA_VERSION = 16
+
+# Authoritative event table: event name -> required fields beyond the
+# base envelope.  Unknown events are legal (forward compatibility) but
+# must still carry the base envelope.
+BASE_FIELDS: Tuple[str, ...] = ("v", "event", "t", "seq", "run_id")
+
+# required fields introduced AFTER schema v1: (event, field) -> the
+# version that added it.  The validator skips them for older records.
+FIELD_SINCE: Dict[Tuple[str, str], int] = {
+    ("ckpt_frame", "retries"): 2,
+    ("compact", "dispatches"): 3,
+    ("compact", "impl"): 3,
+    # v4: the service daemon's job-lifecycle events (docs/service.md).
+    # The events are NEW at v4, so gating their required fields keeps a
+    # hypothetical pre-v4 stream using these names validator-clean.
+    ("job_submit", "job_id"): 4,
+    ("job_submit", "spec"): 4,
+    ("job_start", "job_id"): 4,
+    ("job_start", "spec"): 4,
+    ("job_start", "slice"): 4,
+    ("job_resume", "job_id"): 4,
+    ("job_resume", "spec"): 4,
+    ("job_resume", "slice"): 4,
+    ("job_suspend", "job_id"): 4,
+    ("job_suspend", "slice"): 4,
+    # v5: the context-switch cost breakdown (docs/observability.md
+    # "Flight deck") — required only at v5 so every existing v4 daemon
+    # stream stays validator-clean
+    ("job_suspend", "slice_wall_s"): 5,
+    ("job_resume", "restore_s"): 5,
+    ("job_result", "job_id"): 4,
+    ("job_result", "status"): 4,
+    ("job_cancel", "job_id"): 4,
+    ("serve", "action"): 4,
+    # v6: the fused level megakernel's per-dispatch record (round 13).
+    # The event is NEW at v6; gating its fields keeps hypothetical
+    # older streams using the name validator-clean.
+    ("fuse", "levels"): 6,
+    ("fuse", "dispatches"): 6,
+    # v7 (round 14): in-kernel work-unit deltas on every fuse record,
+    # cumulative sweep work units on sweep records, and the new
+    # ``attribution`` per-stage work-total record — all gated so every
+    # existing v6-and-older stream stays validator-clean.
+    ("fuse", "work_expand_rows"): 7,
+    ("fuse", "work_probe_lanes"): 7,
+    ("fuse", "work_compact_elems"): 7,
+    ("fuse", "work_append_rows"): 7,
+    ("sweep", "sort_lanes"): 7,
+    ("sweep", "prop_lanes"): 7,
+    ("sweep", "compact_elems"): 7,
+    ("attribution", "stages"): 7,
+    # v8 (round 15): tuned-profile attribution on every run header
+    # (null when no profile was active) and the online-adaptation
+    # ``tune`` record — both gated so every committed v7-and-older
+    # stream stays validator-clean.
+    ("run_header", "profile_sig"): 8,
+    ("tune", "knob"): 8,
+    ("tune", "value"): 8,
+    # v9 (round 16): the tiered-store budget on every run header
+    # (null on untiered runs) and the cumulative ``spill`` record —
+    # gated so every committed v8-and-older stream stays clean.
+    ("run_header", "hbm_budget"): 9,
+    # v10 (round 17): tenant identity on every run header (null
+    # outside the daemon) and the open-network service events —
+    # admission decisions, TCP auth handshakes, deadline cancels —
+    # gated so every committed v9-and-older stream stays clean.
+    ("run_header", "tenant"): 10,
+    # v11 (round 18): the workload class on every run header and the
+    # streaming simulation engine's cumulative ``sim`` record — gated
+    # so every committed v10-and-older stream stays clean.
+    ("run_header", "mode"): 11,
+    ("sim", "steps"): 11,
+    ("sim", "walkers"): 11,
+    ("sim", "violations"): 11,
+    # v12 (round 19): the warm-start mode on every run header (null on
+    # cold/standalone runs) and the daemon's per-decision ``warm``
+    # event — gated so every committed v11-and-older stream stays
+    # clean.
+    ("run_header", "warm"): 12,
+    ("warm", "mode"): 12,
+    ("warm", "reason"): 12,
+    # v13 (round 20): the fleet dispatcher's events — NEW at v13, so
+    # gating their required fields keeps every committed v12-and-older
+    # stream using these names validator-clean.
+    ("route", "backend"): 13,
+    ("route", "tenant"): 13,
+    ("replicate", "src"): 13,
+    ("replicate", "dst"): 13,
+    ("replicate", "blobs"): 13,
+    ("replicate", "wire_bytes"): 13,
+    ("failover", "backend"): 13,
+    ("failover", "resubmitted"): 13,
+    # v14 (round 21): the fleet survivability events — NEW at v14, so
+    # gating their required fields keeps every committed v13-and-older
+    # stream using these names validator-clean.
+    ("reconcile", "backend"): 14,
+    ("reconcile", "job_id"): 14,
+    ("reconcile", "state"): 14,
+    ("partition", "backend"): 14,
+    ("recover", "jobs"): 14,
+    # v15 (round 22): the distributed-tracing plane.  ``trace_id`` is
+    # REQUIRED on every dispatcher hop record, every daemon job_*
+    # lifecycle event, and every engine run_header (null outside a
+    # traced fleet/daemon context on the header; the daemon mints its
+    # own id for direct submits so job events always carry one) — and
+    # the latency fields behind the ``ptt_*_seconds`` histogram
+    # families ride the same records so stream replay re-bins
+    # identically to the live scrape.  All gated at 15 so every
+    # committed v14-and-older stream stays validator-clean.
+    ("route", "trace_id"): 15,
+    ("route", "route_ms"): 15,
+    ("route", "ack_ms"): 15,
+    ("replicate", "trace_id"): 15,
+    ("replicate", "wall_ms"): 15,
+    ("failover", "trace_ids"): 15,
+    ("failover", "wall_ms"): 15,
+    ("reconcile", "trace_id"): 15,
+    ("partition", "wall_ms"): 15,
+    ("job_submit", "trace_id"): 15,
+    ("job_start", "trace_id"): 15,
+    ("job_resume", "trace_id"): 15,
+    ("job_suspend", "trace_id"): 15,
+    ("job_result", "trace_id"): 15,
+    ("job_cancel", "trace_id"): 15,
+    ("run_header", "trace_id"): 15,
+    # v16 (round 23): the dense-tile kernel selection on every run
+    # header (null on engines without the knobs) — gated so every
+    # committed v15-and-older stream stays validator-clean.
+    ("run_header", "probe_impl"): 16,
+    ("run_header", "expand_impl"): 16,
+    ("run_header", "sieve_impl"): 16,
+    ("admission", "action"): 10,
+    ("admission", "tenant"): 10,
+    ("auth", "action"): 10,
+    ("deadline", "job_id"): 10,
+    ("spill", "tier"): 9,
+    ("spill", "keys_evicted"): 9,
+    ("spill", "rows_evicted"): 9,
+    ("spill", "bytes_raw"): 9,
+    ("spill", "bytes_comp"): 9,
+    ("spill", "transfer_s"): 9,
+    ("spill", "misses_resolved"): 9,
+}
+EVENTS: Dict[str, Tuple[str, ...]] = {
+    # run lifecycle (v8 adds profile_sig — the tuned profile that
+    # shaped the run's knobs, null on untuned runs; v9 adds
+    # hbm_budget — the tiered-store byte budget, null when untiered)
+    "run_header": (
+        "engine", "visited_impl", "config_sig", "profile_sig",
+        "hbm_budget", "tenant", "mode", "warm", "trace_id",
+        "probe_impl", "expand_impl", "sieve_impl",
+    ),
+    "result": ("distinct_states", "diameter", "wall_s", "truncated"),
+    # progress
+    "level": (
+        "level", "new_states", "distinct_states", "frontier", "wall_s",
+        "states_per_sec",
+    ),
+    "progress": ("distinct_states", "states_per_sec"),
+    # dedup / fpset (deltas since the previous flush record)
+    "flush": ("flushes", "probe_rounds", "failures", "valid_lanes"),
+    "fpset_insert": ("inserts", "probe_rounds", "n"),
+    # stream compaction (r10): per-stats-fetch deltas of the compact
+    # dispatch counter, tagged with the active impl (logshift|sort);
+    # PTT_STAGE_TIMING runs add ``drain_s`` for the per-stage table
+    "compact": ("dispatches", "impl"),
+    # fused level megakernel (r13): one record per dispatch — levels
+    # closed inside the dispatch (>1 = a ramp batch) and the flush
+    # groups it ran; the dispatch-count regression signal.  v7 (r14):
+    # per-dispatch work-unit deltas from the in-kernel counters — the
+    # cost-attribution inputs a fused run carries without a stage rerun
+    "fuse": (
+        "levels", "dispatches", "work_expand_rows", "work_probe_lanes",
+        "work_compact_elems", "work_append_rows",
+    ),
+    # fused-era cost attribution (r14): the per-stage work-unit totals
+    # a run accumulated — the machine-readable input to the calibrated
+    # cost model (obs/attribution.py); one record right before result
+    "attribution": ("stages",),
+    # online adaptation (r15, tune/online.py): one record per knob
+    # adjustment the dispatch-boundary controller applied — an
+    # adapted run is never silently different from its profile
+    "tune": ("knob", "value"),
+    # tiered state store (r16, store/): one record per eviction/spill
+    # boundary with CUMULATIVE per-run counters — the tier the data
+    # landed in (ram | ram+disk), keys/rows evicted, raw vs compressed
+    # bytes, transfer seconds (D2H gather + encode + durable write),
+    # and cold-tier misses resolved.  Cumulative so the validator's
+    # monotone cross-check catches torn/re-based writers.
+    "spill": (
+        "tier", "keys_evicted", "rows_evicted", "bytes_raw",
+        "bytes_comp", "transfer_s", "misses_resolved",
+    ),
+    # survivability (r9: ``retries`` is the frame writer's
+    # transient-failure retry count — the ckpt_retries breadcrumb)
+    "ckpt_frame": (
+        "frame_seq", "bytes", "write_s", "retries", "distinct_states",
+    ),
+    "hbm_recovery": ("recovery_n",),
+    "fault": ("kind", "site", "count"),
+    # liveness edge-sweep progress (r9): one record per sweep chunk.
+    # v7 (r14): cumulative sweep work units — merged-sort lanes,
+    # gid-propagation pass-lanes, edge-compaction elements — the
+    # sweep's cost-attribution inputs
+    "sweep": (
+        "chunk", "chunks", "swept", "edges", "sort_lanes", "prop_lanes",
+        "compact_elems",
+    ),
+    # legacy differential stage timings (PTT_STAGE_TIMING runs)
+    "stage_timing": ("stages",),
+    # checking-as-a-service job lifecycle (r11, service/scheduler.py):
+    # one submit -> N start/resume/suspend slices -> one result.  These
+    # live in the DAEMON's stream (service.jsonl) under the daemon's
+    # run_id; the per-job engine events stream separately under each
+    # slice's engine run_id (docs/service.md)
+    "job_submit": ("job_id", "spec", "trace_id"),
+    "job_start": ("job_id", "spec", "slice", "trace_id"),
+    "job_resume": ("job_id", "spec", "slice", "restore_s", "trace_id"),
+    "job_suspend": ("job_id", "slice", "slice_wall_s", "trace_id"),
+    "job_result": ("job_id", "status", "trace_id"),
+    "job_cancel": ("job_id", "trace_id"),
+    # daemon lifecycle: start (socket, pid, warmed specs) / stop
+    "serve": ("action",),
+    # swarm simulation (r18, sim/engine.py): one record per segment
+    # dispatch with CUMULATIVE per-run counters — random steps taken
+    # across the swarm, the (constant) walker count, walker-steps
+    # with invariant failures, states visited, completed walks, and
+    # the sampled-duplicate estimator.  Cumulative so the validator's
+    # monotone cross-check catches torn/re-based writers (the same
+    # contract as ``spill``).
+    "sim": ("steps", "walkers", "violations"),
+    # open-network hardening (r17, service/): one admission record
+    # per submit decision — action in {admit, reject, shed, dedup},
+    # reason in {queue_full, tenant_queued, tenant_running,
+    # tenant_states} on rejections; auth records the TCP handshake
+    # (accept carries the derived tenant); deadline records the
+    # sweep cancelling an expired job (stop_reason="deadline")
+    "admission": ("action", "tenant"),
+    "auth": ("action",),
+    "deadline": ("job_id",),
+    # incremental checking (r19, warm/): one record per reuse decision
+    # in the daemon's stream — ``phase`` distinguishes the submit-time
+    # plan from the install-time outcome, ``mode`` is
+    # continue/reseed/cold, ``reason`` the machine-readable cause
+    # (sig_match / widened:AXIS / the typed cold-fallback reason)
+    "warm": ("mode", "reason"),
+    # fleet tier (r20, fleet/): the DISPATCHER's stream.  ``route`` is
+    # one submit placement — the chosen backend and why (``reason`` in
+    # {sticky, least_loaded, only_backend}); ``replicate`` is one
+    # artifact sieve pass owner->peer — blobs shipped vs reused and
+    # the delta-compressed wire bytes (0 blobs = the peer already held
+    # everything, the sieve's whole point); ``failover`` is one
+    # backend drain — the down backend and how many of its queued jobs
+    # were resubmitted elsewhere through the submit_id dedup path
+    "route": (
+        "backend", "tenant", "trace_id", "route_ms", "ack_ms",
+    ),
+    "replicate": (
+        "src", "dst", "blobs", "wire_bytes", "trace_id", "wall_ms",
+    ),
+    "failover": ("backend", "resubmitted", "trace_ids", "wall_ms"),
+    # fleet survivability (r21, fleet/dispatcher.py): ``reconcile`` is
+    # one lost job answered for by its rejoined backend — ``state`` is
+    # the REAL state that replaced ``lost`` (done delivers the
+    # backend's finished result; running resumes watch relay);
+    # ``partition`` is one drained backend rejoining while still
+    # holding its jobs (a partition window closed — a restarted
+    # backend would have forgotten them); ``recover`` is one
+    # ``dispatch --recover`` pass — persisted jobs reconciled against
+    # every backend's authoritative job table (confirmed / adopted /
+    # lost counts, plus whether a torn fleet_jobs.json was
+    # quarantined first)
+    "reconcile": ("backend", "job_id", "state", "trace_id"),
+    "partition": ("backend", "wall_ms"),
+    "recover": ("jobs",),
+    # fleet observability plane (r22, fleet/dispatcher.py): NEW at
+    # v15, so their required fields need no FIELD_SINCE gating (the
+    # names cannot appear in older streams).  ``complete`` is the
+    # dispatcher observing a routed job reach a terminal state —
+    # ``e2e_ms`` is accept-to-observed-terminal, the end-to-end job
+    # latency histogram's input; ``relay`` is one watch-relay leg
+    # (owner re-resolution cadence, ``leg_ms``); ``hold`` / ``shed``
+    # are the all-backends-down queue-and-hold admitting a submit
+    # into the bounded buffer vs overflowing it with the typed
+    # ``capacity`` rejection; ``persist_fail`` is a fleet_jobs.json
+    # persist that stayed failed after the retry-once path (``n`` is
+    # the cumulative counter, so replay derives the same
+    # ptt_fleet_persist_failures_total a live scrape reports).
+    "complete": ("job_id", "backend", "e2e_ms", "trace_id"),
+    "relay": ("job_id", "leg_ms", "trace_id"),
+    "hold": ("tenant", "held", "trace_id"),
+    "shed": ("tenant", "held", "trace_id"),
+    "persist_fail": ("n",),
+}
+
+
+def new_run_id() -> str:
+    return uuid.uuid4().hex[:12]
+
+
+class Telemetry:
+    """One JSONL event stream (append-only, line-buffered, thread-safe).
+
+    ``t`` is monotonic seconds since this object was created; the run
+    header records the wall-clock anchor (``wall_unix``) once so humans
+    can place the run in time without wall-clock jumps ever reordering
+    records.
+    """
+
+    enabled = True
+
+    def __init__(self, path: str, run_id: Optional[str] = None):
+        self.path = path
+        self.run_id = run_id or new_run_id()
+        self._t0 = time.monotonic()
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._f = open(path, "a", buffering=1)
+        self._lock = threading.Lock()
+        self._seq = 0
+
+    def emit(self, event: str, **fields) -> None:
+        rec = {
+            "v": SCHEMA_VERSION,
+            "event": event,
+            "t": 0.0,
+            "run_id": self.run_id,
+        }
+        rec.update(fields)
+        with self._lock:
+            # timestamp UNDER the lock: the heartbeat thread and the
+            # engine thread share this stream, and a t captured before
+            # a lost lock race would violate the per-run monotonic-t
+            # contract the schema validator enforces
+            rec["t"] = round(time.monotonic() - self._t0, 6)
+            rec["seq"] = self._seq
+            self._seq += 1
+            if self._f.closed:
+                return
+            # one write of one complete line: crash-durable up to the
+            # record being written (see module docstring)
+            self._f.write(json.dumps(rec) + "\n")
+
+    def close(self) -> None:
+        with self._lock:
+            if not self._f.closed:
+                self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+class NullTelemetry:
+    """No-op stand-in so engines never branch on "telemetry enabled"."""
+
+    enabled = False
+    path = None
+    run_id = None
+
+    def emit(self, event: str, **fields) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL = NullTelemetry()
+
+
+def as_telemetry(
+    t: Union[None, str, Telemetry, NullTelemetry],
+    run_id: Optional[str] = None,
+) -> Union[Telemetry, NullTelemetry]:
+    """None -> the shared null sink; a path -> a fresh stream bound to
+    ``run_id``; an existing Telemetry passes through unchanged (the
+    caller keeps ownership — see :func:`owns_stream`)."""
+    if t is None:
+        return NULL
+    if isinstance(t, (Telemetry, NullTelemetry)):
+        return t
+    return Telemetry(t, run_id=run_id)
+
+
+def owns_stream(arg) -> bool:
+    """True when :func:`as_telemetry` would CREATE the stream for this
+    argument — i.e. the engine opened it and must close it.  A caller
+    passing an existing Telemetry instance keeps ownership (it may be
+    collecting several runs into one stream), so engines must not
+    close it."""
+    return not isinstance(arg, (Telemetry, NullTelemetry))
+
+
+# ------------------------------------------------------------ heartbeat
+
+
+class Heartbeat:
+    """TLC-style periodic progress lines from the last fetched stats
+    snapshot — ZERO device syncs added.
+
+    The engine mutates ``snap`` (a plain dict: ``distinct_states``,
+    ``level``, ``frontier``, optionally ``occupancy``) at points it
+    already syncs (the stats fetch / level boundary); this thread wakes
+    every ``every_s`` seconds, reads whatever snapshot is there, and
+    reports — it never touches the device.  ``capacity`` (max_states)
+    enables the ETA-to-capacity estimate from the recent rate.
+
+    Shutdown contract (SIGTERM/preemption): the thread is a daemon and
+    the engine stops it in a ``finally`` around the run loop, so a
+    preempted run ends with a joined thread and a complete final line —
+    never a heartbeat printing into a dead run (and ``os._exit`` style
+    deaths can't be held up by it either).
+    """
+
+    def __init__(
+        self,
+        every_s: float,
+        snap: dict,
+        telemetry: Union[Telemetry, NullTelemetry] = NULL,
+        capacity: Optional[int] = None,
+        log: Optional[Callable[[str], None]] = None,
+    ):
+        if every_s <= 0:
+            raise ValueError(f"heartbeat interval must be > 0: {every_s}")
+        self.every_s = every_s
+        self.snap = snap
+        self.tel = telemetry
+        self.capacity = capacity
+        self._log = log
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.beats = 0
+        # EWMA-smoothed rate (r14): fused dispatches close up to 8 ramp
+        # levels between stats fetches, so the raw beat-over-beat rate
+        # lurches at every fetch; the exponentially weighted average is
+        # what the line and the ETA report.  None until the first beat.
+        self.ewma_sps: Optional[float] = None
+        # walks/s EWMA (r18): simulation engines put a cumulative
+        # ``walks`` count in the snapshot — completed behaviors land
+        # B-at-a-time per round, the chunkiest counter there is, so
+        # the reported walks/s is always the smoothed estimate
+        self.ewma_wps: Optional[float] = None
+        self._prev_walks: Optional[Tuple[float, int]] = None
+
+    # EWMA weight of the newest beat-over-beat rate sample: ~0.3 keeps
+    # the line responsive (half-life ~2 beats) while absorbing the
+    # fuse-batch sawtooth
+    EWMA_ALPHA = 0.3
+
+    def _emit_line(self, msg: str) -> None:
+        if self._log is not None:
+            self._log(msg)
+        else:
+            import sys
+
+            print(msg, file=sys.stderr, flush=True)
+
+    def _beat(self, t_start: float, prev: Tuple[float, int]):
+        now = time.monotonic()
+        nv = int(self.snap.get("distinct_states", 0))
+        level = self.snap.get("level")
+        frontier = self.snap.get("frontier")
+        occ = self.snap.get("occupancy")
+        gen = self.snap.get("generated")
+        elapsed = max(now - t_start, 1e-9)
+        avg_sps = nv / elapsed
+        dt = max(now - prev[0], 1e-9)
+        recent_sps = max(nv - prev[1], 0) / dt
+        # EWMA across fuse batches (r14): a ramp dispatch lands up to
+        # 8 levels of states in one fetch, so the raw sample sawtooths;
+        # smooth it and drive the ETA from the smoothed estimate
+        if self.ewma_sps is None:
+            self.ewma_sps = recent_sps
+        else:
+            self.ewma_sps = (
+                self.EWMA_ALPHA * recent_sps
+                + (1.0 - self.EWMA_ALPHA) * self.ewma_sps
+            )
+        # simulation engines (r18): cumulative completed-walk count in
+        # the snapshot -> a smoothed walks/s beside the state rate
+        walks = self.snap.get("walks")
+        if walks is not None:
+            walks = int(walks)
+            if self._prev_walks is None:
+                self._prev_walks = (t_start, 0)
+            dwt = max(now - self._prev_walks[0], 1e-9)
+            recent_wps = max(walks - self._prev_walks[1], 0) / dwt
+            self.ewma_wps = (
+                recent_wps
+                if self.ewma_wps is None
+                else self.EWMA_ALPHA * recent_wps
+                + (1.0 - self.EWMA_ALPHA) * self.ewma_wps
+            )
+            self._prev_walks = (now, walks)
+        # the engine tags its snapshot ``partial`` when the last level
+        # record was an intra-level anchor — mark the line so a reader
+        # knows the level/frontier figures are mid-level
+        partial = bool(self.snap.get("partial"))
+        eta_s = None
+        if self.capacity and self.ewma_sps > 0:
+            eta_s = (self.capacity - nv) / self.ewma_sps
+        msg = (
+            f"Progress({level if level is not None else '?'}"
+            + ("~" if partial else "")
+            + f") at {elapsed:.0f}s: "
+            + (f"{int(gen):,} states generated, " if gen is not None else "")
+            # a simulation snapshot (walks present) counts VISITED
+            # states — the swarm never dedups, so "distinct" would lie
+            + (
+                f"{nv:,} states visited"
+                if walks is not None
+                else f"{nv:,} distinct states"
+            )
+            + (f", frontier {int(frontier):,}" if frontier is not None else "")
+            + f", {self.ewma_sps:,.0f} st/s (avg {avg_sps:,.0f})"
+            + (
+                f", {walks:,} walks ({self.ewma_wps:,.1f} walks/s)"
+                if walks is not None and self.ewma_wps is not None
+                else ""
+            )
+            + (f", fpset occupancy {occ:.1%}" if occ is not None else "")
+            + (
+                f", ~{eta_s:.0f}s to the state cap"
+                if eta_s is not None and eta_s >= 0
+                else ""
+            )
+        )
+        self._emit_line(msg)
+        self.tel.emit(
+            "progress",
+            distinct_states=nv,
+            states_per_sec=round(recent_sps, 1),
+            states_per_sec_ewma=round(self.ewma_sps, 1),
+            avg_states_per_sec=round(avg_sps, 1),
+            **({"partial": True} if partial else {}),
+            **(
+                {
+                    "walks": walks,
+                    "walks_per_sec_ewma": round(self.ewma_wps, 2),
+                }
+                if walks is not None and self.ewma_wps is not None
+                else {}
+            ),
+            **({"generated": int(gen)} if gen is not None else {}),
+            **({"level": level} if level is not None else {}),
+            **(
+                {"frontier": int(frontier)}
+                if frontier is not None
+                else {}
+            ),
+            **({"occupancy": occ} if occ is not None else {}),
+            **({"eta_capacity_s": round(eta_s, 1)} if eta_s else {}),
+        )
+        self.beats += 1
+        return (now, nv)
+
+    def _loop(self):
+        t_start = time.monotonic()
+        prev = (t_start, int(self.snap.get("distinct_states", 0)))
+        while not self._stop.wait(self.every_s):
+            prev = self._beat(t_start, prev)
+
+    def start(self) -> "Heartbeat":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="ptt-heartbeat", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2 * self.every_s + 1.0)
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+
+def parse_level_window(spec: str) -> Tuple[int, int]:
+    """Parse an xprof level window ``"LO:HI"`` -> (lo, hi); raises
+    ValueError with a usable message on malformed or inverted input
+    (shared by the CLI and bench front-ends)."""
+    try:
+        lo_s, hi_s = spec.split(":", 1)
+        lo, hi = int(lo_s), int(hi_s)
+    except ValueError:
+        raise ValueError(
+            f"bad level window {spec!r} (want LO:HI, e.g. 7:7)"
+        ) from None
+    if lo > hi:
+        raise ValueError(
+            f"bad level window {spec!r} (LO must be <= HI)"
+        )
+    return lo, hi
+
+
+# ------------------------------------------------------------ RTT probe
+
+
+def measure_rtt(device=None, n: int = 3) -> float:
+    """Host<->device round-trip probe (seconds) on ``device`` (a
+    ``torch.device`` or its name; the CPU when None).
+
+    Reads a freshly computed device scalar with ``.item()`` ``n`` times
+    and returns the MINIMUM wall time — the floor that the
+    ``PTT_STAGE_TIMING`` barrier pays a drain.  The report layer
+    subtracts ``stage_<name>_n x rtt_s`` from the stage timings
+    (``obs/report.py``).
+    """
+    import torch
+
+    dev = torch.device(device) if device is not None else torch.device(
+        "cpu")
+    y = torch.zeros((), dtype=torch.int32, device=dev)
+    best = float("inf")
+    for _ in range(max(n, 1)):
+        y = y + 1  # a fresh value: the read cannot be cached
+        t0 = time.perf_counter()
+        y.item()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+# ------------------------------------------------------- engine plumbing
+
+
+def device_label(device) -> str:
+    """The run header's ``device``: the torch device, and on the card
+    its name (``"cuda:0 NVIDIA H100 80GB HBM3"``)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return str(dev)
+    return f"{dev} {torch.cuda.get_device_name(dev)}"
+
+
+def impl_route(device) -> str:
+    """The run header's ``probe_impl``/``expand_impl``/``sieve_impl``:
+    the port has one route a device — the hand kernels on the card
+    (``"cuda"``), their plain versions on the CPU (``"plain"``)."""
+    import torch
+
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+@contextlib.contextmanager
+def run_scope(owner, telemetry_arg, heartbeat_s: Optional[float] = None,
+              capacity: Optional[int] = None):
+    """One engine run's telemetry plumbing: opens the stream (or borrows
+    a caller's :class:`Telemetry`, :func:`owns_stream`) with a fresh
+    ``run_id`` on ``owner.tel`` / ``owner._run_id``, resets the
+    heartbeat snapshot ``owner._snap``, installs the fault observer
+    ``owner._fault_observer`` (fault records land BEFORE the fault
+    fires), runs the heartbeat,
+    emits ``error`` when the run raises, and closes what it opened."""
+    from pulsar_tlaplus_tpu_torch.utils import faults
+
+    rid = new_run_id()
+    tel = as_telemetry(telemetry_arg, run_id=rid)
+    owner.tel = tel
+    owner._run_id = tel.run_id or rid
+    owner._snap = {"distinct_states": 0}
+    owner._fault_observer = (
+        lambda kind, site, count: tel.emit(
+            "fault", kind=kind, site=site, count=count))
+    faults.set_observer(owner._fault_observer)
+    hb = (Heartbeat(heartbeat_s, owner._snap, telemetry=tel,
+                    capacity=capacity) if heartbeat_s else None)
+    try:
+        if hb is not None:
+            hb.start()
+        yield tel
+    except BaseException as e:
+        # the stream must say WHY it ends when no result follows
+        tel.emit("error", error=repr(e)[:300])
+        raise
+    finally:
+        if hb is not None:
+            hb.stop()
+        faults.set_observer(None)
+        if owns_stream(telemetry_arg):
+            tel.close()
+        owner.tel = NULL
+
+
+def emit_result(tel, res, stats: Dict[str, object]) -> None:
+    """A checker's closing records: ``stage_timing`` (when the run timed
+    its stages), ``attribution`` (the per-stage work-unit totals, the
+    input ``obs/attribution.py`` prices) and ``result``, which carries
+    the whole ``stats`` dict — the report rebuilds the per-stage table
+    and the BENCH keys from it."""
+    if not tel.enabled:
+        return
+    timed = {k[len("stage_"):-2]: round(v, 4) for k, v in stats.items()
+             if k.startswith("stage_") and k.endswith("_s")}
+    if timed:
+        tel.emit("stage_timing", stages=timed, rtt_s=stats.get("rtt_s"))
+    work = {k[len("work_"):]: int(v) for k, v in stats.items()
+            if k.startswith("work_")}
+    if work:
+        tel.emit("attribution", stages=work)
+    tel.emit(
+        "result",
+        distinct_states=res.distinct_states,
+        diameter=res.diameter,
+        wall_s=round(res.wall_s, 3),
+        states_per_sec=round(res.states_per_sec, 1),
+        truncated=res.truncated,
+        stop_reason=res.stop_reason,
+        violation=res.violation,
+        violation_gid=res.violation_gid,
+        deadlock=res.deadlock,
+        hbm_recovered=res.hbm_recovered,
+        level_sizes=[int(x) for x in res.level_sizes],
+        fp_collision_prob=res.fp_collision_prob,
+        # floats to 4 decimals, as the JAX engines write them; the
+        # round trip keeps microseconds (the card's is ~1e-5 s)
+        stats={k: (round(v, 6 if k == "rtt_s" else 4)
+                   if isinstance(v, float) else v)
+               for k, v in stats.items()},
+    )
+
+
+def emit_header(tel, device, resume: bool, resume_meta: Dict[str, object],
+                **fields) -> None:
+    """A run's ``run_header``: ``fields`` (the engine and its
+    configuration) plus what every header carries — the device and its
+    route, null for the tiers the port has not yet (tuned profiles,
+    tenants, warm starts, traces), the wall-clock anchor — and, on
+    resume, the writer of the frame resumed (``resume_of`` /
+    ``resume_frame_seq`` / ``resume_level``), so streams chain."""
+    if not tel.enabled:
+        return
+    route = impl_route(device)
+    f = dict(device=device_label(device), probe_impl=route,
+             expand_impl=route, sieve_impl=route, profile_sig=None,
+             hbm_budget=None, tenant=None, warm=None, trace_id=None,
+             wall_unix=round(time.time(), 3), resume=resume)
+    f.update(fields)
+    if resume:
+        for src, dst in (("run_id", "resume_of"),
+                         ("frame_seq", "resume_frame_seq"),
+                         ("level", "resume_level")):
+            if resume_meta.get(src) is not None:
+                f[dst] = resume_meta[src]
+    tel.emit("run_header", **f)

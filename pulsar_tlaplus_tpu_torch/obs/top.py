@@ -1,0 +1,198 @@
+"""Flight deck: the ``cli.py top`` dashboard (curses-free ANSI) — the
+stream side of ``pulsar_tlaplus_tpu/obs/top.py``.
+
+One frame = a plain string: a header line (the stream path), the job
+table, a per-job rate sparkline built from recent ``level`` records,
+and the heartbeat-equivalent status line of whatever holds the device.
+The renderer is a pure function over a :class:`TopModel`, so a frame
+renders without a daemon, a terminal, or ANSI parsing.  Stream mode
+tails telemetry JSONL files: ``level`` records feed the sparkline,
+``job_*`` records the table.  The daemon and dispatcher polls come with
+those tiers (ROADMAP A15d/A15e).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+SPARK_CHARS = "▁▂▃▄▅▆▇█"
+CLEAR = "\x1b[2J\x1b[H"  # clear screen + home (the whole ANSI we need)
+
+
+def sparkline(values: List[float], width: int = 24) -> str:
+    """Last ``width`` values as unicode block bars, scaled to the
+    window's own max (an empty/flat window renders floor bars)."""
+    vals = [max(float(v), 0.0) for v in values][-width:]
+    if not vals:
+        return ""
+    top = max(vals)
+    if top <= 0:
+        return SPARK_CHARS[0] * len(vals)
+    out = []
+    for v in vals:
+        idx = int(v / top * (len(SPARK_CHARS) - 1) + 0.5)
+        out.append(SPARK_CHARS[min(idx, len(SPARK_CHARS) - 1)])
+    return "".join(out)
+
+
+def fmt_si(n) -> str:
+    """1234567 -> '1.2M' (table-width-friendly counts)."""
+    if n is None:
+        return "?"
+    n = float(n)
+    for div, suf in ((1e9, "G"), (1e6, "M"), (1e3, "k")):
+        if abs(n) >= div:
+            return f"{n / div:.1f}{suf}"
+    return f"{int(n)}"
+
+
+class TopModel:
+    """Everything one frame renders, source-agnostic."""
+
+    def __init__(self, source: str):
+        self.source = source  # header: socket path or stream path
+        self.daemon: Dict[str, object] = {}  # pid/uptime_s/warmed
+        self.jobs: List[dict] = []  # job summaries (status-wire shape)
+        self.rates: Dict[str, List[float]] = {}  # job/run -> st/s tail
+        self.status_line: str = ""
+        self.metrics_text: Optional[str] = None
+
+    # ---------------------------------------------------- accumulation
+
+    def note_rate(self, key: str, rate, keep: int = 48) -> None:
+        if rate is None:
+            return
+        h = self.rates.setdefault(key, [])
+        h.append(float(rate))
+        del h[:-keep]
+
+    def ingest_events(self, events: List[dict]) -> None:
+        """Stream mode: fold telemetry records into the model (levels
+        feed sparklines; job_* events feed the table; the newest
+        level/progress record feeds the status line)."""
+        from pulsar_tlaplus_tpu_torch.obs import report
+
+        rows = report.job_table(events)
+        if rows:
+            self.jobs = [
+                {
+                    "job_id": r["job_id"],
+                    "spec": r.get("spec") or "?",
+                    "state": (
+                        "cancelled" if r.get("cancelled")
+                        else (r.get("status") or "in flight")
+                    ),
+                    "slices": r.get("slices", 0),
+                    "suspends": r.get("suspends", 0),
+                    # engine run ids (r12 engine_run_id on suspend/
+                    # result events): the sparkline fallback joins
+                    # these against level-record rate history when the
+                    # per-job streams are ingested alongside
+                    "run_ids": list(r.get("run_ids") or []),
+                }
+                for r in rows
+            ]
+        last = None
+        for e in events:
+            ev = e.get("event")
+            if ev == "level":
+                self.note_rate(
+                    str(e.get("run_id", "run")), e.get("states_per_sec")
+                )
+                last = e
+            elif ev == "progress":
+                # newest record wins, whichever kind: the status line
+                # must advance with a heartbeat-only tail too
+                last = e
+        if last is not None:
+            self.status_line = (
+                f"level {last.get('level', '?')}: "
+                f"{fmt_si(last.get('distinct_states'))} distinct, "
+                f"frontier {fmt_si(last.get('frontier'))}, "
+                f"{fmt_si(last.get('states_per_sec'))} st/s"
+                + (
+                    f", occupancy {last['occupancy']:.1%}"
+                    if isinstance(last.get("occupancy"), float)
+                    else ""
+                )
+            )
+
+
+def render_frame(model: TopModel, now: Optional[float] = None) -> str:
+    """One dashboard frame (no clear codes — the CLI loop prepends
+    :data:`CLEAR` when it repaints a terminal)."""
+    now = time.time() if now is None else now
+    lines: List[str] = []
+    d = model.daemon
+    head = f"tpu-tlc top — {model.source}"
+    if d:
+        head += (
+            f"  (pid {d.get('pid', '?')}, up "
+            f"{float(d.get('uptime_s', 0)):.0f}s, warmed: "
+            f"{','.join(d.get('warmed', [])) or 'none'})"
+        )
+    lines.append(head)
+    lines.append("=" * min(len(head), 78))
+    if model.jobs:
+        lines.append(
+            f"{'JOB':<12} {'SPEC':<14} {'STATE':<10} {'SLICES':>6} "
+            f"{'SUSP':>5} {'STATES':>8} {'RATE':<26}"
+        )
+        for j in model.jobs:
+            key = j.get("job_id", "?")
+            hist = model.rates.get(key) or []
+            # per-slice engine run_ids also key rate history (stream
+            # mode); fall back to the newest run of this job
+            if not hist:
+                for rid in reversed(j.get("run_ids") or []):
+                    if model.rates.get(rid):
+                        hist = model.rates[rid]
+                        break
+            spark = sparkline(hist)
+            tail = f"{fmt_si(hist[-1])}/s" if hist else ""
+            lines.append(
+                f"{str(key)[:12]:<12} {str(j.get('spec', '?'))[:14]:<14} "
+                f"{str(j.get('state', '?'))[:10]:<10} "
+                f"{j.get('slices', 0):>6} {j.get('suspends', 0):>5} "
+                f"{fmt_si(j.get('distinct_states')):>8} "
+                f"{spark} {tail}"
+            )
+    elif model.rates:
+        # no job table (a lone engine stream): render per-run rows so
+        # the sparkline still shows
+        lines.append(f"{'RUN':<14} {'RATE':<30}")
+        for rid, hist in model.rates.items():
+            lines.append(
+                f"{str(rid)[:14]:<14} {sparkline(hist)} "
+                f"{fmt_si(hist[-1])}/s"
+            )
+    else:
+        lines.append("(no jobs)")
+    if model.status_line:
+        lines.append("")
+        lines.append(model.status_line)
+    lines.append("")
+    lines.append(time.strftime("%H:%M:%S", time.localtime(now)))
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------------ stream mode
+
+
+def tail_stream_frame(paths, model: TopModel) -> str:
+    """One re-read of the stream(s) -> updated model -> rendered frame
+    (files are small JSONL; a full re-read keeps resume/rotation
+    simple).  Pass the daemon's ``service.jsonl`` together with
+    ``jobs/*/events.jsonl`` and the job rows join their level-record
+    sparklines via the r12 ``engine_run_id`` fields."""
+    from pulsar_tlaplus_tpu_torch.obs import report
+
+    if isinstance(paths, str):
+        paths = [paths]
+    events = []
+    for p in paths:
+        evs, _errors = report.load_events(p)
+        events.extend(evs)
+    model.ingest_events(events)
+    return render_frame(model)

@@ -23,6 +23,21 @@ the table's memory traffic.  So is the ``claims`` buffer of bids: a caller
 that probes many batches into one table makes it once with ``new_claims``
 and passes it in; each round resets the slots it bid on.
 
+**Work units** (:func:`wkm_update`, the JAX package's ``wkm``): one
+int64 ``[WKM_N]`` device vector in the logical order ``[expand_rows,
+probe_lanes, compact_elems, append_rows, groups]``.  The JAX package
+keeps int32 words with hi/lo carries (the TPU has no int64); here the
+vector is int64 and its logical view is itself.  The definitions are
+the JAX ones: ``expand_rows`` are the live frontier rows a window
+expands (they sum to the frontier a level), ``probe_lanes`` and
+``compact_elems`` the full width of the lanes a flush presents to the
+probe and the compaction, ``append_rows`` the new states appended, and
+``groups`` the flushes.
+
+:class:`FPSet` is the host-side wrapper (tests, probes, host loops):
+it owns the columns, the entry count, growth and the probe metrics,
+and writes one ``fpset_insert`` telemetry record an insert.
+
 ``probe_insert`` is the plain lookup-or-insert; its ``while any(pending)``
 is a host sync per round in eager PyTorch.  The flush's insert tail and
 the rehash run it in chunks (:func:`insert_tail_plain`) only for CPU
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from pulsar_tlaplus_tpu_torch.kernels import build as kernels
@@ -74,6 +90,38 @@ def fpm_update(fpm: torch.Tensor, rounds: torch.Tensor,
     )
     out[4] = torch.maximum(fpm[4], rounds)
     return out
+
+
+# work units, int64: [expand_rows, probe_lanes, compact_elems,
+# append_rows, groups] — the JAX package's ``wkm_logical`` view
+WKM_N = 5
+WKM_LOGICAL_N = WKM_N
+
+
+def wkm_update(wkm: torch.Tensor, rows, lanes, elems, appended,
+               groups) -> torch.Tensor:
+    """One flush's work units added to the int64 ``[WKM_N]`` vector.
+    Each unit is an int or an int64 0-d tensor on the vector's device;
+    ints become device fills (never a host-to-device copy), so nothing
+    synchronizes with the host."""
+    dev = wkm.device
+    parts = [
+        x if torch.is_tensor(x)
+        else torch.full((), int(x), dtype=torch.int64, device=dev)
+        for x in (rows, lanes, elems, appended, groups)
+    ]
+    return wkm + torch.stack(parts)
+
+
+def wkm_logical(vec) -> np.ndarray:
+    """int64 ``[WKM_LOGICAL_N]`` host view of a read work vector
+    (a list, an array or a tensor; shorter vectors read zero-padded)."""
+    if torch.is_tensor(vec):
+        vec = vec.tolist()
+    a = np.asarray(vec, np.int64).reshape(-1)
+    v = np.zeros((WKM_N,), np.int64)
+    v[: min(len(a), WKM_N)] = a[:WKM_N]
+    return v
 
 
 def slot_hash(kcols) -> torch.Tensor:
@@ -356,3 +404,123 @@ def rehash_cols(
                                m, claims, m, max_probes)
         failed = failed + st[1]
     return new_cols, failed
+
+
+class FPSet:
+    """Host-side convenience wrapper over the visited table (tests,
+    probes, host loops): owns the column tuple, the entry count, growth
+    and cumulative probe/failure metrics — the JAX package's
+    ``ops/fpset.FPSet``.  The device engines keep their own tables.
+
+    On the card an insert is the tiled flush (K1, then the insert tail
+    H1, ``tiles.flush_tiles``) and growth rehashes through H1; on the
+    CPU an insert is :func:`probe_insert`.  ``telemetry`` (a path or an
+    ``obs.telemetry.Telemetry``) takes one ``fpset_insert`` record an
+    insert."""
+
+    def __init__(self, ncols: int, cap: int = 1 << 10, telemetry=None,
+                 device=None):
+        from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
+        from pulsar_tlaplus_tpu_torch.utils import device as device_mod
+
+        self.device = device_mod.resolve(device)
+        self.cols = empty_cols(cap, ncols, self.device)
+        self.ncols = ncols
+        self.n = 0
+        self.claims = new_claims(cap, self.device)
+        self.fpm = torch.zeros((FPM_N,), dtype=torch.int64,
+                               device=self.device)
+        self.stats = {"inserts": 0, "probe_rounds": 0, "failures": 0}
+        self.tel = obs.as_telemetry(telemetry)
+        self._tel_owned = obs.owns_stream(telemetry)
+
+    def close(self) -> None:
+        """Close a telemetry stream this FPSet opened (a caller-passed
+        Telemetry stays the caller's to close)."""
+        if self._tel_owned:
+            self.tel.close()
+
+    @property
+    def cap(self) -> int:
+        return self.cols[0].shape[0] - 1
+
+    @property
+    def occupancy(self) -> float:
+        return self.n / self.cap
+
+    def reserve(self, n_entries: int) -> "FPSet":
+        """Grow (double + rehash) until ``n_entries`` fit at load factor
+        <= 1/2."""
+        while 2 * n_entries > self.cap:
+            new = empty_cols(self.cap * 2, self.ncols, self.device)
+            self.claims = new_claims(self.cap * 2, self.device)
+            self.cols, failed = rehash_cols(self.cols, new,
+                                            claims=self.claims)
+            if int(failed):
+                raise RuntimeError("fpset rehash overflow")
+        return self
+
+    def _keys(self, kcols, valid):
+        kc = tuple(torch.as_tensor(c).to(self.device, torch.int32)
+                   for c in kcols)
+        if valid is not None:
+            valid = torch.as_tensor(valid).to(self.device, torch.bool)
+            kc = tuple(torch.where(valid, c, SENTINEL) for c in kc)
+        return kc
+
+    def insert(self, kcols, valid=None) -> torch.Tensor:
+        """Batched insert; returns the is_new bool vector (lane order).
+        Grows first so the load-factor contract always holds; raises on
+        a probe overflow (or the ``fpset_fail@flush`` drill)."""
+        from pulsar_tlaplus_tpu_torch.ops import tiles
+        from pulsar_tlaplus_tpu_torch.utils import faults
+
+        kc = self._keys(kcols, valid)
+        nq = kc[0].shape[0]
+        self.reserve(self.n + nq)
+        if self.device.type == "cuda":
+            fl0 = self.fpm.clone()
+            self.cols, n_new, is_new, self.fpm = tiles.flush_tiles(
+                self.cols, kc, nq, self.fpm, self.claims)
+            d = (self.fpm - fl0).tolist()
+            rounds, nf, n_new = d[1], d[2], int(n_new)
+        else:
+            ok = ~all_sentinel(kc)
+            is_new, self.cols, pending, rounds = probe_insert(
+                self.cols, kc, ok, claims=self.claims)
+            nf, n_new = int(pending.sum()), int(is_new.sum())
+        if "fpset_fail" in faults.poll("flush", self.stats["inserts"] + 1):
+            # the injected stage overflow (PTT_FAULT=fpset_fail@flush:N)
+            # takes the fail-stop path below
+            nf += 1
+        self.n += n_new
+        self.stats["inserts"] += 1
+        self.stats["probe_rounds"] += int(rounds)
+        self.stats["failures"] += nf
+        self.tel.emit(
+            "fpset_insert",
+            inserts=self.stats["inserts"],
+            probe_rounds=int(rounds),
+            failures=nf,
+            n=self.n,
+            occupancy=round(self.occupancy, 4),
+        )
+        if nf:
+            raise RuntimeError(
+                f"fpset probe overflow ({nf} lanes unresolved) — "
+                "grow the table before exceeding load factor 1/2"
+            )
+        return is_new
+
+    def contains(self, kcols, valid=None) -> torch.Tensor:
+        """Membership of each lane (invalid lanes read False)."""
+        from pulsar_tlaplus_tpu_torch.ops import tiles
+
+        kc = self._keys(kcols, valid)
+        ok = ~all_sentinel(kc)
+        member, resolved = tiles.member_block(self.cols, kc, ok,
+                                              MAX_PROBES)
+        if not bool(resolved.all()):
+            raise RuntimeError("fpset lookup unresolved within "
+                               f"{MAX_PROBES} probes")
+        return member

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
 from pulsar_tlaplus_tpu_torch.ops.dedup import U32, mul32
 from pulsar_tlaplus_tpu_torch.ops.packing import smap, tree_leaves
 from pulsar_tlaplus_tpu_torch.sim import rng
@@ -120,7 +121,9 @@ class StreamingSimulator:
     ``time_budget_s`` (wall clock).  With no budget the run is one
     round (a resume with no budget takes the frame's).
     ``checkpoint_path`` writes a frame every ``checkpoint_every``
-    segments.
+    segments.  ``telemetry`` takes the run's JSONL stream (one ``sim``
+    record a segment, riding its one read); ``heartbeat_s`` prints a
+    progress line that often.
     """
 
     def __init__(
@@ -140,6 +143,8 @@ class StreamingSimulator:
         progress: bool = False,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 8,
+        telemetry=None,
+        heartbeat_s: Optional[float] = None,
     ):
         self.model = model
         if invariants is None:
@@ -188,6 +193,11 @@ class StreamingSimulator:
                 "must provide sample_initial(u) for simulation mode"
             )
         self.last_stats: Dict[str, object] = {}
+        self._telemetry_arg = telemetry
+        self.heartbeat_s = heartbeat_s
+        self.tel = obs.NULL
+        self._run_id: Optional[str] = None
+        self._snap: Dict[str, object] = {}
 
     def _log(self, msg: str) -> None:
         if self.progress:
@@ -309,6 +319,48 @@ class StreamingSimulator:
     def run(self, resume: bool = False) -> SimulationResult:
         """Run the swarm under its budgets; ``resume=True`` continues the
         walk of the ``checkpoint_path`` frame."""
+        with obs.run_scope(self, self._telemetry_arg, self.heartbeat_s):
+            return self._run(resume)
+
+    def _emit_header(self, resume: bool, resume_meta: dict) -> None:
+        obs.emit_header(
+            self.tel, self.device, resume, resume_meta,
+            engine="sim",
+            mode="simulate",
+            visited_impl=None,
+            config_sig=self._config_sig(),
+            n_walkers=self.B,
+            depth=self.T,
+            segment_len=self.L,
+            seed=self.seed,
+            invariants=list(self.invariant_names),
+        )
+
+    def _emit_sim_event(self, cum, epoch: int, wall: float) -> None:
+        """One cumulative ``sim`` record (from the segment's read)."""
+        walks = self.B * (cum["steps"] // (self.B * self.T))
+        self._snap.update(distinct_states=cum["states"],
+                          generated=cum["steps"], level=epoch, walks=walks)
+        self.tel.emit(
+            "sim",
+            steps=cum["steps"],
+            walkers=self.B,
+            violations=cum["violations"],
+            states=cum["states"],
+            walks=walks,
+            stutter_steps=cum["stutter"],
+            enabled_lanes=cum["enabled"],
+            dup_attempts=cum["dup_att"],
+            dup_hits=cum["dup_hits"],
+            dup_ratio_est=(round(cum["dup_hits"] / cum["dup_att"], 6)
+                           if cum["dup_att"] else None),
+            epoch=epoch,
+            segments=cum["segments"],
+            wall_s=round(wall, 3),
+            steps_per_sec=round(cum["steps"] / max(wall, 1e-9), 1),
+        )
+
+    def _run(self, resume: bool) -> SimulationResult:
         dev = self.device
         self._widx = torch.arange(self.B, dtype=torch.int64, device=dev)
         self._syncs = 0
@@ -317,9 +369,12 @@ class StreamingSimulator:
         if resume:
             if not self.checkpoint_path:
                 raise ValueError("resume=True needs a checkpoint_path")
-            states, table, epoch, cum, digest, wall = self._load_frame()
+            (states, table, epoch, cum, digest, wall,
+             meta) = self._load_frame()
             t0 = time.time() - wall
+            self._emit_header(True, meta)
         else:
+            self._emit_header(False, {})
             table = torch.zeros((1 << self.dup_table_bits,),
                                 dtype=torch.int64, device=dev)
             states = None  # the first segment is a restart
@@ -371,6 +426,7 @@ class StreamingSimulator:
                 cum["violations"] += c[CTR_VIOL]
                 cum["dup_att"] += self.S * (self.L + (1 if restart else 0))
                 cum["dup_hits"] += c[CTR_DUP_HITS]
+                self._emit_sim_event(cum, epoch + 1, time.time() - t0)
                 if c[CTR_VIOL] and c[CTR_VKEY] != CLEAN:
                     viol = (epoch, c[CTR_VKEY] // self.B,
                             c[CTR_VKEY] % self.B, c[CTR_VINV])
@@ -394,6 +450,19 @@ class StreamingSimulator:
             self.last_stats["ckpt_frames"] = self._frames
         if viol is not None:
             self._attach_violation(res, viol)
+        self.tel.emit(
+            "result",
+            distinct_states=None,
+            diameter=None,
+            wall_s=res.wall_s,
+            truncated=res.truncated,
+            stop_reason=res.stop_reason,
+            violation=res.violation,
+            states_visited=res.states_visited,
+            steps=res.steps,
+            walks=res.walks,
+            stats=dict(self.last_stats),
+        )
         return res
 
     # ----------------------------------------------------- checkpoints
@@ -439,12 +508,23 @@ class StreamingSimulator:
         arrays["walk_digest"] = np.frombuffer(digest.encode(),
                                               dtype=np.uint8)
         self._frames += 1
-        nbytes, _w, _r = ckpt.save_frame(
+        nbytes, _w, retries = ckpt.save_frame(
             self.checkpoint_path, self._config_sig(), arrays, wall_s=wall_s,
-            meta={"frame_seq": self._frames, "epoch": int(epoch)},
+            meta={"frame_seq": self._frames, "epoch": int(epoch),
+                  "run_id": self._run_id},
         )
-        self.last_stats.update(ckpt_bytes=nbytes,
-                               ckpt_write_s=round(time.perf_counter() - t, 4))
+        write_s = round(time.perf_counter() - t, 4)
+        self.last_stats.update(ckpt_bytes=nbytes, ckpt_write_s=write_s)
+        self.tel.emit(
+            "ckpt_frame",
+            frame_seq=self._frames,
+            bytes=nbytes,
+            write_s=write_s,
+            retries=retries,
+            distinct_states=None,
+            epoch=int(epoch),
+            steps=int(cum["steps"]),
+        )
 
     def _load_frame(self):
         d = ckpt.load_frame(self.checkpoint_path, self._config_sig(),
@@ -474,7 +554,8 @@ class StreamingSimulator:
             if b[1] >= 0:
                 self.max_rounds = b[1]
         return (states, table, epoch, cum,
-                d["walk_digest"].tobytes().decode(), float(d["wall_s"]))
+                d["walk_digest"].tobytes().decode(), float(d["wall_s"]),
+                ckpt.frame_meta(d))
 
     def _mk_result(self, cum, epoch, t0, stop_reason) -> SimulationResult:
         if self.device.type == "cuda":
@@ -557,6 +638,14 @@ class StreamingSimulator:
         res.trace_actions = actions
         res.verified = self._verify_replay(s0, states, lanes, n_steps,
                                            inv_idx)
+        self.tel.emit(
+            "sim_violation",
+            invariant=res.violation,
+            walker=walker,
+            step=res.violation_step,
+            trace_len=len(trace),
+            verified=res.verified,
+        )
 
     def _verify_replay(self, s0, states, lanes, n_steps: int,
                        inv_idx: int) -> bool:

@@ -154,6 +154,17 @@ def cleanup_stale_tmp(path: Optional[str]) -> bool:
     return removed
 
 
+def frame_meta(d) -> Dict[str, object]:
+    """Writer metadata of a loaded frame (the writer's ``run_id``,
+    ``frame_seq``, ``level``; ``{}`` for a frame that carries none)."""
+    if "__meta__" not in d:
+        return {}
+    try:
+        return json.loads(d["__meta__"].tobytes().decode())
+    except (ValueError, AttributeError):
+        return {}
+
+
 def load_frame(path: str, sig: str, what: str = "configuration"):
     """Open a frame, check its format and signature, return the npz.
     A file that is not a frame fails with one "unrecognized checkpoint

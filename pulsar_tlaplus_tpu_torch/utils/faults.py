@@ -38,7 +38,18 @@ set: one environment read a poll.
 from __future__ import annotations
 
 import os
-from typing import List, Set, Tuple
+from typing import Callable, List, Optional, Set, Tuple
+
+# telemetry observer: called as (kind, site, count) for every spec that
+# fires, BEFORE the fault is realized — a ``kill`` leaves no other
+# trace, so the breadcrumb must reach the (line-buffered) stream first.
+# Engines install it for the duration of a run.
+_observer: Optional[Callable[[str, str, int], None]] = None
+
+
+def set_observer(fn: Optional[Callable[[str, str, int], None]]) -> None:
+    global _observer
+    _observer = fn
 
 
 class FaultError(RuntimeError):
@@ -110,6 +121,11 @@ def poll(site: str, count: int) -> Tuple[str, ...]:
         if i in _fired or s != site or n != count:
             continue
         _fired.add(i)
+        if _observer is not None:
+            try:
+                _observer(kind, site, count)
+            except Exception:  # noqa: BLE001 — observers never mask faults
+                pass
         if kind == "kill":
             import sys
 

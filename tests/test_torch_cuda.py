@@ -713,3 +713,58 @@ def test_sharded_sort_on_card_equals_cpu(card):
         for k, w in (("rows", a.W), ("parent", 1), ("lane", 1)):
             assert torch.equal(a.last_bufs[k][s][: n * w].cpu(),
                                b.last_bufs[k][s][: n * w].cpu())
+
+
+def test_fpset_insert_on_card_equals_probe_insert(card):
+    """``FPSet.insert`` through K1 + H1 (``tiles.flush_tiles``) against
+    the plain ``probe_insert`` on the same batches: the same new lanes,
+    the same count and the same keys in the table; growth rehashes
+    through H1."""
+    rng = np.random.default_rng(12)
+    fs = fpset.FPSet(2, cap=1 << 10, device=card)
+    cols = fpset.empty_cols(1 << 16, 2, "cpu")
+    for n in (1000, 5000, 20000):
+        k = rng.integers(0, 30000, size=(2, n), dtype=np.int64).astype(
+            np.int32)
+        k[1] = k[0] * 7 + 1
+        got = fs.insert(tuple(torch.from_numpy(c).to(card) for c in k))
+        want, cols, pending, _r = fpset.probe_insert(
+            cols, tuple(torch.from_numpy(c) for c in k),
+            torch.ones((n,), dtype=torch.bool))
+        assert not bool(pending.any())
+        assert torch.equal(got.cpu(), want)
+    occ = ~fpset.all_sentinel(tuple(x[:-1] for x in cols))
+    assert fs.n == int(occ.sum())
+    keys = tuple(c[:-1][occ] for c in cols)
+    assert bool(fs.contains(tuple(c.to(card) for c in keys)).all())
+
+
+def test_telemetry_adds_no_card_sync(card, tmp_path):
+    """The same run with and without a telemetry stream and a heartbeat:
+    equal ``host_syncs`` and equal synchronizing calls on the card
+    (PyTorch's sync debug mode warns at each), and a valid stream."""
+    import warnings
+
+    from pulsar_tlaplus_tpu_torch.obs import schema
+
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, model_producer=True,
+                            retain_null_key=False)
+    got = []
+    for on in (False, True, True, False):
+        kw = (dict(telemetry=str(tmp_path / f"s{len(got)}.jsonl"),
+                   heartbeat_s=0.05) if on else {})
+        ck = DeviceChecker(CompactionModel(c), invariants=(), device=card,
+                           **kw)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r = ck.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert r.distinct_states == 253361
+        got.append((ck.last_stats["host_syncs"],
+                    sum("synchroniz" in str(w.message) for w in caught)))
+        if on:
+            assert schema.validate_stream(kw["telemetry"]) == []
+    assert len(set(got)) == 1, got

@@ -17,6 +17,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+for script in ("torch_calibrate", "torch_telemetry_report",
+               "torch_check_telemetry_schema"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from pulsar_tlaplus_tpu_torch.kernels import build
 assert not build._libs, "a kernel library was loaded at import time"
 from pulsar_tlaplus_tpu_torch import native
@@ -54,4 +59,8 @@ def test_port_imports_no_jax():
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
     for mod in ("native", "engine.statelog", "engine.sharded",
                 "ops.hashtable", "utils.metrics"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("obs", "obs.telemetry", "obs.schema", "obs.report",
+                "obs.attribution", "obs.trace", "obs.metrics", "obs.top",
+                "obs.ledger"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
