@@ -53,11 +53,12 @@ each with the kernels' launch counters zeroed before and read after:
   and the 253,361-state config, both compaction counterexamples
   replayed step by step through the compiled ``successors`` on the card
   and the interpreter; compiled compaction.tla at the 9m binding in the
-  fused level and the stage loop in turns, level sizes equal to the
-  hand model's, profiled, with the host seconds per window; the four
-  scaled bindings to their pins; a tiered run equal to its untiered
-  run; liveness to the ``compiled_full`` pins and the seeded bugs by
-  simulation for seeds 0-2.  Phase 2f holds K2 (hashed W = 5 and 7),
+  fused level and the stage loop in turns, cut after level 15, level
+  sizes equal to the hand model's, profiled, with the host seconds per
+  window; the four scaled bindings to their pins (geo_exact cut after
+  level 20, geo_hashed after level 13: ``COMPILED_*_LEVELS``); a tiered
+  run equal to its untiered run; liveness to the ``compiled_full`` pins
+  and the seeded bugs by simulation for seeds 0-2.  Phase 2f holds K2 (hashed W = 5 and 7),
   K1 and H1 against their plain versions on compiled models' flushes;
   ``[30c graphs]`` prints each compiled model's graph statistics.
 
@@ -131,6 +132,31 @@ streams; 47 ``scripts/torch_calibrate.py``'s unit costs on the card and
 a fused run's attribution beside the stage-timed seconds.
 ``obs_launches`` counts phases 44-47 less their comparison runs
 without telemetry.
+
+Phases 48-52 run this slice's tuner (``tune/``), launch counters
+zeroed around them, with a fresh ``PTT_TUNE_DIR`` for the whole script
+(``check`` and the simulator resolve profiles by default, so neither a
+profile written here nor one left on the machine reshapes any phase)
+and ``PTT_TUNE_ADAPT`` cleared: 48 holds K1 at 16 and 8 membership
+rounds and H1 at a probe budget of 32 against their plain versions at
+the scaled flush's shapes, and the whole flush at ``dense_rounds`` 16
+against the default flush; 49 measures the card's per-read overhead and
+device-to-host rate (``tune/predict.py``'s ``"cuda"`` fallbacks), runs
+``tune.search.tune_device`` on the scaled binding cut at level 6's
+boundary (``max_states`` 17,787,334: every candidate must find those
+states; top 3, 2 turns; the search's peak device memory against one
+run's), then ``cli tune compaction`` and ``cli check compaction``, whose
+header names the profile; 50 runs the scaled binding with and without
+``adapt=True`` in turns (level sizes, logs, host and card syncs equal,
+every ``tune`` record valid) and forces a pressure raise to dense 16 (a
+spy counts K1's launches by rounds); 51 the simulator's search on the
+scaled binding (4,096 x 64 steps) and a ``LivenessChecker`` resolving a
+``"liveness"`` profile on the 253,361-state config (edges and verdict
+as untuned); 52 ``cli tune --hbm-budget`` at a tight budget (the spill
+knobs searched, the tiered key, an untiered ``check`` not resolving it,
+K3 launched).  ``tune_launches`` counts phases 48-52 less the kernel
+comparisons and untuned runs; ``tune_shape`` holds K1's and H1's times
+at the tuner's values.
 
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
@@ -233,6 +259,13 @@ TIER9M_LEVELS = [1, 10, 100, 999, 9918, 38601, 68733, 119133, 187335,
                  233496, 332586, 477576, 501867, 667935, 862983, 843660,
                  948429, 1243917, 507969, 810423, 1150785, 138348, 103518,
                  196830]
+# the compiled path's runs cut in depth at a level boundary (every
+# window size stops there alike), to keep the script inside its time
+# limit: the 9m binding after level 15 (phase 27), geo_exact after level
+# 20 and geo_hashed after level 13 (phase 28); their level sizes are
+# held to the pins' prefixes
+COMPILED_9M_LEVELS = 15
+COMPILED_SCALED_LEVELS = {"geo_exact": 20, "geo_hashed": 13}
 LIVENESS_9M_KW = dict(frontier_chunk=1 << 16, visited_cap=1 << 24,
                       max_states=12_000_000, sweep_chunk=1 << 19)
 # the JAX LivenessChecker's results on the CPU (scripts/liveness_pins.py):
@@ -494,6 +527,20 @@ def _card_syncs(torch, fn):
 
 
 def main() -> int:
+    # tuned profiles resolve by default (check, the simulator): every
+    # phase gets a fresh profile directory, so neither a profile this run
+    # writes (phases 49-52) nor one left on the machine reshapes another
+    # phase, and no adaptation is switched on from outside
+    tune_root = tempfile.mkdtemp(prefix="ptt_profiles_")
+    os.environ["PTT_TUNE_DIR"] = tune_root
+    os.environ.pop("PTT_TUNE_ADAPT", None)
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(tune_root, ignore_errors=True)
+
+
+def _main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2533,6 +2580,8 @@ def main() -> int:
         if hand.level_sizes != TIER9M_LEVELS:
             raise AssertionError(f"hand model: {hand.level_sizes}")
         windows = sum(1 for _ in range(0, TIER9M_STATES, 1 << 16))
+        cut = sum(TIER9M_LEVELS[:COMPILED_9M_LEVELS])
+        cwindows = sum(1 for _ in range(0, cut, 1 << 16))
         gc_s = [0.0, 0.0, 0]  # seconds in Python's collector, start, runs
 
         def gc_clock(stage, _info):
@@ -2547,7 +2596,7 @@ def main() -> int:
         try:
             for fuse in ("level", "stage"):
                 ck = DeviceChecker(cs, sub_batch=1 << 16, fuse=fuse,
-                                   max_states=12_000_000)
+                                   max_states=cut)
                 calls, replay = cs.graph_calls, cs.graph_replay_s
                 gc0, gcn = gc_s[0], gc_s[2]
                 mallocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
@@ -2572,7 +2621,8 @@ def main() -> int:
                               gc_s[2] - gcn,
                               torch.cuda.memory_stats().get(
                                   "num_device_alloc", 0) - mallocs))
-                if r.level_sizes != hand.level_sizes or r.violation:
+                if (r.level_sizes != hand.level_sizes[:COMPILED_9M_LEVELS]
+                        or r.violation):
                     raise AssertionError(f"{fuse}: levels {r.level_sizes}")
         finally:
             gc.callbacks.remove(gc_clock)
@@ -2580,14 +2630,16 @@ def main() -> int:
         # profiler's tables over the whole run's ~4M events take minutes
         prof = where_time(lambda: DeviceChecker(
             cs, sub_batch=1 << 16, max_states=1_500_000).run())
-        return (f"{TIER9M_STATES} states, diameter 24, level sizes equal "
-                f"to the hand model's (state width {cs.layout.total_bits} "
-                f"bits, {cs.A} lanes; hand model {hand_wall:.2f}s fused, "
+        return (f"{cut} states in the first {COMPILED_9M_LEVELS} levels, "
+                f"level sizes equal to the hand model's (its run: "
+                f"{TIER9M_STATES} states, diameter 24; state width "
+                f"{cs.layout.total_bits} bits, {cs.A} lanes; hand model "
+                f"{hand_wall:.2f}s fused, "
                 f"{hm.host_s:.2f}s host in its successors and invariants, "
                 f"{hm.host_s / windows * 1e3:.1f}ms a window); "
                 "walls in turns "
                 + ", ".join(f"{f} {w:.2f}s ({n} replays, {h:.2f}s host, "
-                            f"{h / windows * 1e3:.1f}ms host a window, "
+                            f"{h / cwindows * 1e3:.1f}ms host a window, "
                             f"{s} syncs, {g:.2f}s in {m} garbage "
                             f"collections, {a} cudaMalloc)"
                             for f, w, n, h, s, g, m, a in walls)
@@ -2602,10 +2654,15 @@ def main() -> int:
             if name == "geo_hashed":
                 kept[name] = cs
             t = time.time()
+            if name in COMPILED_SCALED_LEVELS:
+                pins = pins[: COMPILED_SCALED_LEVELS[name]]
+                max_states = sum(pins)
             r = DeviceChecker(cs, max_states=max_states).run()
             got = r.level_sizes[: len(pins)]
-            if got != pins or (name != "geo_hashed" and (
-                    r.truncated or len(r.level_sizes) != len(pins))):
+            if got != pins or (name not in COMPILED_SCALED_LEVELS and (
+                    r.truncated or len(r.level_sizes) != len(pins))) or (
+                    name in COMPILED_SCALED_LEVELS
+                    and r.level_sizes != pins):
                 raise AssertionError(f"{name}: levels {r.level_sizes}")
             notes.append(f"{name} {sum(pins)} over {len(pins)} levels in "
                          f"{time.time() - t:.2f}s ({cs.layout.total_bits} "
@@ -3943,6 +4000,411 @@ def main() -> int:
             failures.append(f"47b: {name} never launched on the telemetry "
                             "path")
 
+    # ---- 48-52: the tuner (tune/), launch counters zeroed around them;
+    # the comparison runs (kernel checks, untuned runs) stay off the count
+    kernels.reset_launches()
+    tune_off = collections.Counter()
+    tune_dir = tempfile.mkdtemp(prefix="ptt_tune_")
+
+    def tune_cmp(fn, *a, **kw):
+        """``fn(*a, **kw)``, a comparison run: its launches leave the
+        count."""
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(*a, **kw)
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                tune_off[k] += v - before[k]
+
+    def tune_kernels():
+        # phase 2b's scaled flush: a 2^26-slot table holding 16M keys, a
+        # 2,228,224-lane accumulator (60 % present, SENTINEL lanes, a
+        # partial n_acc)
+        cap, k = 1 << 26, 2
+        tcols = fpset.empty_cols(cap, k, dev)
+        claims = fpset.new_claims(cap, dev)
+        fill = tuple(rand_i32(16 << 20) for _ in range(k))
+        for base in range(0, fill[0].shape[0], 1 << 22):
+            ks = tuple(c[base: base + (1 << 22)] for c in fill)
+            _n, tcols, pending, _r = fpset.probe_insert(
+                tcols, ks, ~fpset.all_sentinel(ks), claims=claims)
+            if pending.any():
+                raise AssertionError("plain insert left lanes pending")
+        nq = (1 << 16) * 34
+        pick = torch.randint(0, fill[0].shape[0], (nq,), device=dev,
+                             generator=gen)
+        fresh = torch.rand(nq, device=dev, generator=gen) < 0.4
+        kcols = tuple(torch.where(fresh, rand_i32(nq), f[pick])
+                      for f in fill)
+        sent = torch.arange(nq, device=dev) % 97 == 3
+        kcols = tuple(torch.where(sent, -1, c).contiguous() for c in kcols)
+        n_acc = nq - 12345
+        valid = (torch.arange(nq, device=dev) < n_acc) & \
+            ~fpset.all_sentinel(kcols)
+        notes = []
+        for rounds in (16, 8):
+            got = tiles.member_block(tcols, kcols, valid, rounds)
+            want = tiles.member_block_plain(tcols, kcols, valid, rounds)
+            for g, w, what in zip(got, want, ("member", "resolved")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"K1 rounds {rounds} {what}: "
+                                         f"{int((g != w).sum())} lanes differ")
+            flags = torch.empty((2, nq), dtype=torch.bool, device=dev)
+            args = tiles.member_block_args(tcols, kcols, valid, flags[0],
+                                           flags[1], rounds)
+            # the bytes the data needs: keys, valid, flags, and K words a
+            # probed slot (a lane stops at its key or an empty slot)
+            h = fpset.slot_hash(kcols)
+            live = valid.clone()
+            n_probes = 0
+            for r in range(rounds):
+                s = (h + (r * (r + 1) >> 1)) & (cap - 1)
+                sv = tuple(c[s] for c in tcols)
+                n_probes += int(live.sum())
+                live = live & ~(fpset.all_sentinel(sv) | (
+                    (sv[0] == kcols[0]) & (sv[1] == kcols[1])))
+            nbytes = nq * (k * 4 + 1 + 2) + n_probes * k * 4
+            ops = nq * 10 * k + n_probes * (2 + 5 * k)
+            rec = dict(device_ms=_time_ms(torch, lambda: kernels.launch(
+                *args), 100), plain_ms=_time_ms(
+                torch, lambda: tiles.member_block_plain(
+                    tcols, kcols, valid, rounds), 5),
+                bound=_bound(nbytes, ops), unresolved=int((~got[1]).sum()))
+            record.setdefault("tune_kernels", {})[f"K1@{rounds}"] = rec
+            notes.append(f"K1 rounds {rounds} equal: {rec}")
+        # H1 at max_probes 32 on K1's survivors (rounds 16)
+        member = tiles.member_block(tcols, kcols, valid, 16)[0]
+        surv = valid & ~member
+        lane = torch.arange(nq, dtype=torch.int32, device=dev)
+        ccols, _ = compact_by_flag(~surv, (*kcols, lane))
+        npend = int(surv.sum())
+        cw = max(nq // 4, min(nq, fpset.MIN_STAGE))
+        ta, is_new, st = tail_pair(tcols, ccols[:k], ccols[k], npend, cw,
+                                   nq, 32)
+        probes, sectors = probe_work(ta, ccols[:k], npend)
+        n_new = int(is_new.sum())
+        snap, work = fpset.slot_major(tcols), fpset.slot_major(tcols)
+        wclaims = fpset.new_claims(cap, dev)
+        npd = torch.full((), npend, dtype=torch.int64, device=dev)
+        out = (torch.zeros(nq + 1, dtype=torch.bool, device=dev),
+               torch.empty((2, k + 2, cw), dtype=torch.int32, device=dev),
+               torch.empty(2, dtype=torch.int32, device=dev),
+               torch.empty(4, dtype=torch.int64, device=dev))
+        args = fpset.insert_tail_args(work, ccols[:k], ccols[k], npd, cw,
+                                      wclaims, *out, 32)
+
+        def setup():
+            for a, b in zip(work, snap):
+                a.copy_(b)
+            out[0].zero_()
+
+        nbytes = npend * (4 * k + 4) + probes * 4 * k + n_new * (4 * k + 1)
+        ops = npend * 10 * k + probes * (2 + 5 * k)
+        rec = dict(device_ms=_time_each(torch, setup, lambda: kernels.launch(
+            *args), 10), plain_ms=_time_each(
+            torch, setup, lambda: fpset.insert_tail_plain(
+                work, ccols[:k], ccols[k], npd, cw, wclaims, nq, 32), 3),
+            bound=_bound(nbytes, ops), stats=st)
+        record["tune_kernels"]["H1@32"] = rec
+        notes.append(f"H1 max_probes 32 equal ({npend} survivors, {n_new} "
+                     f"new): {rec}")
+        del snap, work, ta
+        # the whole flush at dense_rounds 16 against the default flush
+        outs = []
+        for dense in (None, 16):
+            t = fpset.slot_major(tcols)
+            fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64, device=dev)
+            t, n, flag, fpm = tiles.flush_tiles(t, kcols, n_acc, fpm, None,
+                                                dense)
+            outs.append((t, int(n), flag, fpm.tolist()))
+        (ta, na, fa, ma), (tb, nb, fb, mb) = outs
+        if na != nb or not torch.equal(fa, fb) or not all(
+                torch.equal(a[:cap], b[:cap]) for a, b in zip(ta, tb)):
+            raise AssertionError("flush_tiles at dense 16 differs")
+        notes.append(f"flush_tiles dense 16 = default: n_new {na}, "
+                     f"is_new, table; fpm {ma} vs {mb}")
+        k1, h1_ = record["member_block"], record["insert_tail"]
+        notes.append(f"beside phase 2b/2d: K1@8 device_ms "
+                     f"{k1['device_ms']:.4f} bound {k1['bound'][0]:.5f}, H1@64 "
+                     f"{h1_['device_ms']:.4f} bound {h1_['bound'][0]:.5f}")
+        return "; ".join(notes)
+
+    def tune_scaled():
+        from pulsar_tlaplus_tpu_torch.obs import telemetry as obs_tel
+        from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
+        from pulsar_tlaplus_tpu_torch.tune import search as tune_search
+
+        notes = []
+        # the card's per-read overhead and device-to-host byte rate, the
+        # "cuda" fallbacks of tune/predict.py
+        rtt = min(obs_tel.measure_rtt(dev) for _ in range(5))
+        big = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        big.fill_(1)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t = time.perf_counter()
+            big.cpu()
+            rates.append(big.numel() / (time.perf_counter() - t))
+        del big
+        print(f"[49 predict.py cuda defaults] {smi}: dispatch_s {rtt:.3e}, "
+              f"link_bytes_per_s {max(rates):.4e} (256 MiB .cpu(), best of "
+              "3)", flush=True)
+        notes.append(f"rtt {rtt * 1e6:.1f} us, D2H {max(rates) / 1e9:.2f} "
+                     "GB/s")
+        # the bench's scaled binding, cut at level 6's boundary: every
+        # candidate finds the same states there (a cut inside a level
+        # would stop each window size at another count)
+        model = CompactionModel(scaled_cfg())
+        lines = []
+        t = time.time()
+        prof, rows = tune_search.tune_device(
+            model, invariants=(), spec_label="compaction_scaled",
+            base_kw=dict(max_states=SCALED_TOTAL), top_k=3, repeat=2,
+            log=lines.append)
+        tn = prof["tuner"]
+        if tn["dropped"] or tn["distinct_states"] != SCALED_TOTAL:
+            raise AssertionError(f"dropped {tn['dropped']}: {lines}")
+        ratio = tn["tune_peak_bytes"] / tn["checker_peak_bytes"]
+        if ratio > 1.25:
+            raise AssertionError(f"tune peak {ratio:.2f}x one checker's")
+        measured = [r for r in rows if r["measured_s"] is not None]
+        notes.append(
+            f"tune_device scaled ({time.time() - t:.1f}s): predicted "
+            f"{tn['candidates_predicted']}, measured "
+            + ", ".join(f"{r['candidate']} est {r['est_s']:.4f}s meas "
+                        f"{r['measured_s']:.4f}s" for r in measured)
+            + f"; reference wall {tn['baseline_s']}s, winner {tn['winner']} "
+            f"margin {tn['margin_pct']:+.2f}%; peak {tn['tune_peak_bytes'] / 2**30:.2f}"
+            f" GiB against one checker's {tn['checker_peak_bytes'] / 2**30:.2f}"
+            f" GiB ({ratio:.3f}x); states {tn['distinct_states']} for all")
+        # the CLI: tune the shipped cfg, then check resolves the profile
+        spec = os.path.join(SPECS, "compaction.tla")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["tune", "compaction"])
+        path = out.getvalue().strip().splitlines()[-1].split("profile: ")[1]
+        errs = obs_schema.validate_profile_file(path)
+        with open(path) as f:
+            sprof = json.load(f)
+        s = os.path.join(tune_dir, "check.jsonl")
+        out2 = io.StringIO()
+        with contextlib.redirect_stdout(out2), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc2 = cli.main(["check", spec, "-telemetry", s])
+        hd = obs_report.load_events(s)[0][0]
+        if (rc, rc2, errs, hd["profile_sig"]) != (0, 0, [], sprof["sig"]) \
+                or "45198 distinct states found, search depth (diameter) " \
+                   "20" not in out2.getvalue():
+            raise AssertionError(f"cli tune/check: {rc} {rc2} {errs} "
+                                 f"{hd.get('profile_sig')}\n"
+                                 f"{out2.getvalue()[-800:]}")
+        notes.append(f"cli tune compaction: winner {sprof['tuner']['winner']}"
+                     f" ({sprof['tuner']['margin_pct']:+.2f}%), profile "
+                     f"valid; cli check resolves {hd['profile_sig']}: "
+                     "45198 / 20")
+        return "; ".join(notes)
+
+    def tune_adapt():
+        from pulsar_tlaplus_tpu_torch.tune import online as tune_online
+
+        notes = []
+        want = list(itertools.accumulate(untiered["scaled"][0]))
+        runs, ref = [], None
+        for i, on in enumerate((False, True, True, False)):
+            s = os.path.join(tune_dir, f"adapt{i}.jsonl") if on else None
+            ck = DeviceChecker(CompactionModel(scaled_cfg()),
+                               max_states=SCALED_TOTAL + 1, adapt=on,
+                               telemetry=s)
+            if on:
+                r, cs = _card_syncs(torch, ck.run)
+            else:
+                r, cs = tune_cmp(_card_syncs, torch, ck.run)
+            if list(itertools.accumulate(r.level_sizes)) != want:
+                raise AssertionError(f"run {i}: level totals differ")
+            nv = r.distinct_states
+            logs = [ck.last_bufs[k][: nv * (ck.W if k == "rows" else 1)]
+                    for k in ("rows", "parent", "lane")]
+            if ref is None:
+                ref = logs
+            elif not all(torch.equal(a, b) for a, b in zip(ref, logs)):
+                raise AssertionError(f"run {i}: logs differ")
+            st = ck.last_stats
+            tunes = []
+            if on:
+                ev = obs_report.load_events(s)[0]
+                errs = obs_schema.validate_stream(s)
+                tunes = [e for e in ev if e["event"] == "tune"]
+                if errs or ev[0]["adapt"] is not True or \
+                        st["tune_adjustments"] != len(tunes):
+                    raise AssertionError(f"adapt stream: {errs[:3]}")
+            runs.append((on, r.wall_s, st["host_syncs"], cs,
+                         st["fpset_max_probe_rounds"],
+                         [(e["knob"], e["prev"], e["value"]) for e in tunes]))
+            del ck, logs
+        del ref
+        syncs = {(h, c) for _o, _w, h, c, _m, _t in runs}
+        if len(syncs) != 1:
+            raise AssertionError(f"syncs differ with -adapt: {runs}")
+        h, c = syncs.pop()
+        m = max(x[4] for x in runs)
+        notes.append(
+            f"level sizes and logs equal; host_syncs {h} and card syncs {c} "
+            f"in all four runs; walls off/on/on/off "
+            + ", ".join(f"{w:.4f}s" for _o, w, *_ in runs)
+            + f"; tune records {runs[1][5]}; max probe rounds {m}")
+        # a forced pressure raise: dense 8 and a probe budget of M + 8
+        # (the controller raises at M + 8 // 2 <= M) -> dense 16, so K1
+        # runs 16 rounds in the flushes after the raise
+        seen = collections.Counter()
+        orig = tiles.member_block
+
+        def spy(tcols, kcols, valid, rounds=tiles.TILE_R):
+            seen[rounds] += 1
+            return orig(tcols, kcols, valid, rounds)
+
+        tiles.member_block = spy
+        try:
+            s = os.path.join(tune_dir, "pressure.jsonl")
+            ck = DeviceChecker(CompactionModel(scaled_cfg()),
+                               max_states=SCALED_TOTAL + 1, adapt=True,
+                               fpset_dense_rounds=8,
+                               fpset_stages=((4, 16), (16, m + 8)),
+                               telemetry=s)
+            r = ck.run()
+        finally:
+            tiles.member_block = orig
+        nv = r.distinct_states
+        same = list(itertools.accumulate(r.level_sizes)) == want and all(
+            torch.equal(torch.from_numpy(a[:nv]).to(dev),
+                        ck.last_bufs[k][:nv])
+            for k, a in zip(("parent", "lane"), untiered["scaled"][1:]))
+        raised = [e for e in obs_report.load_events(s)[0]
+                  if e["event"] == "tune"
+                  and e["knob"] == "fpset_dense_rounds"]
+        if not same or not raised or raised[-1]["value"] != \
+                tune_online.MAX_DENSE or not seen[16]:
+            raise AssertionError(f"pressure: same {same}, raised {raised}, "
+                                 f"K1 rounds {dict(seen)}")
+        notes.append(f"pressure raise {[(e['prev'], e['value']) for e in raised]}"
+                     f" ({raised[-1]['reason']}): K1 launches by rounds "
+                     f"{dict(seen)}; level sizes and logs = phase 6's; wall "
+                     f"{r.wall_s:.4f}s")
+        del ck
+        return "; ".join(notes)
+
+    def tune_others():
+        from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
+        from pulsar_tlaplus_tpu_torch.tune import search as tune_search
+
+        notes = []
+        lines = []
+        sprof, srows = tune_search.tune_sim(
+            CompactionModel(scaled_cfg()), invariants=(),
+            spec_label="compaction_scaled", depth=64,
+            total_steps=4096 * 64, top_k=2, repeat=1, log=lines.append)
+        tn = sprof["tuner"]
+        notes.append(f"tune_sim scaled 4096 x 64: measured {tn['measured_s']}"
+                     f", steps/s {tn['steps_per_sec']}, winner {tn['winner']}")
+        # a "liveness" profile on the 253,361-state config
+        model = CompactionModel(full_cfg)
+        sig = tune_profiles.profile_key(model=model, invariants=(),
+                                        engine="liveness", backend="cuda")
+        tune_profiles.save(tune_profiles.build(
+            sig=sig, engine="liveness", backend="cuda",
+            knobs={"sweep_group": 2}, spec="compaction_full"))
+        got = {}
+        for tuned in (False, True):
+            lc = LivenessChecker(CompactionModel(full_cfg),
+                                 fairness="wf_next", frontier_chunk=4096,
+                                 visited_cap=1 << 18,
+                                 profile="auto" if tuned else None)
+            if tuned:
+                res = lc.run()
+            else:
+                res = tune_cmp(lc.run)
+            got[tuned] = (res.holds, res.reason, lc.last_stats["edges"],
+                          lc.profile_sig, lc.sweep_group)
+        if got[True][:3] != got[False][:3] or got[True][3:] != (sig, 2) \
+                or got[True][2] != LIVENESS_PINS["full"]["edges"]:
+            raise AssertionError(f"liveness profile: {got}")
+        notes.append(f"LivenessChecker with the liveness profile "
+                     f"(sweep_group 2): {got[True][2]} edges, holds "
+                     f"{got[True][0]}, as untuned (sweep_group "
+                     f"{got[False][4]})")
+        return "; ".join(notes)
+
+    def tune_tiered():
+        from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
+        from pulsar_tlaplus_tpu_torch.tune import space as tune_space
+
+        shape = dict(sub_batch=512, visited_cap=2048, frontier_cap=2048,
+                     max_states=1 << 22)
+        b = tight_budget(DeviceChecker(CompactionModel(pyeval.SHIPPED_CFG),
+                                       hbm_budget="1T", **shape))
+        k3 = kernels.LAUNCHES["sieve_mask"]
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["tune", "compaction", "--hbm-budget", str(b),
+                           "--sub-batch", "512", "--visited-cap", "2048",
+                           "--frontier-cap", "2048", "--top-k", "2",
+                           "--repeat", "1"])
+        path = out.getvalue().strip().splitlines()[-1].split("profile: ")[1]
+        with open(path) as f:
+            prof = json.load(f)
+        model = CompactionModel(pyeval.SHIPPED_CFG)
+        inv = tuple(cfgmod.load(os.path.join(SPECS,
+                                             "compaction.cfg")).invariants)
+        tiered_sig = tune_profiles.profile_key(
+            model=model, invariants=inv, backend="cuda", tiered=True)
+        n_space = len(tune_space.candidates(model, 512, spill=True))
+        s = os.path.join(tune_dir, "untiered.jsonl")
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc2 = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                            "-telemetry", s])
+        hd = obs_report.load_events(s)[0][0]
+        n_k3 = kernels.LAUNCHES["sieve_mask"] - k3
+        tn = prof["tuner"]
+        if (rc, rc2, prof["sig"], tn["candidates_predicted"]) != (
+                0, 0, tiered_sig, n_space) or hd["profile_sig"] == \
+                tiered_sig or n_k3 <= 0 \
+                or obs_schema.validate_profile_file(path):
+            raise AssertionError(
+                f"tiered tune: rc {rc}/{rc2}, sig {prof['sig']} vs "
+                f"{tiered_sig}, {tn['candidates_predicted']} vs {n_space}, "
+                f"check header {hd['profile_sig']}, K3 {n_k3}\n"
+                f"{err.getvalue()[-1500:]}")
+        return (f"cli tune --hbm-budget {b} --sub-batch 512: "
+                f"{n_space} candidates with the spill knobs, measured "
+                f"{tn['measured_s']}, dropped {tn['dropped']}, winner "
+                f"{tn['winner']}; tiered key {tiered_sig}, the untiered check "
+                f"resolved {hd['profile_sig']}; K3 {n_k3} launches")
+
+    t48 = time.time()
+    _phase("48 K1 at rounds 16 and 8, H1 at max_probes 32, the flush at "
+           "dense 16", lambda: tune_cmp(tune_kernels), failures)
+    torch.cuda.empty_cache()
+    _phase("49 tune at full width, cli tune/check", tune_scaled, failures)
+    torch.cuda.empty_cache()
+    _phase("50 -adapt on the card (syncs, logs, a pressure raise)",
+           tune_adapt, failures)
+    torch.cuda.empty_cache()
+    _phase("51 the simulator's and the liveness engine's profiles",
+           tune_others, failures)
+    _phase("52 the tiered search", tune_tiered, failures)
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tune_launches = {k: v - tune_off[k] for k, v in kernels.LAUNCHES.items()}
+    print(f"[52b launches on the tune path] {tune_launches} (comparison "
+          f"runs left out: {dict(tune_off)}; phases 48-52 "
+          f"{time.time() - t48:.1f}s)", flush=True)
+    for name in TIERED_PATH_KERNELS:
+        if tune_launches[name] <= 0:
+            failures.append(f"52b: {name} never launched on the tune path")
+
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -3986,6 +4448,10 @@ def main() -> int:
             sharded_launches=shard_launches[name],
             engines_launches=engines_launches[name],
             obs_launches=obs_launches[name],
+            tune_launches=tune_launches[name],
+            **({"tune_shape": record["tune_kernels"][tk]}
+               if (tk := {"member_block": "K1@16",
+                          "insert_tail": "H1@32"}.get(name)) else {}),
             **({"sweep_shape": sweep_shape}
                if name == "key_plane" and sweep_shape else {}),
             **({"spec_shapes": shapes} if shapes else {}),

@@ -13,10 +13,18 @@
         [-engine device|host] [-visited fpset|sort] [-compact logshift|sort]
         [-sharded N [-slices S] [-sharded-engine device|host]
          [-sharded-dedup sort|hash] | -workers N]
+        [-no-profile] [-adapt | -no-adapt]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
         [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
         [-checkpoint PATH [-recover]] [-telemetry FILE] [-progress SEC]
+        [-no-profile]
+    python -m pulsar_tlaplus_tpu_torch.cli tune SPEC [-config FILE.cfg]
+        [-invariant NAME ...] [--mode check|simulate] [--sim-depth D]
+        [--sim-steps N] [--maxstates N] [--budget SEC] [--hbm-budget BYTES]
+        [--visited-cap N] [--frontier-cap N] [--sub-batch N] [--top-k K]
+        [--repeat N] [--candidates N] [--calibration FILE]
+        [--stream-dir DIR] [--ledger FILE] [--adapt] [-cpu]
     python -m pulsar_tlaplus_tpu_torch.cli trace STREAM... [-o FILE]
     python -m pulsar_tlaplus_tpu_torch.cli metrics --stream FILE
     python -m pulsar_tlaplus_tpu_torch.cli top --stream FILE...
@@ -56,7 +64,15 @@ in the JAX CLI); ``-metrics FILE`` appends one JSON record a level.
 every 5 levels and at any truncation, the liveness sweep every 5
 chunks, the simulator every 8 segments), and SIGTERM/SIGINT then stops
 the run with a frame; ``-recover`` continues from the frame (and refuses
-when there is none).  ``-telemetry FILE`` writes every engine's
+when there is none).  ``tune`` searches the knob space of the device
+engine (``--mode simulate``: the simulator's) with the cost model,
+measures the top ``--top-k`` candidates and the defaults in turns
+(min of ``--repeat``), and saves the winner as a tuned profile
+(``tune/``) under ``PTT_TUNE_DIR`` (default ``~/.ptt_profiles``);
+``check`` and ``simulate`` resolve the profile of their config unless
+``-no-profile`` (flags given explicitly win over it), and ``-adapt`` /
+``-no-adapt`` turn the online controller on or off (``PTT_TUNE_ADAPT=0``
+turns it off everywhere).  ``-telemetry FILE`` writes every engine's
 versioned JSONL event stream (``obs/telemetry.py``), ``-progress SEC``
 a TLC-style progress line that often (neither reads the device), and
 ``-xprof DIR`` a ``torch.profiler`` Chrome trace of the single-device
@@ -81,6 +97,20 @@ import time
 # sub_batch (the JAX CLI's -chunk default)
 LIVENESS_CHUNK = 4096
 SHARDED_CHUNK = 4096
+
+
+def _profile_arg(args):
+    """``"auto"`` (resolve the config's tuned profile) unless
+    ``-no-profile``."""
+    return None if args.no_profile else "auto"
+
+
+def _adapt_arg(args):
+    """``-no-adapt`` -> False, ``-adapt`` -> True, else None (the
+    profile or ``PTT_TUNE_ADAPT`` decides)."""
+    if args.no_adapt:
+        return False
+    return True if args.adapt else None
 
 
 def _report(r, constants, wall: float, checkpoint=None) -> int:
@@ -259,6 +289,8 @@ def _liveness(args, model, goal):
         sweep_group=args.sweep_group,
         hbm_budget=args.hbm_budget,
         spill_compress=False if args.no_spill_compress else None,
+        compact_impl=args.compact,
+        profile=_profile_arg(args),
         device="cpu" if args.cpu else None,
         progress=True,
         checkpoint_path=args.checkpoint,
@@ -323,9 +355,10 @@ def _simulate(args, model, constants, invariants, n_walkers: int,
             checkpoint_path=args.checkpoint,
             telemetry=args.telemetry,
             heartbeat_s=args.progress,
+            profile=_profile_arg(args),
         )
         if header is not None:
-            header(sim.device)
+            header(sim)
         sres = sim.run(resume=args.recover)
     except FileNotFoundError:
         _no_frame(args)
@@ -375,8 +408,7 @@ def _check(args) -> int:
     from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
 
     _sharded_args(args)
-    module = os.path.splitext(os.path.basename(args.spec))[0]
-    cfg_path = args.config or os.path.splitext(args.spec)[0] + ".cfg"
+    module, cfg_path = _spec_cfg(args)
     if args.recover and not args.interp and (
         not args.checkpoint or not os.path.exists(args.checkpoint)
     ):
@@ -565,7 +597,7 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
         return _report_liveness(args.liveness_property, args, lres)
     if args.simulate:
         return _simulate(args, model, constants, invariants, args.simulate,
-                         header=header)
+                         header=lambda sim: header(sim.device))
     if args.sharded:
         return _check_sharded(args, model, constants,
                               checker_invariants or invariants, header)
@@ -595,13 +627,15 @@ def _dispatch_engines(args, model, constants, invariants, tlc_cfg, header,
                 device="cpu" if args.cpu else None,
                 progress=True,
                 hbm_budget=args.hbm_budget,
-                spill_compress=not args.no_spill_compress,
+                spill_compress=False if args.no_spill_compress else None,
                 fuse=args.fuse,
                 fuse_group=args.fuse_group,
                 checkpoint_path=args.checkpoint,
                 metrics_path=args.metrics,
                 visited_impl=args.visited,
                 compact_impl=args.compact,
+                profile=_profile_arg(args),
+                adapt=_adapt_arg(args),
                 telemetry=args.telemetry,
                 heartbeat_s=args.progress,
                 xprof_dir=args.xprof,
@@ -671,7 +705,7 @@ def _check_sharded(args, model, constants, invariants, header) -> int:
                 n_slices=args.slices,
                 device=dev,
                 visited_impl=args.visited,
-                compact_impl=args.compact,
+                compact_impl=args.compact or "logshift",
                 telemetry=args.telemetry,
                 heartbeat_s=args.progress,
             )
@@ -691,29 +725,35 @@ def _check_sharded(args, model, constants, invariants, header) -> int:
     return _report(r, constants, time.time() - t0, checkpoint=args.checkpoint)
 
 
-def _cmd_simulate(args) -> int:
-    """The ``simulate`` subcommand: SPEC is a registry module name or a
-    ``.tla`` path; the cfg defaults to ``specs/<module>.cfg`` (a path:
-    its ``.cfg`` sibling)."""
+def _spec_cfg(args):
+    """(module, cfg path) of SPEC, a registry module name or a ``.tla``
+    path: ``-config``, else the path's ``.cfg`` sibling, else
+    ``specs/<module>.cfg``."""
     spec = args.spec
     module = os.path.splitext(os.path.basename(spec))[0]
-    cfg_path = args.config
-    if cfg_path is None:
-        if spec.endswith(".tla"):
-            cfg_path = os.path.splitext(spec)[0] + ".cfg"
-        else:
-            cfg_path = os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "specs", f"{module}.cfg",
-            )
+    if args.config:
+        return module, args.config
+    if spec.endswith(".tla"):
+        return module, os.path.splitext(spec)[0] + ".cfg"
+    return module, os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "specs", f"{module}.cfg")
+
+
+def _cmd_simulate(args) -> int:
+    """The ``simulate`` subcommand: SPEC as :func:`_spec_cfg` reads it."""
+    module, cfg_path = _spec_cfg(args)
     model, constants, tlc_cfg = _load_model(module, cfg_path)
     invariants = _invariants(args, model, tlc_cfg)
-    print(
-        f"tpu-tlc: simulating {module} ({args.walkers} walkers, depth "
-        f"{args.depth}; invariants: {list(invariants) or 'none'})"
-    )
+
+    def header(sim):
+        print(
+            f"tpu-tlc: simulating {module} ({sim.B} walkers, depth "
+            f"{args.depth}; invariants: {list(invariants) or 'none'})"
+        )
+
     return _simulate(args, model, constants, invariants, args.walkers,
-                     time_budget=args.time_budget)
+                     time_budget=args.time_budget, header=header)
 
 
 def _report_spill(ck) -> None:
@@ -783,6 +823,149 @@ def _ckpt_args(p) -> None:
                    "(SIGTERM/SIGINT then stops the run with a frame)")
     p.add_argument("-recover", action="store_true",
                    help="resume the run from the -checkpoint frame")
+
+
+def _profile_args(p) -> None:
+    p.add_argument(
+        "-no-profile", dest="no_profile", action="store_true",
+        help="skip tuned-profile resolution: the engine defaults and the "
+        "flags given only (profiles otherwise resolve by config "
+        "signature from PTT_TUNE_DIR, default ~/.ptt_profiles)")
+
+
+# --------------------------------------------------------------- tune
+
+
+def _tune_parser(sub) -> None:
+    pt = sub.add_parser(
+        "tune", help="cost-model-driven tuning: rank the knob space with "
+        "the calibrated cost model, measure the top K and the defaults "
+        "in turns, save the winner as a tuned profile the engines "
+        "resolve by config signature")
+    pt.add_argument("spec", help="registry module name (or its .tla path)")
+    pt.add_argument("-config", default=None,
+                    help=".cfg constant bindings (default: "
+                    "specs/<spec>.cfg)")
+    pt.add_argument("-invariant", action="append", default=None,
+                    help="invariant the tuned runs check (repeatable; "
+                    "default: the cfg's INVARIANTS; part of the key)")
+    pt.add_argument("--mode", choices=("check", "simulate"),
+                    default="check",
+                    help="tune the device checker (default) or the "
+                    "simulator's n_walkers and segment_len")
+    pt.add_argument("--sim-depth", dest="sim_depth", type=int, default=64,
+                    help="with --mode simulate: steps per behavior")
+    pt.add_argument("--sim-steps", dest="sim_steps", type=int,
+                    default=None,
+                    help="with --mode simulate: the swarm-total step "
+                    "budget of a measured run (default 4 rounds of 1024 "
+                    "walkers)")
+    pt.add_argument("--maxstates", type=int, default=1 << 22,
+                    help="state budget of a measured run")
+    pt.add_argument("--budget", type=float, default=None, metavar="SEC",
+                    help="time budget of a measured run")
+    pt.add_argument("--hbm-budget", dest="hbm_budget", default=None,
+                    metavar="BYTES",
+                    help="tune under a tiered-store byte budget (adds the "
+                    "spill knobs to the space; the profile's key is the "
+                    "tiered one)")
+    pt.add_argument("--visited-cap", dest="visited_cap", type=int,
+                    default=1 << 16,
+                    help="initial visited-table room of a measured run")
+    pt.add_argument("--frontier-cap", dest="frontier_cap", type=int,
+                    default=1 << 14,
+                    help="initial row-store room of a measured run")
+    pt.add_argument("--sub-batch", dest="sub_batch", type=int,
+                    default=None,
+                    help="the base window the sub_batch candidates scale "
+                    "and the defaults run at (default: the engine's "
+                    "65,536; the profile then carries the winner's)")
+    pt.add_argument("--top-k", dest="top_k", type=int, default=4,
+                    help="candidates measured beside the defaults")
+    pt.add_argument("--repeat", type=int, default=2,
+                    help="interleaved repetitions a measured candidate "
+                    "(min of N)")
+    pt.add_argument("--candidates", type=int, default=None,
+                    help="cap the enumerated space")
+    pt.add_argument("--calibration", default=None, metavar="FILE",
+                    help="unit costs from scripts/torch_calibrate.py "
+                    "(default: the backend's fallback costs)")
+    pt.add_argument("--adapt", action="store_true",
+                    help="write the profile with online adaptation on")
+    pt.add_argument("--stream-dir", dest="stream_dir", default=None,
+                    metavar="DIR",
+                    help="keep the measured runs' telemetry streams here")
+    pt.add_argument("--ledger", default=None, metavar="FILE",
+                    help="add every measured run to this ledger")
+    pt.add_argument("-cpu", action="store_true",
+                    help="run on the CPU instead of the GPU")
+
+
+def _cmd_tune(args) -> int:
+    """``tune``: predict, measure, persist (``tune/search.py``); prints
+    the report and the profile's path."""
+    import glob
+    import json
+    import tempfile
+
+    from pulsar_tlaplus_tpu_torch.obs import attribution, ledger
+    from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
+    from pulsar_tlaplus_tpu_torch.tune import search as tune_search
+
+    module, cfg_path = _spec_cfg(args)
+    model, _constants, tlc_cfg = _load_model(module, cfg_path)
+    invariants = _invariants(args, model, tlc_cfg)
+    cal = None
+    if args.calibration:
+        try:
+            cal = attribution.load_calibration(args.calibration)
+        except (OSError, ValueError) as e:
+            print(f"tpu-tlc: {e}", file=sys.stderr)
+            return 2
+    stream_dir = args.stream_dir
+    if stream_dir is None and args.ledger:
+        stream_dir = tempfile.mkdtemp(prefix="ptt_tune_")
+
+    def log(msg: str) -> None:
+        print(f"tpu-tlc tune: {msg}", file=sys.stderr, flush=True)
+
+    dev = "cpu" if args.cpu else None
+    try:
+        if args.mode == "simulate":
+            profile, rows = tune_search.tune_sim(
+                model, invariants=invariants, spec_label=module,
+                depth=args.sim_depth, total_steps=args.sim_steps,
+                top_k=args.top_k, repeat=args.repeat, calibration=cal,
+                stream_dir=stream_dir, device=dev, log=log)
+        else:
+            base_kw = dict(visited_cap=args.visited_cap,
+                           frontier_cap=args.frontier_cap,
+                           max_states=args.maxstates)
+            if args.hbm_budget:
+                base_kw["hbm_budget"] = args.hbm_budget
+            profile, rows = tune_search.tune_device(
+                model, invariants=invariants, spec_label=module,
+                base_kw=base_kw, sub_batch=args.sub_batch,
+                budget_s=args.budget, top_k=args.top_k,
+                repeat=args.repeat, candidate_limit=args.candidates,
+                calibration=cal, adapt=args.adapt, stream_dir=stream_dir,
+                device=dev, log=log)
+    except (ValueError, RuntimeError) as e:
+        print(f"tpu-tlc: tune failed: {e}", file=sys.stderr)
+        return 2
+    print(tune_search.render_report(profile, rows))
+    print(f"profile: {tune_profiles.path_for(profile['sig'])}")
+    if args.ledger and stream_dir:
+        recs = []
+        for p in sorted(glob.glob(os.path.join(stream_dir,
+                                               "tune_*.jsonl"))):
+            try:
+                recs.append(ledger.record_from_file(p))
+            except (OSError, ValueError, json.JSONDecodeError):
+                continue
+        added = ledger.append(args.ledger, recs)
+        print(f"ingested {added} measured run(s) into {args.ledger}")
+    return 0
 
 
 # ------------------------------------------------------ stream readers
@@ -1069,7 +1252,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpu-tlc-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     pc = sub.add_parser("check", help="exhaustive BFS model checking")
-    pc.add_argument("spec", help="the .tla module to check")
+    pc.add_argument("spec", help="the .tla module to check (or a registry "
+                    "module name: specs/<name>.cfg by default)")
     pc.add_argument("-config", default=None,
                     help="TLC .cfg (default: SPEC with a .cfg suffix)")
     pc.add_argument("-invariant", action="append", default=None,
@@ -1114,9 +1298,10 @@ def main(argv=None) -> int:
                     "hash table, default) or sort (the sort-merge flush, "
                     "for differential runs; runs the stage loop)")
     pc.add_argument("-compact", choices=("logshift", "sort"),
-                    default="logshift",
+                    default=None,
                     help="the device engines' stream compaction: logshift "
-                    "(prefix sum, default) or sort (a stable sort)")
+                    "(prefix sum, default unless a tuned profile sets it) "
+                    "or sort (a stable sort)")
     pc.add_argument("-engine", choices=("device", "host"), default="device",
                     help="the non-sharded engine: device (default) or host "
                     "(the host-driver engine: hash dedup, the state log "
@@ -1178,6 +1363,17 @@ def main(argv=None) -> int:
                     help="simulation mode: N random walkers instead of "
                     "exhaustive BFS")
     _sim_args(pc)
+    _profile_args(pc)
+    pc.add_argument(
+        "-adapt", action="store_true",
+        help="online adaptation: a controller at the fused level's pass "
+        "boundaries moves the ramp cap and the probe schedule from what "
+        "each pass's read brought back (a telemetry 'tune' record a "
+        "move; the states found and their order are unchanged)")
+    pc.add_argument(
+        "-no-adapt", dest="no_adapt", action="store_true",
+        help="online adaptation off even where the tuned profile turns "
+        "it on (PTT_TUNE_ADAPT=0 is the environment's equivalent)")
 
     ps = sub.add_parser("simulate", help="walker-swarm simulation (TLC "
                         "-simulate) under a step or time budget")
@@ -1189,8 +1385,9 @@ def main(argv=None) -> int:
     ps.add_argument("-invariant", action="append", default=None,
                     help="invariant to check (repeatable; default: the "
                     "cfg's INVARIANTS)")
-    ps.add_argument("-walkers", type=int, default=1024, metavar="N",
-                    help="walker swarm width (default 1024)")
+    ps.add_argument("-walkers", type=int, default=None, metavar="N",
+                    help="walker swarm width (default: the tuned "
+                    "profile's, else 1024)")
     _sim_args(ps)
     ps.add_argument("-time-budget", dest="time_budget", type=float,
                     default=None, metavar="SEC", help="wall-clock budget")
@@ -1198,10 +1395,12 @@ def main(argv=None) -> int:
                     help="run on the CPU instead of the GPU")
     _ckpt_args(ps)
     _tel_args(ps)
+    _profile_args(ps)
+    _tune_parser(sub)
     _reader_parsers(sub)
     args = p.parse_args(argv)
     readers = {"trace": _cmd_trace, "metrics": _cmd_metrics,
-               "top": _cmd_top, "ledger": _cmd_ledger}
+               "top": _cmd_top, "ledger": _cmd_ledger, "tune": _cmd_tune}
     if args.cmd in readers:
         return readers[args.cmd](args)
     if args.cmd == "simulate":

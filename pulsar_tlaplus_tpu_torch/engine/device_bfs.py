@@ -190,6 +190,8 @@ from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, KeySpec, merge_lanes
 from pulsar_tlaplus_tpu_torch.store import budget as store_budget
 from pulsar_tlaplus_tpu_torch.store import sieve
 from pulsar_tlaplus_tpu_torch.store.tiers import TieredStore
+from pulsar_tlaplus_tpu_torch.tune import online as tune_online
+from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults, metrics, recovery
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
@@ -289,6 +291,21 @@ class DeviceChecker:
     TLC-style progress line that often from the last host snapshot;
     ``xprof_dir`` writes a ``torch.profiler`` Chrome trace of the levels
     ``xprof_levels=(lo, hi)`` (default: the whole run) there.
+
+    ``fpset_dense_rounds`` and ``fpset_stages`` set the tiled flush's
+    probe schedule (``fpset.resolve_schedule``).  ``profile`` resolves a
+    tuned profile (``tune/profiles.py``: None = off, ``"auto"`` = by
+    config signature from ``PTT_TUNE_DIR``, a path, or a profile dict):
+    every knob left at None (``sub_batch``, ``flush_factor``, ``group``,
+    ``fuse_group``, the schedule, ``compact_impl`` and the tiered
+    knobs) takes the profile's value, then the default; ``profile_sig``
+    and ``profile_applied`` say what it set.  ``adapt`` runs the online
+    controller (``tune/online.py``; ``PTT_TUNE_ADAPT=0`` turns it off
+    everywhere) at the fused level's pass boundaries: it moves the
+    ramp's cap and the dense rounds from the values the pass's read
+    brought back, with no read of its own, and writes a ``tune`` record
+    a move (``last_stats["tune_adjustments"]``).  Neither changes the
+    states found or their order.
     """
 
     def __init__(
@@ -296,13 +313,13 @@ class DeviceChecker:
         model,
         invariants: Optional[Tuple[str, ...]] = None,
         check_deadlock: bool = True,
-        sub_batch: int = 1 << 16,
+        sub_batch: Optional[int] = None,
         visited_cap: int = 1 << 16,
         max_states: int = 1 << 26,
         device=None,
         progress: bool = False,
         hbm_budget=None,
-        spill_compress: bool = True,
+        spill_compress: Optional[bool] = None,
         fuse: str = "level",
         fuse_group: Optional[int] = None,
         time_budget_s: Optional[float] = None,
@@ -312,16 +329,20 @@ class DeviceChecker:
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
         expand_chunk: Optional[int] = None,
-        flush_factor: int = 1,
-        group: int = GROUP,
+        flush_factor: Optional[int] = None,
+        group: Optional[int] = None,
         fp_bits: Optional[int] = None,
         frontier_cap: Optional[int] = None,
         metrics_path: Optional[str] = None,
         visited_impl: str = "fpset",
-        compact_impl: str = "logshift",
+        compact_impl: Optional[str] = None,
         seed_cap: Optional[int] = None,
         hbm_headroom: Optional[float] = None,
         miss_batch: Optional[int] = None,
+        fpset_dense_rounds: Optional[int] = None,
+        fpset_stages=None,
+        profile=None,
+        adapt: Optional[bool] = None,
         telemetry=None,
         heartbeat_s: Optional[float] = None,
         xprof_dir: Optional[str] = None,
@@ -330,6 +351,48 @@ class DeviceChecker:
         if visited_impl not in ("fpset", "sort"):
             raise ValueError(
                 f"visited_impl must be fpset|sort: {visited_impl}")
+        self.device = device_mod.resolve(device)
+        if invariants is None:
+            invariants = model.default_invariants
+        # Tuned-profile resolution (tune/profiles.py): explicit ctor knobs
+        # win; knobs left at None take the resolved profile's value, then
+        # the engine default.  The budget resolves first: the tiered
+        # regime is part of the profile key.
+        self.hbm_budget = store_budget.resolve_budget(hbm_budget)
+        self.tiered = self.hbm_budget is not None
+        prof = tune_profiles.resolve(
+            profile, model=model, invariants=tuple(invariants),
+            engine="device_bfs", tiered=self.tiered,
+            backend=tune_profiles.default_backend(self.device),
+        )
+        self.profile_sig = prof["sig"] if prof else None
+        pk = tune_profiles.knobs_for(prof, "device_bfs")
+        explicit = dict(
+            sub_batch=sub_batch, flush_factor=flush_factor, group=group,
+            fuse_group=fuse_group, fpset_dense_rounds=fpset_dense_rounds,
+            fpset_stages=fpset_stages, compact_impl=compact_impl,
+            hbm_headroom=hbm_headroom, spill_compress=spill_compress,
+            miss_batch=miss_batch,
+        )
+        self.profile_applied = tuple(sorted(
+            k for k in pk if k != "adapt" and explicit.get(k) is None))
+        default = dict(sub_batch=1 << 16, flush_factor=1, group=GROUP,
+                       compact_impl="logshift")
+        knob = {k: (pk.get(k, default.get(k)) if v is None else v)
+                for k, v in explicit.items()}
+        sub_batch, flush_factor = knob["sub_batch"], knob["flush_factor"]
+        group, fuse_group = knob["group"], knob["fuse_group"]
+        compact_impl = knob["compact_impl"]
+        hbm_headroom, miss_batch = knob["hbm_headroom"], knob["miss_batch"]
+        spill_compress = knob["spill_compress"]
+        # the probe schedule of the tiled flush; the online controller
+        # (PTT_TUNE_ADAPT=0 > explicit > the profile's "adapt") moves it
+        # from this base within a run
+        self._fps_base = fpset.resolve_schedule(knob["fpset_dense_rounds"],
+                                                knob["fpset_stages"])
+        self.fps_dense, self.fps_stages = self._fps_base
+        self.adapt = tune_online.resolve_adapt(adapt,
+                                               bool(pk.get("adapt", False)))
         self.visited_impl = visited_impl
         self.sorted = visited_impl == "sort"
         if self.sorted:
@@ -349,11 +412,8 @@ class DeviceChecker:
                 f"rows_window must be all|frontier: {rows_window}")
         self.fuse = fuse
         self.RMAX = min(fuse_group or 8, 64)
-        self.device = device_mod.resolve(device)
         self.model = model
         self.layout = model.layout
-        if invariants is None:
-            invariants = model.default_invariants
         unknown = [n for n in invariants if n not in model.invariants]
         if unknown:
             raise ValueError(f"unknown invariant(s): {unknown}")
@@ -405,8 +465,6 @@ class DeviceChecker:
         self.progress = progress
         self.last_stats: Dict[str, object] = {}
         self.last_bufs: Dict[str, torch.Tensor] = {}
-        self.hbm_budget = store_budget.resolve_budget(hbm_budget)
-        self.tiered = self.hbm_budget is not None
         if self.tiered and self.sorted:
             raise ValueError(
                 "the tiered store needs the fpset visited set "
@@ -417,7 +475,7 @@ class DeviceChecker:
                 "exclusive — the tiered store IS the row-window story "
                 "(aged rows spill instead of dropping)"
             )
-        self.spill_compress = bool(spill_compress)
+        self.spill_compress = spill_compress is not False
         self._spill_dir_arg = spill_dir
         self.tstore: Optional[TieredStore] = None
         self._budget_overridden = False
@@ -940,7 +998,8 @@ class DeviceChecker:
             key_exact=bool(self.keys.exact),
             rows_window=self.rows_window,
             invariants=list(self.invariant_names),
-            adapt=False,
+            profile_sig=self.profile_sig,
+            adapt=self.adapt,
             hbm_budget=self.hbm_budget,
             mode="check",
         )
@@ -1084,7 +1143,8 @@ class DeviceChecker:
             (n_new,) = self._read(n_new)
         else:
             self._tcols, n_new, is_new, self._fpm = tiles.flush_acc_tiles(
-                self._tcols, kcols, nq, self._fpm, self._claims
+                self._tcols, kcols, nq, self._fpm, self._claims,
+                self.fps_dense, self.fps_stages,
             )
             self._host_syncs += 1  # flush_acc_tiles read the count
         if fail:
@@ -1270,7 +1330,8 @@ class DeviceChecker:
         dev = self.device
         fail = self._flush_fault()
         self._tcols, n_new, is_new, self._fpm = tiles.flush_tiles(
-            self._tcols, kcols, nq, self._fpm, self._claims
+            self._tcols, kcols, nq, self._fpm, self._claims,
+            self.fps_dense, self.fps_stages,
         )
         if fail:
             self._fpm[2] += 1
@@ -1351,10 +1412,12 @@ class DeviceChecker:
         return "done"
 
     def _levels_cap(self, levels_done: int) -> int:
-        """Levels one ramp batch may close: ``fuse_group``, cut so that
-        a checkpointed run's batch ends on a due frame level (frames and
-        the preemption check keep their level-boundary meaning)."""
-        lv = self.RMAX
+        """Levels one ramp batch may close: ``fuse_group`` (or the
+        online controller's cap, within ``[1, fuse_group]``), cut so
+        that a checkpointed run's batch ends on a due frame level (frames
+        and the preemption check keep their level-boundary meaning)."""
+        lv = (self.RMAX if self._adapt_cap is None
+              else max(1, min(self.RMAX, self._adapt_cap)))
         if self.checkpoint_path:
             lv = min(lv, self.checkpoint_every
                      - levels_done % self.checkpoint_every)
@@ -1407,12 +1470,13 @@ class DeviceChecker:
         if nf <= self.G and not self.frontier:
             # the ramp reads rows at absolute gids: nothing has slid
             assert self._row_base == 0 and self._log_base == 0
-            sizes, lb, nf2 = self._lv_ramp(level_base, nf,
-                                           self._levels_cap(levels_done))
+            self._cap_asked = self._levels_cap(levels_done)
+            sizes, lb, nf2 = self._lv_ramp(level_base, nf, self._cap_asked)
             if not sizes and self.tiered and self._spill_active:
                 return 0
             self._fuse_levels += len(sizes)
             return sizes, lb, nf2, True
+        self._cap_asked = 1
         how = self._lv_level(level_base, nf)
         if isinstance(how, int):
             return how
@@ -1546,6 +1610,16 @@ class DeviceChecker:
             # stage_<name>_n x rtt_s)
             self._rtt_s = round(obs.measure_rtt(dev), 6)
         self._host_syncs = self._fuse_levels = self._fused_n = 0
+        # online adaptation: a fresh controller a run (fused level and
+        # fpset only), from the configured schedule — an earlier run's
+        # adjustments never leak into this one
+        self.fps_dense, self.fps_stages = self._fps_base
+        self._adapt_cap, self._tune_n, self._cap_asked = None, 0, 1
+        self._tuner = (
+            tune_online.OnlineController(self.RMAX, self.fps_dense,
+                                         self.fps_stages)
+            if self.adapt and self.fuse == "level" and not self.sorted
+            else None)
         self._budget_overridden = False
         self._lv_active = False
         self._rows_ok = True
@@ -1727,6 +1801,8 @@ class DeviceChecker:
                     self._stage_open()
                     out = self._lv_pass(len(level_sizes), level_base, nf)
                     self._emit_fuse(out, nf, fl0, wk0)
+                    if self._tuner is not None and not isinstance(out, int):
+                        self._observe_tune(out)
                 if isinstance(out, int):
                     # the stage loop's level, or the rest of a fused one
                     # from the window the capped tiers could not take
@@ -1806,6 +1882,32 @@ class DeviceChecker:
             work_compact_elems=wd[2],
             work_append_rows=wd[3],
         )
+
+    def _observe_tune(self, out) -> None:
+        """Feed the online controller one fused pass — the levels it
+        closed against the cap it was given and the running maximum of
+        the probe rounds, all from the read that ended the pass — and
+        apply its adjustments before the next pass."""
+        for adj in self._tuner.observe(
+            levels_closed=len(out[0]),
+            cap_asked=self._cap_asked,
+            max_probe_rounds=self._fpm_host[4],
+        ):
+            self._apply_tune(adj)
+
+    def _apply_tune(self, adj: Dict) -> None:
+        """Apply one controller adjustment at a pass boundary and write
+        its ``tune`` record: ``fuse_cap`` caps the ramp's levels a pass;
+        ``fpset_dense_rounds`` sets the next flushes' K1 height
+        (``max(TILE_R, dense)``, a runtime argument of the kernel)."""
+        knob, new = adj["knob"], adj["to"]
+        if knob == "fuse_cap":
+            self._adapt_cap = int(new)
+        else:
+            self.fps_dense = int(new)
+        self._tune_n += 1
+        self.tel.emit("tune", knob=knob, value=new, prev=adj.get("from"),
+                      reason=adj.get("reason"))
 
     def _read_after_oom(self, level_sizes) -> None:
         """After device memory ran out with no frame: read the fused
@@ -1955,7 +2057,8 @@ class DeviceChecker:
                     vk, nn, _new = merge_lanes(vk, kc, cn)
                 else:
                     self._tcols, nn, _new, self._fpm = tiles.flush_tiles(
-                        self._tcols, kc, cn, self._fpm, self._claims)
+                        self._tcols, kc, cn, self._fpm, self._claims,
+                        self.fps_dense, self.fps_stages)
                 nvis = nvis + nn
                 if n_inv:
                     states = self.layout.unpack(chunk)
@@ -2287,6 +2390,8 @@ class DeviceChecker:
                 ),
             )
             self._emit_spill(len(level_sizes))
+        if self._tuner is not None:
+            self.last_stats["tune_adjustments"] = self._tune_n
         self.last_stats.update(self._stages)
         self.last_stats["dispatches_per_level"] = round(
             sum(v for k, v in self._stages.items() if k.endswith("_n"))

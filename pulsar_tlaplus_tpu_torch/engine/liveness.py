@@ -74,6 +74,7 @@ from pulsar_tlaplus_tpu_torch.ops import tiles
 from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag, validate_impl
 from pulsar_tlaplus_tpu_torch.ops.dedup import lex_order
 from pulsar_tlaplus_tpu_torch.store import budget as store_budget
+from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
 
 # the sweep frame format's engine revision
@@ -138,7 +139,10 @@ class LivenessChecker:
     sweep's stream compaction.  ``telemetry`` takes the run's JSONL
     stream (the exploration's records, then one cumulative ``sweep``
     record a chunk); ``heartbeat_s`` prints progress lines in both
-    phases.
+    phases.  ``profile`` (as ``DeviceChecker``'s) resolves the
+    ``"liveness"`` profile, which fills ``sweep_group`` and
+    ``compact_impl`` when left at None; the explorer resolves its own
+    ``"device_bfs"`` profile.
     """
 
     def __init__(
@@ -159,7 +163,8 @@ class LivenessChecker:
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 5,
         n_devices: int = 1,
-        compact_impl: str = "logshift",
+        compact_impl: Optional[str] = None,
+        profile=None,
         telemetry=None,
         heartbeat_s: Optional[float] = None,
     ):
@@ -175,6 +180,19 @@ class LivenessChecker:
             raise ValueError(f"sweep_group must be >= 1: {sweep_group}")
         if max_run < 1:
             raise ValueError(f"max_run must be positive: {max_run}")
+        # the "liveness" profile (tune/profiles.py) fills the sweep knobs
+        # left at None; the single-device explorer resolves its own
+        # "device_bfs" profile (the sharded engine takes none).  The key
+        # is goal-independent: sweep batching does not depend on the goal
+        dev0 = device[0] if isinstance(device, (list, tuple)) else device
+        prof = tune_profiles.resolve(
+            profile, model=model, invariants=(), engine="liveness",
+            backend=tune_profiles.default_backend(dev0))
+        self.profile_sig = prof["sig"] if prof else None
+        pk = tune_profiles.knobs_for(prof, "liveness")
+        if sweep_group is None:
+            sweep_group = pk.get("sweep_group")
+        compact_impl = compact_impl or pk.get("compact_impl") or "logshift"
         self.model = model
         self.goal_name = goal
         self.goal_fn = goals[goal]
@@ -217,7 +235,8 @@ class LivenessChecker:
             kw = {} if spill_compress is None else {
                 "spill_compress": spill_compress}
             self._checker = DeviceChecker(
-                model, hbm_budget=hbm_budget, **common, **kw)
+                model, hbm_budget=hbm_budget, profile=profile, **common,
+                **kw)
         self.device = self._checker.device
         self.keys = self._checker.keys  # the explorer's KeySpec
         self.K = self.keys.ncols
@@ -581,6 +600,7 @@ class LivenessChecker:
             visited_impl=self._checker.visited_impl,
             compact_impl=self.compact_impl,
             config_sig=self._config_sig(),
+            profile_sig=self.profile_sig,
             hbm_budget=getattr(self._checker, "hbm_budget", None),
             mode="liveness",
             goal=self.goal_name,

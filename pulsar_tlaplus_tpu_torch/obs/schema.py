@@ -12,6 +12,10 @@ most the supported version; ``t`` never decreases and ``seq`` strictly
 increases per ``run_id``; ``spill`` and ``sim`` records are cumulative
 (never decreasing); a fused run's boundary ``level`` records rise
 strictly and their sizes sum to the result's state count.
+
+Tuned-profile files (``cli tune`` output) are held to the profile
+schema of ``tune/profiles.py`` (:func:`validate_profile_file`: the
+counterpart of ``check_telemetry_schema.py --profile``).
 """
 
 from __future__ import annotations
@@ -344,3 +348,12 @@ def validate_bench_artifact(path_or_dict, path: str = "") -> List[str]:
     if not isinstance(d.get("value"), (int, float)):
         errors.append(f"{label}: non-numeric value {d.get('value')!r}")
     return errors
+
+
+def validate_profile_file(path: str) -> List[str]:
+    """Violations in one tuned-profile file: its structure, knob ranges
+    and the filename/sig agreement the loader enforces
+    (``tune.profiles.validate_file``)."""
+    from pulsar_tlaplus_tpu_torch.tune.profiles import validate_file
+
+    return validate_file(path)

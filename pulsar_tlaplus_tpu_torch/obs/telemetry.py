@@ -925,9 +925,11 @@ def emit_result(tel, res, stats: Dict[str, object]) -> None:
 def emit_header(tel, device, resume: bool, resume_meta: Dict[str, object],
                 **fields) -> None:
     """A run's ``run_header``: ``fields`` (the engine and its
-    configuration) plus what every header carries — the device and its
-    route, null for the tiers the port has not yet (tuned profiles,
-    tenants, warm starts, traces), the wall-clock anchor — and, on
+    configuration; the tuned engines pass their ``profile_sig`` and
+    ``adapt``) plus what every header carries — the device and its
+    route, null for what an engine does not set (a tuned profile) and
+    for the tiers the port has not yet (tenants, warm starts, traces),
+    the wall-clock anchor — and, on
     resume, the writer of the frame resumed (``resume_of`` /
     ``resume_frame_seq`` / ``resume_level``), so streams chain."""
     if not tel.enabled:

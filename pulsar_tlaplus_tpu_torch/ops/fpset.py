@@ -66,6 +66,26 @@ MAX_PROBES = 64
 # budget from it
 DENSE_ROUNDS = 4
 STAGES = ((4, 16), (16, MAX_PROBES))
+
+
+def resolve_schedule(dense_rounds: Optional[int] = None, stages=None
+                     ) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """The effective probe schedule: the values given (a tuned profile's
+    or the online controller's), else the defaults above.  (The JAX
+    package's ``PTT_FPSET_SCHEDULE`` override is not read: a schedule
+    reaches the port's engines through their ctor or a profile.)"""
+    dense = DENSE_ROUNDS if dense_rounds is None else int(dense_rounds)
+    st = STAGES if stages is None else stages
+    st = tuple((int(d), int(lim)) for d, lim in st)
+    if dense < 1 or any(d < 2 or lim < 1 for d, lim in st):
+        raise ValueError(f"bad probe schedule: dense {dense}, stages {st}")
+    return dense, st
+
+
+def schedule_budget(dense_rounds: int, stages) -> int:
+    """The insert tail's probe budget under a schedule: the largest of
+    the dense rounds and the stage limits."""
+    return max([int(dense_rounds)] + [int(lim) for _, lim in stages])
 # width floor of an insert-tail chunk
 MIN_STAGE = 1 << 10
 

@@ -42,8 +42,9 @@ from pulsar_tlaplus_tpu_torch.ops.compact import compact_by_flag
 from pulsar_tlaplus_tpu_torch.ops.dedup import SENTINEL, u32
 from pulsar_tlaplus_tpu_torch.ops.dedup import key64 as _key64
 
-# probe rounds one membership pass resolves (>= the dense schedule, so
-# steady-state flushes resolve in one pass)
+# probe rounds one membership pass resolves at least (>= the default
+# schedule's dense rounds, so steady-state flushes resolve in one pass;
+# a schedule with more dense rounds raises K1's height to them)
 TILE_R = 8
 
 
@@ -167,23 +168,27 @@ def member_block(tcols, kcols, valid: torch.Tensor, rounds: int = TILE_R):
 # ------------------------------------------------------ the tiled flush
 
 
-def flush_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None):
+def flush_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None,
+                dense_rounds=None, stages=None):
     """One flush of ``nq`` candidate lanes into the table (in place),
     with no host read: lanes past ``n_acc`` (an int or a 0-d tensor)
     and all-SENTINEL lanes are invalid.  K1, the order-preserving
     compaction of the survivors with their lane ids, then the insert
     tail (H1 on the card) on the table's ``claims`` buffer (made when
-    not given).  Returns ``(tcols, n_new, is_new bool[nq], fpm')``:
-    ``n_new`` an int64 0-d tensor and ``fpm'`` on the lanes' device;
-    ``is_new`` is in lane order, exactly one True per distinct new key
-    (its lowest lane)."""
+    not given).  The probe schedule (``dense_rounds``, ``stages``;
+    ``fpset.resolve_schedule`` defaults) sets K1's height, ``max(TILE_R,
+    dense_rounds)``, and the tail's probe budget, the largest of
+    ``dense_rounds`` and the stage limits, as in the JAX tiled flush.
+    Returns ``(tcols, n_new, is_new bool[nq], fpm')``: ``n_new`` an
+    int64 0-d tensor and ``fpm'`` on the lanes' device; ``is_new`` is in
+    lane order, exactly one True per distinct new key (its lowest lane),
+    whatever the schedule."""
     nq = kcols[0].shape[0]
     k = len(kcols)
     dev = kcols[0].device
-    rounds_blk = max(TILE_R, fpset.DENSE_ROUNDS)
-    # the insert tail keeps the schedule's total probe budget
-    max_probes = max([fpset.DENSE_ROUNDS]
-                     + [lim for _, lim in fpset.STAGES])
+    dense_rounds, stages = fpset.resolve_schedule(dense_rounds, stages)
+    rounds_blk = max(TILE_R, dense_rounds)
+    max_probes = fpset.schedule_budget(dense_rounds, stages)
     lanei = torch.arange(nq, dtype=torch.int32, device=dev)
     valid = (lanei < n_acc) & ~fpset.all_sentinel(kcols)
     member, _resolved = member_block(tcols, kcols, valid, rounds_blk)
@@ -202,11 +207,12 @@ def flush_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None):
     return tcols, is_new.sum(), is_new, fpm
 
 
-def flush_acc_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None):
+def flush_acc_tiles(tcols, kcols, n_acc, fpm: torch.Tensor, claims=None,
+                    dense_rounds=None, stages=None):
     """:func:`flush_tiles` with the new-lane count read on the host (one
     sync): ``(tcols, n_new int, is_new bool[nq], fpm')``."""
     tcols, n_new, is_new, fpm = flush_tiles(tcols, kcols, n_acc, fpm,
-                                            claims)
+                                            claims, dense_rounds, stages)
     return tcols, int(n_new), is_new, fpm
 
 

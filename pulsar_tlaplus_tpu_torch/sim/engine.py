@@ -45,7 +45,14 @@ workload; the counterpart of ``pulsar_tlaplus_tpu/sim/engine.py``
   writes a frame before the next segment and stops ``preempted``; the
   ``segment`` fault site counts epochs.
 
-Telemetry, tuned profiles and the daemon's sim jobs are not ported.
+- **Tuned profiles** (``profile``, default ``"auto"``, as in the JAX
+  engine): the ``"sim"`` profile of ``tune/profiles.py`` fills
+  ``n_walkers`` and ``segment_len`` when left at None (``cli tune --mode
+  simulate`` writes it).  A different width or segment is a different
+  deterministic walk stream, so profiles resolve by config signature.
+
+Telemetry is ported (``telemetry``, ``heartbeat_s``); the daemon's sim
+jobs are not.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
 from pulsar_tlaplus_tpu_torch.ops.dedup import U32, mul32
 from pulsar_tlaplus_tpu_torch.ops.packing import smap, tree_leaves
 from pulsar_tlaplus_tpu_torch.sim import rng
+from pulsar_tlaplus_tpu_torch.tune import profiles as tune_profiles
 from pulsar_tlaplus_tpu_torch.utils import ckpt, faults
 from pulsar_tlaplus_tpu_torch.utils import device as device_mod
 
@@ -123,14 +131,16 @@ class StreamingSimulator:
     ``checkpoint_path`` writes a frame every ``checkpoint_every``
     segments.  ``telemetry`` takes the run's JSONL stream (one ``sim``
     record a segment, riding its one read); ``heartbeat_s`` prints a
-    progress line that often.
+    progress line that often.  ``n_walkers`` (default 1,024) and
+    ``segment_len`` left at None take the ``"sim"`` profile's values
+    (``profile``: ``"auto"`` by default, None turns it off).
     """
 
     def __init__(
         self,
         model,
         invariants: Optional[Tuple[str, ...]] = None,
-        n_walkers: int = 1024,
+        n_walkers: Optional[int] = None,
         depth: int = 64,
         segment_len: Optional[int] = None,
         seed: int = 0,
@@ -145,6 +155,7 @@ class StreamingSimulator:
         checkpoint_every: int = 8,
         telemetry=None,
         heartbeat_s: Optional[float] = None,
+        profile="auto",
     ):
         self.model = model
         if invariants is None:
@@ -154,13 +165,24 @@ class StreamingSimulator:
                    if n not in model.invariants]
         if unknown:
             raise ValueError(f"unknown invariant(s): {unknown}")
+        self.device = device_mod.resolve(device)
+        # the "sim" profile fills what the caller left unset
+        prof = tune_profiles.resolve(
+            profile, model=model, invariants=self.invariant_names,
+            engine="sim",
+            backend=tune_profiles.default_backend(self.device))
+        pk = tune_profiles.knobs_for(prof, "sim")
+        self.profile_sig = prof["sig"] if prof else None
+        if n_walkers is None:
+            n_walkers = int(pk.get("n_walkers", 1024))
+        if segment_len is None:
+            segment_len = pk.get("segment_len")
         if depth < 1:
             raise ValueError(f"depth must be >= 1: {depth}")
         if n_walkers < 1:
             raise ValueError(f"n_walkers must be >= 1: {n_walkers}")
         if not 1 <= dup_table_bits <= 31:
             raise ValueError(f"dup_table_bits not in 1..31: {dup_table_bits}")
-        self.device = device_mod.resolve(device)
         self.B = int(n_walkers)
         self.T = int(depth)
         want = int(segment_len) if segment_len else min(self.T, 32)
@@ -329,6 +351,7 @@ class StreamingSimulator:
             mode="simulate",
             visited_impl=None,
             config_sig=self._config_sig(),
+            profile_sig=self.profile_sig,
             n_walkers=self.B,
             depth=self.T,
             segment_len=self.L,

@@ -8,9 +8,10 @@ the versioned schemas, with the PyTorch port's own validator
     python scripts/torch_check_telemetry_schema.py --trace out.json
     python scripts/torch_check_telemetry_schema.py --ledger ledger.jsonl
     python scripts/torch_check_telemetry_schema.py --metrics scrape.txt
+    python scripts/torch_check_telemetry_schema.py --profile SIG.json
 
 File kind is sniffed by extension: ``.jsonl`` = event stream, ``.json``
-= bench artifact.  Exit status: 0 clean, 1 violations (listed on
+= bench artifact (``--profile``: a tuned profile of ``cli tune``).  Exit status: 0 clean, 1 violations (listed on
 stderr), 2 usage.
 """
 
@@ -28,6 +29,7 @@ sys.path.insert(
 
 from pulsar_tlaplus_tpu_torch.obs.schema import (  # noqa: E402
     validate_bench_artifact,
+    validate_profile_file,
     validate_stream,
 )
 
@@ -51,6 +53,9 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics", action="store_true",
                     help="treat the files as Prometheus exposition text "
                     "(cli.py metrics output)")
+    ap.add_argument("--profile", action="store_true",
+                    help="treat the .json files as tuned-profile files "
+                    "(cli tune output; tune/profiles.py)")
     args = ap.parse_args(argv)
     files = list(args.files)
     if args.all_bench:
@@ -83,6 +88,8 @@ def main(argv=None) -> int:
             from pulsar_tlaplus_tpu_torch.obs.trace import validate_trace
 
             errors += validate_trace(p)
+        elif args.profile:
+            errors += validate_profile_file(p)
         else:
             errors += validate_bench_artifact(p)
     for e in errors:

@@ -768,3 +768,81 @@ def test_telemetry_adds_no_card_sync(card, tmp_path):
         if on:
             assert schema.validate_stream(kw["telemetry"]) == []
     assert len(set(got)) == 1, got
+
+
+@pytest.fixture
+def tune_dir(tmp_path, monkeypatch):
+    """A fresh tuned-profile directory, adaptation off unless asked."""
+    monkeypatch.setenv("PTT_TUNE_DIR", str(tmp_path / "profiles"))
+    monkeypatch.delenv("PTT_TUNE_ADAPT", raising=False)
+    return tmp_path
+
+
+def test_flush_at_the_tuners_schedules_on_card(card):
+    """The tiled flush at dense_rounds 16 (K1 at 16 rounds) and at a
+    budget of 32 probes (H1's max_probes) on the card, against the same
+    flush on the CPU: ``is_new``, ``n_new``, the metrics and the table."""
+    rng = np.random.default_rng(1616)
+    cap, k, nq = 1 << 17, 2, 40_000
+    fill = tuple(_rand_u32(rng, 20_000) for _ in range(k))
+    kc = tuple(np.concatenate([f[rng.integers(0, 20_000, nq // 2)],
+                               _rand_u32(rng, nq - nq // 2)]) for f in fill)
+    for dense, stages in ((16, None), (4, ((4, 8), (8, 32)))):
+        got = []
+        for dev in (card, torch.device("cpu")):
+            t = fpset.empty_cols(cap, k, dev)
+            fpm = torch.zeros((fpset.FPM_N,), dtype=torch.int64, device=dev)
+            t, _, _, fpm = tiles.flush_acc_tiles(
+                t, from_jax_arrays(*fill, device=dev), 20_000, fpm, None,
+                dense, stages)
+            t, n, flag, fpm = tiles.flush_acc_tiles(
+                t, from_jax_arrays(*kc, device=dev), nq - 3, fpm, None,
+                dense, stages)
+            got.append((n, flag.cpu(), fpm.tolist(),
+                        [c[:cap].cpu() for c in t]))
+        (na, fa, ma, ta), (nb, fb, mb, tb) = got
+        assert na == nb > 0 and torch.equal(fa, fb) and ma == mb
+        assert all(torch.equal(a, b) for a, b in zip(ta, tb))
+
+
+def test_adapted_run_on_card_equals_default(card, tune_dir):
+    """The 253,361-state config with and without ``adapt=True``: level
+    sizes, rows and logs equal, and the same host syncs."""
+    c = dataclasses.replace(pyeval.SHIPPED_CFG, model_producer=True,
+                            retain_null_key=False)
+    runs = []
+    for adapt in (False, True):
+        ck = DeviceChecker(CompactionModel(c), invariants=(), device=card,
+                           adapt=adapt, sub_batch=4096)
+        r = ck.run()
+        nv = r.distinct_states
+        runs.append((r.level_sizes, ck.last_stats["host_syncs"],
+                     [ck.last_bufs[n][: nv * (ck.W if n == "rows" else 1)]
+                      .cpu() for n in ("rows", "parent", "lane")]))
+    (la, ha, ba), (lb, hb, bb) = runs
+    assert sum(la) == 253361 and la == lb and ha == hb
+    assert all(torch.equal(a, b) for a, b in zip(ba, bb))
+
+
+def test_cli_tune_on_card_then_check_resolves(card, tune_dir, capsys):
+    """``cli tune bookkeeper`` on the card writes a ``cuda`` profile that
+    validates, and ``check`` resolves it (its header names the sig)."""
+    import json
+
+    from pulsar_tlaplus_tpu_torch import cli
+    from pulsar_tlaplus_tpu_torch.obs import schema
+
+    assert cli.main(["tune", "bookkeeper", "--top-k", "1",
+                     "--repeat", "1"]) == 0
+    path = capsys.readouterr().out.strip().splitlines()[-1].split(
+        "profile: ")[1]
+    with open(path) as f:
+        prof = json.load(f)
+    assert prof["backend"] == "cuda"
+    assert schema.validate_profile_file(path) == []
+    s = str(tune_dir / "check.jsonl")
+    assert cli.main(["check", os.path.join(SPECS, "bookkeeper.tla"),
+                     "-telemetry", s]) == 0
+    assert "297 distinct states found" in capsys.readouterr().out
+    with open(s) as f:
+        assert json.loads(f.readline())["profile_sig"] == prof["sig"]

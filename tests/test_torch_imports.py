@@ -64,3 +64,6 @@ def test_port_imports_no_jax():
                 "obs.attribution", "obs.trace", "obs.metrics", "obs.top",
                 "obs.ledger"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("tune", "tune.space", "tune.profiles", "tune.predict",
+                "tune.online", "tune.search"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
