@@ -158,6 +158,36 @@ K3 launched).  ``tune_launches`` counts phases 48-52 less the kernel
 comparisons and untuned runs; ``tune_shape`` holds K1's and H1's times
 at the tuner's values.
 
+Phases 53-57 run this slice's checker daemon (``service/``, ``warm/``)
+in the process, each phase on a daemon of its own (fresh state dir, one
+device slot, the engine's default geometry, the service ceiling at phase
+6's cut: a scaled job stops in level 7's first window at 19,618,816
+states), launch counters zeroed around them: 53 prewarms the four specs,
+runs the pooled checker's solo run of the scaled binding (written as a
+.cfg, ``SCALED_CFG_TEXT``), then the scaled binding and the shipped cfg
+as jobs at a 0.5 s slice with a priority-5 shipped job submitted at the
+scaled job's second level boundary: the scaled job suspends (frame,
+device memory freed: the allocated memory after the suspend is held
+under 1 GiB over the phase's start), the priority job runs first, and
+the scaled job's logs (from its harvested artifact frame) equal the solo
+run's; a ``metrics`` scrape adds no synchronizing call, at a level
+boundary of the running scaled job and on the idle daemon; 54 truncates the
+scaled binding at 8,388,608 states and resubmits it (``continue``) to
+the solo run's count, level sizes and logs; 55 reseeds the 9m tier
+(``NINE_M_CFG_TEXT``, complete at 9,445,152 states) from MaxCrashTimes 2
+to 3 (its key set equal to a cold run's) and demotes a third submit
+under ``corrupt@warm`` to ``cold``; 56 drives ``serve`` (no ``-cpu``) in
+subprocesses: SIGTERM (``PTT_FAULT=sigterm@level:6``) as its first job,
+a scaled one, starts level 6, so the job suspends with a frame of
+SCALED_TOTAL states; ``serve --recover`` resumes it at level 6 (its
+``job_resume`` and resumed run header checked) to the solo run's counts,
+then serves ``submit``/``status``/``watch``/``cancel``/``metrics``; a
+second ``serve --tcp 127.0.0.1:0 --tokens`` (admitted, bad
+token exit 4, quota exit 5), then ``torch_check_telemetry_schema.py
+--tokens``/``--warm`` and every stream.  ``service_launches`` (57)
+counts phases 53-55's daemon runs less the solo runs; K3 is 0 there (the
+daemon runs no ``hbm_budget``).
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -182,6 +212,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -524,6 +555,701 @@ def _card_syncs(torch, fn):
         torch.cuda.set_sync_debug_mode("default")
     n = sum("synchroniz" in str(w.message) for w in caught)
     return out, n
+
+
+# ---- the service path (phases 53-57): the checker daemon on the card
+#
+# The bench's scaled binding (bench.py:66-77) written as a .cfg.  Its full
+# space is far beyond a run (bench.py sizes MAX_STATES at 230M), so the
+# daemon's service ceiling (its default budget) is phase 6's cut,
+# SCALED_TOTAL + 1: a job stops in level 7's first window at
+# SERVICE_SCALED_STATES, as phase 6's run does.  Phase 55's reseed runs on
+# the 9m tier (scripts/liveness_scale.py:55-62), whose space completes: a
+# reseed is exact only against a complete run (two cuts of one space by
+# a budget are different prefixes).
+SCALED_CFG_TEXT = """CONSTANTS
+    MessageSentLimit = 64
+    CompactionTimesLimit = 3
+    ModelConsumer = FALSE
+    ConsumeTimesLimit = 2
+    KeySpace = {1, 2, 3, 4, 5, 6, 7, 8}
+    ValueSpace = {1, 2}
+    RetainNullKey = TRUE
+    MaxCrashTimes = 3
+    ModelProducer = TRUE
+SPECIFICATION Spec
+INVARIANTS
+    TypeSafe
+    CompactionHorizonCorrectness
+"""
+NINE_M_CFG_TEXT = """CONSTANTS
+    MessageSentLimit = 4
+    CompactionTimesLimit = 3
+    ModelConsumer = FALSE
+    ConsumeTimesLimit = 2
+    KeySpace = {1, 2}
+    ValueSpace = {1, 2}
+    RetainNullKey = TRUE
+    MaxCrashTimes = %d
+    ModelProducer = TRUE
+SPECIFICATION Spec
+INVARIANTS
+    TypeSafe
+    CompactionHorizonCorrectness
+"""
+SERVICE_CAP = SCALED_TOTAL + 1
+SERVICE_SCALED_STATES = 19_618_816  # level 7's first window at the cap
+SERVICE_FIRST_CAP = 8_388_608  # phase 54's truncated submit
+SERVICE_WARM_BYTES = 8 << 30  # holds one scaled artifact (~2 GB)
+SERVICE_WAIT = 300.0  # every wait of phases 53-56 has its own limit
+TOKENS_JSON = {"tokens_v": 1, "tenants": [
+    {"tenant": "ci-pulsar", "token": "chip-smoke-token-1"}]}
+
+
+def _logs_digest(rows, parent, lane):
+    """SHA-256 of a run's rows (flat uint32), parent and lane logs."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (rows, parent, lane):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _frame_logs(path):
+    """(n_visited, level sizes, logs digest, sorted int64 keys) of a
+    frame written by the device checker (K = 2 key columns)."""
+    import numpy as np
+
+    d = np.load(path)
+    nv = int(d["n_visited"])
+    W = d["rows"].size // max(nv - int(d["rows_lo"]), 1)
+    dig = _logs_digest(d["rows"][: nv * W], d["parent"][:nv],
+                       d["lane"][:nv])
+    keys = _join_keys(np.asarray(d["fpk0"], np.uint32),
+                      np.asarray(d["fpk1"], np.uint32))
+    return nv, [int(x) for x in d["level_sizes"]], dig, keys
+
+
+def _join_keys(k0, k1):
+    import numpy as np
+
+    k = (k0.astype(np.uint64) << np.uint64(32)) | k1.astype(np.uint64)
+    return np.sort(k)
+
+
+def _table_keys(ck):
+    """The sorted int64-joined keys of a device checker's visited table
+    (K = 2), read once to the host."""
+    import numpy as np
+
+    cols = ck._tcols
+    cap = cols[0].shape[0] - 1
+    occ = (cols[0][:cap] != -1) | (cols[1][:cap] != -1)
+    k0 = cols[0][:cap][occ].cpu().numpy().view(np.uint32)
+    k1 = cols[1][:cap][occ].cpu().numpy().view(np.uint32)
+    return _join_keys(k0, k1)
+
+
+def _read_line(proc, timeout):
+    """One stdout line of ``proc`` within ``timeout`` seconds."""
+    import threading
+
+    got = []
+    t = threading.Thread(target=lambda: got.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    if not got:
+        raise TimeoutError(f"no line from {proc.args} in {timeout}s")
+    return got[0]
+
+
+def _events(path):
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def service_path(torch, dev, kernels, failures):
+    """Phases 53-57: the checker daemon (``service/``, ``warm/``) driving
+    the card.  Returns ``(service_launches, notes)``: the kernels' launch
+    counts of the daemon's runs (the solo comparison runs left out) and
+    the numbers printed."""
+    import numpy as np
+
+    from pulsar_tlaplus_tpu_torch.obs import metrics as obs_metrics
+    from pulsar_tlaplus_tpu_torch.obs import schema as obs_schema
+    from pulsar_tlaplus_tpu_torch.service import jobs as jobmod
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceClient
+    from pulsar_tlaplus_tpu_torch.service.scheduler import ServiceConfig
+    from pulsar_tlaplus_tpu_torch.service.server import ServiceDaemon
+    from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
+    from pulsar_tlaplus_tpu_torch.utils import faults
+
+    t53 = time.time()
+    root = tempfile.mkdtemp(prefix="ptt_svc_")  # short: socket paths
+    cfgs = {}
+    for name, text in (("scaled", SCALED_CFG_TEXT),
+                       ("nine2", NINE_M_CFG_TEXT % 2),
+                       ("nine3", NINE_M_CFG_TEXT % 3)):
+        cfgs[name] = os.path.join(root, f"{name}.cfg")
+        with open(cfgs[name], "w") as f:
+            f.write(text)
+    shipped = os.path.join(SPECS, "compaction.cfg")
+    tokens = os.path.join(root, "tokens.json")
+    with open(tokens, "w") as f:
+        json.dump(TOKENS_JSON, f)
+    kernels.reset_launches()
+    off = collections.Counter()  # the solo runs' launches
+    notes: dict = {}
+    solo: dict = {}
+    art = []  # phase 55's artifact, for the validator in phase 56
+    # the daemons' geometry is the engine's default (phase 6's); frames
+    # only where a suspend or a budget stop needs one
+    base = dict(devices=1, slice_s=0.5, max_states=SERVICE_CAP,
+                checkpoint_every=1000, warm_max_bytes=SERVICE_WARM_BYTES)
+
+    def off_path(fn, *a):
+        before = dict(kernels.LAUNCHES)
+        try:
+            return fn(*a)
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                off[k] += v - before[k]
+
+    def daemon(name, **kw):
+        """A daemon on a fresh state dir (not started yet)."""
+        config = ServiceConfig(state_dir=os.path.join(root, name),
+                               **dict(base, **kw))
+        return (ServiceDaemon(config),
+                ServiceClient(config.socket_path, timeout=SERVICE_WAIT))
+
+    def pooled(d, name):
+        tlc = cfgmod.load(cfgs[name])
+        invs = d.pool.resolve_invariants("compaction", tlc, None)
+        return d.pool.get("compaction", tlc, invs, None)[1]
+
+    def solo_run(d, name, keys=False):
+        """The pooled checker's solo run (no frame, no stream): level
+        sizes, logs digest, wall (and with ``keys`` the sorted visited
+        keys); its buffers freed."""
+        ck = pooled(d, name)
+        ck.checkpoint_path = None
+        ck.rec.checkpoint_path = None
+        ck._telemetry_arg = None
+        ck.time_budget_s = None
+        r = off_path(ck.run)
+        nv = r.distinct_states
+        out = dict(states=nv, level_sizes=list(r.level_sizes),
+                   wall=r.wall_s, stop=r.stop_reason,
+                   digest=_logs_digest(ck.merged_rows()[: nv * ck.W],
+                                       *ck.merged_logs()),
+                   keys=_table_keys(ck) if keys else None)
+        ck._free_buffers()
+        return out
+
+    def artifact(d, name):
+        adir = d.sched.warm_store.lookup(pooled(d, name)._config_sig())
+        if adir is None:
+            raise AssertionError(f"no warm artifact for {name}")
+        return adir, d.sched.warm_store.load_manifest(adir)
+
+    def artifact_logs(d, name):
+        adir, _man = artifact(d, name)
+        return _frame_logs(os.path.join(adir, "frame.npz"))
+
+    def check_streams(d, js):
+        errs = obs_schema.validate_stream(d.config.telemetry_path)
+        for j in js:
+            errs += obs_schema.validate_stream(j.events_path)
+        if errs:
+            raise AssertionError(f"stream violations: {errs[:3]}")
+
+    def wait_all(cl, jids):
+        return {j: cl.wait(j, timeout=SERVICE_WAIT) for j in jids}
+
+    def warm_event(d, jid, phase):
+        return next(e for e in _events(d.config.telemetry_path)
+                    if e["event"] == "warm" and e.get("job_id") == jid
+                    and e.get("phase") == phase)
+
+    # ---- 53: two jobs time-sliced on the card, a priority preemption
+    def time_sliced():
+        d, cl = daemon("s53")
+        solo["scaled"] = solo_run(d, "scaled")
+        if solo["scaled"]["states"] != SERVICE_SCALED_STATES:
+            raise AssertionError(f"solo {solo['scaled']['states']} states")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+        d.start()
+        t = time.time()
+        prewarm_s = d.prewarm()
+        prewarm_wall = time.time() - t
+        sched = d.sched
+        after_suspend = []
+        hi = []
+        live = []  # (card syncs, the job labelled active) of each scrape
+        run_slice = sched._run_slice
+        mk_hook = sched._mk_hook
+
+        def slice_(job, device=0):
+            run_slice(job, device)
+            if job.state == jobmod.SUSPENDED:
+                after_suspend.append(torch.cuda.memory_allocated(dev)
+                                     - base_mem)
+
+        def hook_(job, deadline, resume=False, ck=None):
+            hook = mk_hook(job, deadline, resume=resume, ck=ck)
+            n = [0]
+
+            def call():
+                n[0] += 1
+                if n[0] == 2 and job.cfg_path == cfgs["scaled"]:
+                    # a metrics scrape while the job is active (it reads
+                    # the running checker's snapshot): the engine thread
+                    # waits in this hook, so a sync counted here is the
+                    # scrape's own
+                    text, syncs = _card_syncs(torch, lambda: obs_metrics
+                                              .render_exposition(
+                                                  obs_metrics
+                                                  .scheduler_metrics(sched)))
+                    active = [x for x in text.splitlines()
+                              if x.startswith("ptt_active_job{")]
+                    live.append((syncs, any(f'job_id="{job.job_id}"' in x
+                                            for x in active)))
+                # the priority-5 submit lands while the scaled job runs,
+                # at its second level boundary
+                if n[0] == 2 and not hi and job.cfg_path == cfgs["scaled"]:
+                    hi.append(sched.submit("compaction", shipped,
+                                           priority=5))
+                return hook()
+
+            return _HookView(call, hook)
+
+        sched._run_slice = slice_
+        sched._mk_hook = hook_
+        try:
+            js = cl.submit("compaction", cfgs["scaled"])
+            jn = cl.submit("compaction", shipped)
+            res = wait_all(cl, [js, jn])
+            res[hi[0].job_id] = cl.wait(hi[0].job_id, timeout=SERVICE_WAIT)
+            rs = res[js]["result"]
+            job_s = sched.get(js)
+            if (rs["distinct_states"], rs["level_sizes"], rs["stop_reason"]
+                    ) != (SERVICE_SCALED_STATES, solo["scaled"]["level_sizes"],
+                          "max_states"):
+                raise AssertionError(f"scaled job {rs}")
+            if job_s.suspends < 1:
+                raise AssertionError("the scaled job was never suspended")
+            for jid in (jn, hi[0].job_id):
+                r = res[jid]["result"]
+                if (r["distinct_states"], r["diameter"]) != (45198, 20):
+                    raise AssertionError(f"shipped job {r}")
+            if not hi[0].finished_unix < job_s.finished_unix:
+                raise AssertionError("the priority job did not run first")
+            nv, _ls, dig, _keys = artifact_logs(d, "scaled")
+            if (nv, dig) != (SERVICE_SCALED_STATES, solo["scaled"]["digest"]):
+                raise AssertionError("the scaled job's logs differ from "
+                                     "the solo run's")
+            evs = _events(d.config.telemetry_path)
+            susp = [(e.get("slice_wall_s"), e.get("frame_stall_s"))
+                    for e in evs if e["event"] == "job_suspend"
+                    and e["job_id"] == js]
+            rest = [e["restore_s"] for e in evs
+                    if e["event"] == "job_resume" and e["job_id"] == js]
+            peak = torch.cuda.max_memory_allocated(dev)
+            if not after_suspend or max(after_suspend) >= 1 << 30:
+                raise AssertionError(
+                    f"device memory after a suspend {after_suspend}")
+            # a metrics scrape adds no synchronizing call: while the
+            # scaled job runs (above) and on the idle daemon (the last
+            # slice's stats), in the process and through the socket
+            text, syncs = _card_syncs(torch, cl.metrics)
+            _, syncs2 = _card_syncs(torch, lambda: obs_metrics
+                                    .render_exposition(
+                                        obs_metrics.scheduler_metrics(
+                                            sched)))
+            if not any(a for _s, a in live):
+                raise AssertionError(f"no scrape saw the job active {live}")
+            if syncs or syncs2 or any(s for s, _a in live):
+                raise AssertionError(f"card syncs in a metrics scrape: "
+                                     f"running {live}, idle {syncs}/{syncs2}")
+            if obs_metrics.validate_exposition(text):
+                raise AssertionError("bad exposition")
+            check_streams(d, [sched.get(j) for j in res])
+            notes["53"] = dict(
+                suspends=job_s.suspends, slices=job_s.slices,
+                suspend=susp, restore_s=rest,
+                alloc_after_suspend_gib=[round(x / 2**30, 4)
+                                         for x in after_suspend],
+                peak_gib=round(peak / 2**30, 2),
+                job_wall=rs["wall_s"], solo_wall=solo["scaled"]["wall"],
+                prewarm_s=round(prewarm_s, 3),
+                prewarm_wall=round(prewarm_wall, 3),
+                running_scrapes=len(live))
+            return (f"scaled job {rs['distinct_states']} states "
+                    f"({job_s.slices} slices, {job_s.suspends} suspends; "
+                    f"frame stall s {susp}; restore s {rest}); logs = solo "
+                    f"run's; engine wall {rs['wall_s']}s against solo "
+                    f"{solo['scaled']['wall']:.3f}s; shipped x2 45198 / 20, "
+                    f"priority first; allocated after suspend "
+                    f"{notes['53']['alloc_after_suspend_gib']} GiB over the "
+                    f"phase's start, peak {notes['53']['peak_gib']} GiB; "
+                    f"prewarm {prewarm_s:.3f}s (4 specs); metrics scrape 0 "
+                    f"card syncs ({len(live)} while the job ran, 2 idle)")
+        finally:
+            d.shutdown()
+
+    # ---- 54: warm continue at full width
+    def warm_continue():
+        d, cl = daemon("s54")
+        d.start()
+        try:
+            t = time.time()
+            j1 = cl.submit("compaction", cfgs["scaled"],
+                           max_states=SERVICE_FIRST_CAP)
+            r1 = cl.wait(j1, timeout=SERVICE_WAIT)["result"]
+            w1 = time.time() - t
+            if r1["status"] != "truncated":
+                raise AssertionError(f"first submit {r1}")
+            _adir, man = artifact(d, "scaled")
+            t = time.time()
+            rep = cl.submit("compaction", cfgs["scaled"], full=True)
+            if (rep["warm_mode"], rep["warm_reason"]) != ("continue",
+                                                          "sig_match"):
+                raise AssertionError(f"plan {rep}")
+            r2 = cl.wait(rep["job_id"], timeout=SERVICE_WAIT)["result"]
+            w2 = time.time() - t
+            if (r2["distinct_states"], r2["level_sizes"], r2["warm"]) != (
+                    SERVICE_SCALED_STATES, solo["scaled"]["level_sizes"],
+                    "continue"):
+                raise AssertionError(f"continue {r2}")
+            nv, _ls, dig, _k = artifact_logs(d, "scaled")
+            if (nv, dig) != (SERVICE_SCALED_STATES, solo["scaled"]["digest"]):
+                raise AssertionError("continue logs differ from the solo "
+                                     "run's")
+            check_streams(d, [d.sched.get(j1), d.sched.get(rep["job_id"])])
+            notes["54"] = dict(artifact_bytes=man["bytes"],
+                               truncated_states=r1["distinct_states"],
+                               first_wall=round(w1, 3),
+                               continue_wall=round(w2, 3),
+                               continue_engine_wall=r2["wall_s"])
+            return (f"truncated at {r1['distinct_states']} "
+                    f"({man['bytes']} artifact bytes), host wall "
+                    f"{w1:.2f}s; continue to {r2['distinct_states']}, logs "
+                    f"= solo run's, host wall {w2:.2f}s (engine wall "
+                    f"{r2['wall_s']}s cumulative)")
+        finally:
+            d.shutdown()
+
+    # ---- 55: warm reseed (9m tier, MaxCrashTimes 2 -> 3), corrupt@warm
+    def warm_reseed():
+        d, cl = daemon("s55", max_states=60_000_000)
+        solo["nine3"] = solo_run(d, "nine3", keys=True)
+        d.start()
+        try:
+            t = time.time()
+            j2 = cl.submit("compaction", cfgs["nine2"])
+            r2 = cl.wait(j2, timeout=SERVICE_WAIT)["result"]
+            w2 = time.time() - t
+            if (r2["distinct_states"], r2["diameter"]) != (
+                    sum(TIER9M_LEVELS), len(TIER9M_LEVELS)):
+                raise AssertionError(f"MaxCrashTimes 2: {r2}")
+            t = time.time()
+            rep = cl.submit("compaction", cfgs["nine3"], full=True)
+            if (rep["warm_mode"], rep["warm_reason"]) != (
+                    "reseed", "widened:MaxCrashTimes"):
+                raise AssertionError(f"plan {rep}")
+            r3 = cl.wait(rep["job_id"], timeout=SERVICE_WAIT)["result"]
+            w3 = time.time() - t
+            ev = warm_event(d, rep["job_id"], "install")
+            adir, man = artifact(d, "nine3")
+            nv, _ls, _dig, keys = artifact_logs(d, "nine3")
+            art.append(adir)
+            if (r3["warm"], r3["distinct_states"], nv) != (
+                    "reseed", solo["nine3"]["states"],
+                    solo["nine3"]["states"]):
+                raise AssertionError(f"reseed {r3}")
+            if not np.array_equal(keys, solo["nine3"]["keys"]):
+                raise AssertionError("reseeded key set != the cold run's")
+            # a third submit under corrupt@warm: demoted to cold
+            store = d.sched.warm_store
+            os.environ["PTT_FAULT"] = f"corrupt@warm:{store._verify_n + 1}"
+            faults.reset()
+            try:
+                j4 = cl.submit("compaction", cfgs["nine3"])
+                r4 = cl.wait(j4, timeout=SERVICE_WAIT)["result"]
+            finally:
+                os.environ.pop("PTT_FAULT", None)
+                faults.reset()
+            job4 = d.sched.get(j4)
+            if ((job4.warm_mode, job4.warm_reason) != ("cold",
+                                                       "digest_mismatch")
+                    or r4["distinct_states"] != solo["nine3"]["states"]
+                    or not os.listdir(store.quarantine_dir)):
+                raise AssertionError(f"corrupt drill {job4.warm_mode} "
+                                     f"{job4.warm_reason} {r4}")
+            check_streams(d, [d.sched.get(j) for j in (j2, rep["job_id"],
+                                                        j4)])
+            notes["55"] = dict(
+                states2=r2["distinct_states"], states3=r3["distinct_states"],
+                reused_rows=ev["reused_rows"], replay_rows=ev["replay_rows"],
+                seed_build_s=ev["seed_build_s"], cold2_wall=round(w2, 3),
+                reseed_wall=round(w3, 3), reseed_engine_wall=r3["wall_s"],
+                cold3_engine_wall=solo["nine3"]["wall"],
+                corrupt_engine_wall=r4["wall_s"],
+                artifact_bytes=man["bytes"])
+            return (f"MaxCrashTimes 2: {r2['distinct_states']} in {w2:.2f}s "
+                    f"(host); 3 by reseed: {r3['distinct_states']} states, "
+                    f"key set = cold run's; reused {ev['reused_rows']} rows,"
+                    f" replayed {ev['replay_rows']}, seed built in "
+                    f"{ev['seed_build_s']}s on the host; engine walls "
+                    f"reseed {r3['wall_s']}s / cold {solo['nine3']['wall']:.3f}"
+                    f"s (host wall of the reseeded job {w3:.2f}s); "
+                    f"corrupt@warm: cold (digest_mismatch), quarantined, "
+                    f"{r4['distinct_states']} states")
+        finally:
+            d.shutdown()
+
+    # ---- 56: the CLI end to end, in subprocesses
+    def cli_path():
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop("PTT_FAULT", None)
+        s1, s2 = os.path.join(root, "c1"), os.path.join(root, "c2")
+        common = ["--maxstates", str(SERVICE_CAP), "--warm-max-bytes", "0",
+                  "--checkpoint-every", "1000"]
+        procs = []
+
+        def spawn(*args, fault=None):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli",
+                 *args], cwd=ROOT,
+                env=dict(env, PTT_FAULT=fault) if fault else env,
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            procs.append(p)
+            return p
+
+        def ready(p):
+            if not _read_line(p, SERVICE_WAIT).startswith("serving on"):
+                raise AssertionError(f"no ready line from {p.args}")
+
+        def client(*args, rc=0):
+            p = subprocess.run(
+                [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli",
+                 *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=SERVICE_WAIT)
+            if p.returncode != rc:
+                raise AssertionError(f"{args}: rc {p.returncode} (want {rc})"
+                                     f" {p.stdout[-300:]} {p.stderr[-300:]}")
+            return p.stdout
+
+        def status_of(jid, d):
+            out = client("status", jid, *d)
+            return out.split()[2]
+
+        def wait_state(jid, d, want, timeout=SERVICE_WAIT):
+            end = time.time() + timeout
+            while time.time() < end:
+                st = status_of(jid, d)
+                if st in want:
+                    return st
+                time.sleep(0.1)
+            raise TimeoutError(f"{jid} never reached {want}")
+
+        def queued(jid, want=None):
+            """The job's record in queue.json (with ``want``, once it
+            reaches that state: a client hears the end before the
+            snapshot persists)."""
+            end = time.time() + SERVICE_WAIT
+            while True:
+                with open(os.path.join(s1, "queue.json")) as f:
+                    job = {j["job_id"]: j for j in json.load(f)["jobs"]}[jid]
+                if want is None or job["state"] == want \
+                        or time.time() > end:
+                    return job
+                time.sleep(0.05)
+
+        t = time.time()
+        try:
+            # the first daemon's first job is a scaled job, and the daemon
+            # gets SIGTERM as that job starts level 6 (PTT_FAULT sends it,
+            # as phase 34 does to the engine): the job suspends at level
+            # 6's end, a frame of SCALED_TOTAL states
+            srv = spawn("serve", "--state-dir", s1, "--slice", "0.5",
+                        *common, fault="sigterm@level:6")
+            tcp = spawn("serve", s2, "--tcp", "127.0.0.1:0",
+                        "--tokens", tokens, "--tenant-max-states",
+                        str(SERVICE_CAP + 1), "--spec", "compaction", *common)
+            ready(srv)
+            ready(tcp)
+            port = int(_read_line(tcp, SERVICE_WAIT).split()[-1])
+            ready_s = time.time() - t
+            d1 = ["--state-dir", s1]
+            jt = client("submit", "compaction", cfgs["scaled"],
+                        *d1).split()[0]
+            if srv.wait(timeout=SERVICE_WAIT) != 0:
+                raise AssertionError("serve exited non-zero on SIGTERM")
+            job = queued(jt)
+            at_term = (job["state"], (job.get("progress") or {})
+                       .get("distinct_states"))
+            if at_term != ("suspended", SCALED_TOTAL) or not os.path.exists(
+                    os.path.join(s1, "jobs", jt, "frame.npz")):
+                raise AssertionError(f"at SIGTERM the job was {at_term}")
+            # serve --recover resumes it from that frame, in a new process;
+            # the TCP daemon's checks run while it starts
+            srv = spawn("serve", s1, "--recover", "--no-prewarm", *common)
+            # the TCP listener: admitted, a bad token (4), over quota (5)
+            addr = ["--socket", f"tcp://127.0.0.1:{port}"]
+            good = addr + ["--token", TOKENS_JSON["tenants"][0]["token"]]
+            out = client("submit", "compaction", shipped, "--wait", *good)
+            if "45198 distinct states" not in out:
+                raise AssertionError(out)
+            client("submit", "compaction", shipped, *addr, "--token",
+                   "not-a-token", rc=4)
+            jq = client("submit", "compaction", cfgs["scaled"],
+                        *good).split()[0]
+            client("submit", "compaction", cfgs["scaled"], *good, rc=5)
+            client("cancel", jq, *good)
+            tcp.send_signal(signal.SIGTERM)
+            if tcp.wait(timeout=SERVICE_WAIT) != 0:
+                raise AssertionError("the TCP daemon exited non-zero")
+            # the validator's --tokens and --warm, every stream
+            for flag, path in (("--tokens", tokens),
+                               ("--warm", art[-1] if art else None)):
+                if path is None:
+                    continue
+                p = subprocess.run(
+                    [sys.executable, os.path.join(
+                        ROOT, "scripts", "torch_check_telemetry_schema.py"),
+                     flag, path], cwd=ROOT, env=env, capture_output=True,
+                    text=True, timeout=SERVICE_WAIT)
+                if p.returncode:
+                    raise AssertionError(f"{flag}: {p.stderr[-300:]}")
+            ready(srv)
+            out = client("watch", jt, *d1, rc=3)  # 3: truncated at the cap
+            job = queued(jt, "done")
+            r = job["result"] or {}
+            if (job["state"], r.get("distinct_states"),
+                    r.get("level_sizes")) != (
+                        "done", SERVICE_SCALED_STATES,
+                        solo["scaled"]["level_sizes"]) \
+                    or f"{SERVICE_SCALED_STATES} distinct states" not in out:
+                raise AssertionError(f"recovered job {job['state']} {r}")
+            heads = [e for e in _events(os.path.join(s1, "jobs", jt,
+                                                     "events.jsonl"))
+                     if e["event"] == "run_header" and e.get("resume")]
+            resumes = [e for e in _events(os.path.join(s1, "service.jsonl"))
+                       if e["event"] == "job_resume" and e["job_id"] == jt]
+            if [h.get("resume_level") for h in heads] != [6] or \
+                    len(resumes) != 1:
+                raise AssertionError(f"resume records {heads} {resumes}")
+            restore_s = resumes[0]["restore_s"]
+            stall = [e.get("frame_stall_s") for e in _events(
+                os.path.join(s1, "service.jsonl"))
+                if e["event"] == "job_suspend" and e["job_id"] == jt]
+            # the recovered daemon serves on: submit, simulate, status,
+            # watch, cancel while running, metrics
+            out = client("submit", "compaction", shipped, "--wait", *d1)
+            if "45198 distinct states found, search depth (diameter) 20." \
+                    not in out:
+                raise AssertionError(out)
+            jship = out.split()[0]
+            out = client("submit", "compaction", cfgs["scaled"], "--mode",
+                         "simulate", "--walkers", "4096", "--depth", "64",
+                         "--wait", *d1)
+            if "Simulation: 262144 steps" not in out:
+                raise AssertionError(out)
+            if jship not in client("status", *d1):
+                raise AssertionError("status lists no shipped job")
+            out = client("watch", jship, *d1)
+            if "run_header" not in out or "45198 distinct states" not in out:
+                raise AssertionError(f"watch: {out[-300:]}")
+            jc = client("submit", "compaction", cfgs["scaled"],
+                        *d1).split()[0]
+            wait_state(jc, d1, ("running",))
+            client("cancel", jc, *d1)
+            if wait_state(jc, d1, ("cancelled", "done")) != "cancelled":
+                raise AssertionError("the cancelled job completed")
+            text = client("metrics", *d1)
+            if "ptt_daemon_up 1" not in text or \
+                    obs_metrics.validate_exposition(text):
+                raise AssertionError("metrics scrape")
+            srv.send_signal(signal.SIGTERM)
+            if srv.wait(timeout=SERVICE_WAIT) != 0:
+                raise AssertionError("the recovered daemon exited non-zero")
+            errs = []
+            for s in (s1, s2):
+                errs += obs_schema.validate_stream(
+                    os.path.join(s, "service.jsonl"))
+                for jid in os.listdir(os.path.join(s, "jobs")):
+                    ev = os.path.join(s, "jobs", jid, "events.jsonl")
+                    if os.path.exists(ev):
+                        errs += obs_schema.validate_stream(ev)
+            if errs:
+                raise AssertionError(f"stream violations {errs[:3]}")
+            notes["56"] = dict(ready_s=round(ready_s, 2),
+                               frame_states=at_term[1],
+                               frame_stall_s=stall,
+                               recover_restore_s=restore_s)
+            return (f"two daemons ready in {ready_s:.1f}s; SIGTERM as the "
+                    f"scaled job starts level 6 -> suspended, frame of "
+                    f"{at_term[1]} states (stall s {stall}); serve "
+                    "--recover resumed it at "
+                    f"level 6 (restore {restore_s}s) to "
+                    f"{r['distinct_states']} states = solo; then shipped "
+                    "45198 / 20, simulate 4096 x 64, status, watch, cancel "
+                    "while running, metrics; TCP: admitted, bad token 4, "
+                    "quota 5; --tokens/--warm and every stream valid")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+
+    try:
+        _phase("53 daemon: two jobs time-sliced on the card, priority "
+               "preemption, logs against the solo run", time_sliced,
+               failures)
+        _phase("54 daemon: warm continue at full width", warm_continue,
+               failures)
+        _phase("55 daemon: warm reseed (9m tier, MaxCrashTimes 2 -> 3), "
+               "corrupt@warm", warm_reseed, failures)
+        _phase("56 the CLI end to end in subprocesses (serve, submit, "
+               "status, watch, cancel, metrics, SIGTERM, --recover, TCP)",
+               cli_path, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    service_launches = {k: v - off[k] for k, v in kernels.LAUNCHES.items()}
+    print(f"[57 launches on the service path] {service_launches} (solo "
+          f"runs left out: {dict(off)}; phases 53-56 "
+          f"{time.time() - t53:.1f}s)", flush=True)
+    print(f"[57 numbers] {json.dumps(notes, default=str)}", flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if service_launches[name] <= 0:
+            failures.append(f"57: {name} never launched on the service "
+                            "path")
+    if service_launches["sieve_mask"]:
+        failures.append("57: K3 launched on the service path (no "
+                        "hbm_budget there)")
+    return service_launches, notes
+
+
+class _HookView:
+    """A wrapped suspend hook that reports its inner hook's
+    ``resume_emitted`` (the scheduler reads it after the slice)."""
+
+    def __init__(self, fn, inner):
+        self._fn, self._inner = fn, inner
+
+    def __call__(self):
+        return self._fn()
+
+    @property
+    def resume_emitted(self):
+        return self._inner.resume_emitted
 
 
 def main() -> int:
@@ -4404,6 +5130,10 @@ def _main() -> int:
         if tune_launches[name] <= 0:
             failures.append(f"52b: {name} never launched on the tune path")
 
+    # ---- 53-57: the checker daemon (service/, warm/) on the card
+    service_launches, _service_notes = service_path(torch, dev, kernels,
+                                                    failures)
+
 
     if failures:
         print("\n".join(failures), file=sys.stderr)
@@ -4449,6 +5179,7 @@ def _main() -> int:
             engines_launches=engines_launches[name],
             obs_launches=obs_launches[name],
             tune_launches=tune_launches[name],
+            service_launches=service_launches[name],
             **({"tune_shape": record["tune_kernels"][tk]}
                if (tk := {"member_block": "K1@16",
                           "insert_tail": "H1@32"}.get(name)) else {}),

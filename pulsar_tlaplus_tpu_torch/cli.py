@@ -25,9 +25,16 @@
         [--visited-cap N] [--frontier-cap N] [--sub-batch N] [--top-k K]
         [--repeat N] [--candidates N] [--calibration FILE]
         [--stream-dir DIR] [--ledger FILE] [--adapt] [-cpu]
+    python -m pulsar_tlaplus_tpu_torch.cli serve [STATE_DIR | --state-dir D]
+        [-cpu] [--devices N] [--slice SEC] [--maxstates N] [-chunk N]
+        [--spec NAME ...] [--recover [--drain]] [--warm-max-bytes B]
+        [--tcp HOST:PORT --tokens FILE] [quotas...]
+    python -m pulsar_tlaplus_tpu_torch.cli submit SPEC CFG [--wait|--watch]
+        [--maxstates N] [--mode check|simulate] [--no-warm] [--priority N]
+    python -m pulsar_tlaplus_tpu_torch.cli status|watch|cancel [JOB_ID]
     python -m pulsar_tlaplus_tpu_torch.cli trace STREAM... [-o FILE]
-    python -m pulsar_tlaplus_tpu_torch.cli metrics --stream FILE
-    python -m pulsar_tlaplus_tpu_torch.cli top --stream FILE...
+    python -m pulsar_tlaplus_tpu_torch.cli metrics [--stream FILE]
+    python -m pulsar_tlaplus_tpu_torch.cli top [--stream FILE...]
         [--interval SEC] [--once]
     python -m pulsar_tlaplus_tpu_torch.cli ledger [--ledger FILE]
         add FILE... | list [--key K] | show REF | compare REF REF |
@@ -79,8 +86,14 @@ a TLC-style progress line that often (neither reads the device), and
 engine's ``-xprof-levels`` window.  ``trace`` turns streams into a
 Perfetto trace, ``metrics --stream`` into Prometheus text, ``top
 --stream`` into a dashboard, and ``ledger`` keeps the cross-run
-regression ledger; their daemon and fleet modes (no ``--stream``,
-``--aggregate``, ``--dispatch``) wait for those tiers and exit 2.  Exit code 0 when the search completes clean (or
+regression ledger.  ``serve`` runs the resident daemon (``service/``):
+checkers warmed for the registry, jobs time-sliced on the card at level
+boundaries, warm starts from earlier runs (``warm/``); ``submit``,
+``status``, ``watch``, ``cancel``, and ``metrics``/``top`` without
+``--stream`` talk to it over its unix socket (``--socket tcp://HOST:
+PORT --token T`` for the TCP listener).  The fleet modes (``metrics
+--aggregate``, ``top --dispatch``) wait for the dispatcher and exit 2.
+Exit code 0 when the search completes clean (or
 the property holds, or the walks found nothing), 1 on a violation, a
 deadlock or a violated property (or an error), 3 when a budget, device
 memory or a preemption truncated the search (no verdict).
@@ -968,10 +981,358 @@ def _cmd_tune(args) -> int:
     return 0
 
 
+# ---------------------------------------------- checking as a service
+
+DEFAULT_STATE_DIR = os.path.expanduser("~/.ptt_serve")
+
+
+def _socket_of(args) -> str:
+    """Client socket resolution: explicit --socket wins; otherwise the
+    daemon's well-known location inside --state-dir."""
+    if getattr(args, "socket", None):
+        return args.socket
+    return os.path.join(
+        os.path.abspath(args.state_dir), "serve.sock"
+    )
+
+
+def _service_client(args):
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceClient
+
+    return ServiceClient(
+        _socket_of(args),
+        timeout=args.timeout,
+        token=getattr(args, "token", None),
+        retries=getattr(args, "retries", 4),
+    )
+
+
+def _client_die(msg: str):
+    """Transport/daemon failure: exit 2 (no verification verdict).
+    Never 1 — the exit-code contract reserves 1 for violation/
+    deadlock, and a CI pipeline must be able to tell "the daemon was
+    down" from "the spec is broken"."""
+    print(f"tpu-tlc: {msg}", file=sys.stderr)
+    sys.exit(2)
+
+
+def _client_fail(op: str, e) -> None:
+    """Map a client-side failure to the exit-code contract on EVERY
+    subcommand: 4 = auth rejected, 5 = over quota / load shed, 2 =
+    transport/daemon failure — so `status` with an expired token
+    reads "fix my token", not "the daemon is down"."""
+    from pulsar_tlaplus_tpu_torch.service.client import (
+        AdmissionRejected,
+        AuthError,
+        BackendUnavailable,
+    )
+
+    if isinstance(e, AuthError):
+        print(f"tpu-tlc: {op} rejected (auth): {e}", file=sys.stderr)
+        sys.exit(4)
+    if isinstance(e, AdmissionRejected):
+        print(
+            f"tpu-tlc: {op} rejected ({e.code}): {e}", file=sys.stderr
+        )
+        sys.exit(5)
+    if isinstance(e, BackendUnavailable):
+        # the fleet had no healthy backend even after the retry
+        # budget: transport-class (exit 2), NEVER a spec verdict
+        _client_die(f"{op}: fleet has no healthy backend: {e}")
+    _client_die(f"{op} failed: {e}")
+
+
+def _print_job_line(j: dict) -> None:
+    extra = ""
+    if j.get("state") == "done" and (
+        "status" in j or "distinct_states" in j or "steps" in j
+    ):
+        if j.get("mode") == "simulate":
+            extra = (
+                f"  {j.get('status', '?')} "
+                f"{j.get('steps', '?')} sim steps"
+            )
+        else:
+            extra = (
+                f"  {j.get('status', '?')} "
+                f"{j.get('distinct_states', '?')} states"
+            )
+    elif j.get("error"):
+        extra = f"  {j['error'][:80]}"
+    warm = ""
+    if j.get("warm_mode"):
+        # the reuse decision: continue / reseed with its match, or cold
+        # with the typed fallback reason
+        warm = f" warm={j['warm_mode']}:{j.get('warm_reason')}"
+    # a fleet listing row names its owning backend (and may omit the
+    # slice counters, which live on the backend, not the dispatcher)
+    at = f" @{j['backend']}" if j.get("backend") else ""
+    print(
+        f"{j['job_id']}  {j.get('spec') or '?':<16} "
+        f"{j.get('state') or '?':<10} "
+        f"slices={j.get('slices', 0)} suspends={j.get('suspends', 0)}"
+        f"{warm}{extra}{at}"
+    )
+
+
+def _service_exit(state: str, result, error) -> int:
+    """Exit-code contract mirroring ``check``: 0 clean, 1 violation/
+    deadlock, 2 failed/cancelled, 3 truncated (no verification
+    verdict)."""
+    if state == "done" and result:
+        status = result.get("status")
+        if status == "ok":
+            return 0
+        if status in ("violation", "deadlock"):
+            return 1
+        return 3  # truncated: NOT a verification result
+    return 2
+
+
+def _report_job_result(job_id: str, state: str, result, error) -> int:
+    if state == "done" and result:
+        status = result.get("status")
+        if status in ("violation", "deadlock"):
+            name = result.get("violation") or "Deadlock"
+            print(f"Error: job {job_id}: {name}.")
+            if result.get("trace"):
+                print("The behavior up to this point is:")
+                for i, (s, a) in enumerate(
+                    zip(
+                        result["trace"],
+                        ["<init>"] + (result.get("trace_actions") or []),
+                    )
+                ):
+                    print(f"  {i + 1}: [{a}] {s}")
+        if result.get("mode") == "simulate":
+            print(
+                f"Simulation: {result.get('steps')} steps, "
+                f"{result.get('states_visited')} states visited, "
+                f"{result.get('walks')} completed walks."
+            )
+        else:
+            print(
+                f"{result.get('distinct_states')} distinct states "
+                f"found, search depth (diameter) "
+                f"{result.get('diameter')}."
+            )
+        print(
+            f"Job {job_id} finished in {result.get('wall_s')}s over "
+            f"{result.get('slices')} slice(s) "
+            f"({result.get('suspends')} suspension(s))."
+        )
+        if status == "truncated":
+            print(
+                "WARNING: search truncated "
+                f"(stop reason: {result.get('stop_reason')}) — "
+                "absence of violations is inconclusive."
+            )
+    elif error:
+        print(f"Job {job_id} FAILED: {error}")
+    else:
+        print(f"Job {job_id}: {state}")
+    return _service_exit(state, result, error)
+
+
+def _cmd_serve(args) -> int:
+    """The resident daemon: prewarm, listen, serve until SIGTERM/SIGINT
+    or a ``shutdown`` request (``--drain``: until the queue is idle).
+    Runs on the card (slot i on cuda:i) unless ``-cpu``."""
+    from pulsar_tlaplus_tpu_torch.service.scheduler import ServiceConfig
+    from pulsar_tlaplus_tpu_torch.service.server import ServiceDaemon
+
+    def log(msg: str) -> None:
+        print(f"tpu-tlc serve: {msg}", file=sys.stderr, flush=True)
+
+    state_dir = args.state_dir or args.state_pos or DEFAULT_STATE_DIR
+    config = ServiceConfig(
+        state_dir=os.path.abspath(state_dir),
+        socket_path=args.socket or "",
+        devices=args.devices,
+        cpu=args.cpu,
+        slice_s=args.slice,
+        max_states=args.maxstates,
+        checkpoint_every=args.checkpoint_every,
+        keep_terminal=args.keep_terminal,
+        sub_batch=args.chunk,
+        specs=tuple(args.spec or ()),
+        profiles="none" if args.no_profiles else "auto",
+        tcp=args.tcp or "",
+        tokens_path=args.tokens or "",
+        queue_cap=args.queue_cap,
+        tenant_max_queued=args.tenant_max_queued,
+        tenant_max_running=args.tenant_max_running,
+        tenant_max_states=args.tenant_max_states,
+        **(
+            {"warm_max_bytes": args.warm_max_bytes}
+            if args.warm_max_bytes is not None
+            else {}
+        ),
+    )
+    try:
+        daemon = ServiceDaemon(config, recover=args.recover, log=log)
+    except (RuntimeError, ValueError) as e:  # lock held / bad tokens /
+        #                                      no card for a slot
+        sys.exit(f"tpu-tlc: {e}")
+    if not args.no_prewarm:
+        daemon.prewarm()
+    try:
+        daemon.start()
+    except OSError as e:  # TCP bind failure (port in use, EACCES)
+        daemon.shutdown()
+        sys.exit(f"tpu-tlc: cannot listen: {e}")
+    daemon.install_signal_handlers()
+    # the ready line goes to STDOUT so wrappers/tests can block on it
+    print(f"serving on {config.socket_path}", flush=True)
+    if daemon.tcp_port is not None:
+        print(f"serving on tcp port {daemon.tcp_port}", flush=True)
+    daemon.serve_forever(drain=args.drain)
+    return 0
+
+
+def _cmd_submit(args) -> int:
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
+
+    sim = None
+    if args.mode == "simulate":
+        sim = {
+            k: v
+            for k, v in (
+                ("n_walkers", args.walkers),
+                ("depth", args.depth),
+                ("segment_len", args.segment),
+                ("seed", args.sim_seed),
+                ("max_steps", args.sim_steps),
+            )
+            if v is not None
+        }
+    cl = _service_client(args)
+    try:
+        reply = cl.submit(
+            args.spec,
+            os.path.abspath(args.config),
+            invariants=args.invariant,
+            max_states=args.maxstates,
+            time_budget_s=args.time_budget,
+            priority=args.priority,
+            deadline_s=args.deadline_s,
+            submit_id=args.submit_id,
+            mode=args.mode,
+            sim=sim,
+            warm=not args.no_warm,
+            full=True,
+        )
+        jid = reply["job_id"]
+    except (ServiceError, OSError) as e:
+        # distinct exit codes for rejected-at-the-door: 4 = bad/missing
+        # token, 5 = over quota / load shed — a CI lane tells "fix my token" from
+        # "back off" from "the daemon is down" (2) without parsing
+        _client_fail("submit", e)
+    print(jid)
+    if reply.get("warm_mode"):
+        # the reuse plan, up front: continue / reseed with its match, or
+        # cold with the typed reason
+        print(
+            f"warm plan: {reply['warm_mode']} "
+            f"({reply.get('warm_reason')})",
+            file=sys.stderr,
+        )
+    if args.watch:
+        return _watch_stream(cl, jid, args.timeout)
+    if args.wait:
+        try:
+            r = cl.wait(jid, timeout=args.timeout)
+        except TimeoutError as e:
+            _client_die(str(e))
+        return _report_job_result(
+            jid, r.get("state"), r.get("result"), r.get("error")
+        )
+    return 0
+
+
+def _cmd_status(args) -> int:
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
+
+    cl = _service_client(args)
+    try:
+        if args.job_id:
+            _print_job_line(cl.status(args.job_id))
+        else:
+            jobs = cl.status()
+            if not jobs:
+                print("(no jobs)")
+            for j in jobs:
+                _print_job_line(j)
+    except (ServiceError, OSError) as e:
+        _client_fail("status", e)
+    return 0
+
+
+def _watch_stream(cl, job_id: str, timeout: float) -> int:
+    """Stream a job's relayed telemetry to stdout; returns the job's
+    exit code from the terminating ``done`` message."""
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
+
+    try:
+        for msg in cl.watch(job_id, timeout_s=timeout):
+            if "event" in msg:
+                e = msg["event"]
+                kind = e.get("event", "?")
+                if kind == "level":
+                    print(
+                        f"[{e.get('run_id', '?')[:6]}] level "
+                        f"{e.get('level')}: {e.get('distinct_states')} "
+                        f"distinct, frontier {e.get('frontier')}, "
+                        f"{e.get('states_per_sec')} st/s",
+                        flush=True,
+                    )
+                elif kind in ("run_header", "result", "progress",
+                              "ckpt_frame"):
+                    print(
+                        f"[{e.get('run_id', '?')[:6]}] {kind} "
+                        + " ".join(
+                            f"{k}={e[k]}"
+                            for k in (
+                                "resume", "distinct_states", "wall_s",
+                                "frame_seq", "states_per_sec",
+                            )
+                            if k in e
+                        ),
+                        flush=True,
+                    )
+            elif "done" in msg:
+                d = msg["done"]
+                return _report_job_result(
+                    job_id, d.get("state"), d.get("result"),
+                    d.get("error"),
+                )
+            elif "error" in msg or not msg.get("ok", True):
+                _client_die(f"watch: {msg.get('error')}")
+    except (ServiceError, OSError) as e:
+        _client_fail("watch", e)
+    return 2  # stream ended without a done record
+
+
+def _cmd_watch(args) -> int:
+    return _watch_stream(_service_client(args), args.job_id, args.timeout)
+
+
+def _cmd_cancel(args) -> int:
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
+
+    cl = _service_client(args)
+    try:
+        state = cl.cancel(args.job_id)
+    except (ServiceError, OSError) as e:
+        _client_fail("cancel", e)
+    print(f"{args.job_id}: {state}")
+    return 0
+
+
 # ------------------------------------------------------ stream readers
 
-DAEMON_REFUSAL = ("needs the checker daemon: not ported yet "
-                  "(ROADMAP A15d/A15e)")
+FLEET_REFUSAL = ("needs the fleet dispatcher: not ported yet "
+                 "(ROADMAP A15e)")
 
 
 def _load_stream(path: str):
@@ -1023,39 +1384,56 @@ def _cmd_trace(args) -> int:
 
 
 def _cmd_metrics(args) -> int:
-    """Prometheus text metrics derived from a telemetry stream tail
-    (``--stream``); scraping a daemon waits for its tier."""
+    """Prometheus text metrics: scrape the daemon, or derive the same
+    families from a telemetry stream tail (``--stream``)."""
     from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
 
-    if not args.stream:
-        print(f"tpu-tlc: metrics without --stream {DAEMON_REFUSAL}",
+    if args.aggregate:
+        print(f"tpu-tlc: metrics --aggregate {FLEET_REFUSAL}",
               file=sys.stderr)
         return 2
-    events, rc = _load_stream(args.stream)
-    if rc:
-        return rc
-    sys.stdout.write(metrics_mod.render_stream_metrics(events))
+    if args.stream:
+        events, rc = _load_stream(args.stream)
+        if rc:
+            return rc
+        sys.stdout.write(metrics_mod.render_stream_metrics(events))
+        return 0
+    cl = _service_client(args)
+    try:
+        sys.stdout.write(cl.metrics())
+    except (ServiceError, OSError) as e:
+        _client_fail("metrics", e)
     return 0
 
 
 def _cmd_top(args) -> int:
-    """The dashboard over tailed telemetry stream(s) (``--stream``);
-    ``--once`` renders one frame (no clear codes) and exits.  Polling a
-    daemon or a dispatcher waits for those tiers."""
+    """The dashboard: poll the daemon (default) or tail telemetry
+    stream(s) (``--stream``); ``--once`` renders one frame (no clear
+    codes) and exits."""
     from pulsar_tlaplus_tpu_torch.obs import top as top_mod
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceError
 
-    if not args.stream:
-        print(f"tpu-tlc: top without --stream {DAEMON_REFUSAL}",
-              file=sys.stderr)
+    if args.dispatch:
+        print(f"tpu-tlc: top --dispatch {FLEET_REFUSAL}", file=sys.stderr)
         return 2
-    model = top_mod.TopModel(", ".join(args.stream))
+    if args.stream:
+        model = top_mod.TopModel(", ".join(args.stream))
+
+        def frame():
+            return top_mod.tail_stream_frame(args.stream, model)
+    else:
+        cl = _service_client(args)
+        model = top_mod.TopModel(_socket_of(args))
+
+        def frame():
+            return top_mod.poll_daemon_frame(cl, model)
     try:
         while True:
             try:
-                text = top_mod.tail_stream_frame(args.stream, model)
-            except OSError as e:
-                print(f"tpu-tlc: top failed: {e}", file=sys.stderr)
-                return 2
+                text = frame()
+            except (ServiceError, OSError) as e:
+                _client_fail("top", e)
             if args.once:
                 print(text)
                 return 0
@@ -1166,6 +1544,231 @@ def _ledger_gate(args, recs, rec_of) -> int:
     return 1 if violations else 0
 
 
+def _add_client_args(sp) -> None:
+    sp.add_argument(
+        "--state-dir", default=DEFAULT_STATE_DIR,
+        help="daemon state directory (socket lives at "
+        "<state-dir>/serve.sock; default ~/.ptt_serve)",
+    )
+    sp.add_argument(
+        "--socket", default=None,
+        help="daemon address (overrides --state-dir): a unix socket "
+        "path, or tcp://HOST:PORT for the authenticated TCP "
+        "transport (pair with --token)",
+    )
+    sp.add_argument(
+        "--token", default=None,
+        help="bearer token for the TCP transport (serve --tokens; "
+        "the unix socket needs none)",
+    )
+    sp.add_argument(
+        "--retries", type=int, default=4,
+        help="transport retry budget (exponential backoff + jitter "
+        "on connect/transient failures; default 4)",
+    )
+    sp.add_argument(
+        "--timeout", type=float, default=600.0,
+        help="client wait/stream timeout in seconds",
+    )
+
+
+def _service_parsers(sub) -> None:
+    """The ``serve``, ``submit``, ``status``, ``watch`` and ``cancel``
+    subcommands."""
+    ps = sub.add_parser(
+        "serve",
+        help="resident multi-tenant checker daemon: checkers and kernels "
+        "warmed for the spec registry, a FIFO job queue, and time "
+        "slicing of the card between jobs",
+    )
+    # the JAX CLI's positional, or --state-dir as the client commands
+    # spell it: one or the other
+    where = ps.add_mutually_exclusive_group()
+    where.add_argument(
+        "state_pos", nargs="?", default=None, metavar="state_dir",
+        help="daemon state directory (socket, queue.json, per-job "
+        "dirs, warm artifacts; default ~/.ptt_serve)",
+    )
+    where.add_argument("--state-dir", dest="state_dir", default=None,
+                       help="the same, as an option")
+    ps.add_argument("--socket", default=None, help="override socket path")
+    ps.add_argument(
+        "--tcp", default=None, metavar="HOST:PORT",
+        help="additionally listen on an authenticated TCP socket "
+        "(port 0 = ephemeral; REQUIRES --tokens; the unix socket "
+        "stays the no-auth localhost path)",
+    )
+    ps.add_argument(
+        "--tokens", default=None, metavar="FILE",
+        help="tokens.json mapping bearer tokens to tenants (validate "
+        "with scripts/torch_check_telemetry_schema.py --tokens)",
+    )
+    ps.add_argument(
+        "--queue-cap", type=int, default=64,
+        help="global cap on alive jobs; past it submits are SHED "
+        "with a typed capacity error (0 = unlimited; default 64)",
+    )
+    ps.add_argument(
+        "--tenant-max-queued", type=int, default=16,
+        help="per-tenant cap on queued jobs (0 = unlimited)",
+    )
+    ps.add_argument(
+        "--tenant-max-running", type=int, default=0,
+        help="per-tenant cap on jobs holding device slices "
+        "(running + suspended; 0 = unlimited)",
+    )
+    ps.add_argument(
+        "--tenant-max-states", type=int, default=0,
+        help="per-tenant cap on the aggregate max_states budget of "
+        "live jobs (0 = unlimited)",
+    )
+    ps.add_argument(
+        "--spec", action="append", default=None,
+        help="registry spec to prewarm at startup (repeatable; "
+        "default: every spec with a default cfg in specs/)",
+    )
+    ps.add_argument(
+        "--slice", type=float, default=2.0, metavar="SEC",
+        help="scheduling quantum: a running job suspends at its next "
+        "level boundary after SEC seconds when another job waits "
+        "(default 2.0)",
+    )
+    ps.add_argument(
+        "--maxstates", type=int, default=50_000_000,
+        help="service state ceiling (also the per-job default budget)",
+    )
+    ps.add_argument(
+        "--checkpoint-every", type=int, default=2,
+        help="levels between a running job's frames",
+    )
+    ps.add_argument(
+        "--keep-terminal", type=int, default=512,
+        help="finished-job records retained for status/result "
+        "queries; oldest beyond this are pruned from the table and "
+        "disk (0 = keep forever)",
+    )
+    ps.add_argument(
+        "-chunk", type=int, default=None, metavar="N",
+        help="frontier rows a window expands (the engine's sub_batch, "
+        "as given; default: the tuned profile's, else 65,536)",
+    )
+    ps.add_argument(
+        "--no-prewarm", action="store_true",
+        help="skip startup prewarm (the first submit per spec builds "
+        "its checker)",
+    )
+    ps.add_argument(
+        "--warm-max-bytes", type=int, default=None, metavar="BYTES",
+        help="LRU byte cap on the warm-artifact store (default 1 GiB; "
+        "0 disables the warm layer — no artifacts, every submit runs "
+        "cold)",
+    )
+    ps.add_argument(
+        "--no-profiles", action="store_true",
+        help="skip tuned-profile resolution when building pooled "
+        "checkers",
+    )
+    ps.add_argument(
+        "--recover", action="store_true",
+        help="reload queue.json and resume/re-run interrupted jobs "
+        "(after SIGTERM or a crash)",
+    )
+    ps.add_argument(
+        "--drain", action="store_true",
+        help="exit once the queue is idle (with --recover: complete "
+        "the persisted queue, then stop)",
+    )
+    ps.add_argument("-cpu", action="store_true",
+                    help="run the daemon on the CPU instead of the GPU")
+    ps.add_argument(
+        "--devices", type=int, default=1, metavar="N",
+        help="local device slots the scheduler runs jobs on at once "
+        "(slot i on cuda:i; more than the cards present is refused; "
+        "default 1)",
+    )
+
+    pj = sub.add_parser(
+        "submit", help="queue a check job on the running daemon"
+    )
+    pj.add_argument("spec", help="registry spec name (e.g. compaction)")
+    pj.add_argument("config", help=".cfg constant bindings")
+    pj.add_argument(
+        "-invariant", action="append", default=None,
+        help="invariant to check (repeatable; default: cfg INVARIANTS)",
+    )
+    pj.add_argument("--maxstates", type=int, default=None)
+    pj.add_argument(
+        "--time-budget", type=float, default=None, metavar="SEC",
+        help="cumulative engine-wall budget across scheduling slices",
+    )
+    pj.add_argument(
+        "--mode", choices=["check", "simulate"], default="check",
+        help="workload: exhaustive BFS (default) or the streaming "
+        "walker swarm (simulation jobs time-slice at segment "
+        "boundaries)",
+    )
+    pj.add_argument("--walkers", type=int, default=None,
+                    help="with --mode simulate: walker swarm width")
+    pj.add_argument("--depth", type=int, default=None,
+                    help="with --mode simulate: steps per behavior")
+    pj.add_argument("--segment", type=int, default=None,
+                    help="with --mode simulate: steps per device dispatch")
+    pj.add_argument(
+        "--sim-seed", dest="sim_seed", type=int, default=None,
+        help="with --mode simulate: walk seed (deterministic stream)",
+    )
+    pj.add_argument(
+        "--sim-steps", dest="sim_steps", type=int, default=None,
+        help="with --mode simulate: total step budget across the "
+        "swarm (default: one depth-round)",
+    )
+    pj.add_argument(
+        "--priority", type=int, default=0, metavar="N",
+        help="scheduling priority (higher first; a waiting higher-"
+        "priority job preempts a running lower one at its next "
+        "level boundary; clamped to [-9, 9] at the daemon; default 0)",
+    )
+    pj.add_argument(
+        "--deadline-s", type=float, default=None, metavar="SEC",
+        help="wall-clock deadline from submit; past it the job is "
+        "cancelled with stop_reason=deadline (exit 3, no verdict)",
+    )
+    pj.add_argument(
+        "--no-warm", action="store_true",
+        help="opt this job out of warm-start reuse AND artifact "
+        "harvesting: always a full cold recheck",
+    )
+    pj.add_argument(
+        "--submit-id", default=None, metavar="ID",
+        help="idempotency key: a retried submit with the same id "
+        "returns the SAME job instead of enqueueing twice "
+        "(auto-generated when omitted)",
+    )
+    pj.add_argument(
+        "--wait", action="store_true",
+        help="block until the job finishes; exit code mirrors `check`",
+    )
+    pj.add_argument(
+        "--watch", action="store_true",
+        help="stream the job's relayed telemetry until it finishes",
+    )
+    _add_client_args(pj)
+    pst = sub.add_parser(
+        "status", help="job table (or one job) from the daemon"
+    )
+    pst.add_argument("job_id", nargs="?", default=None)
+    _add_client_args(pst)
+    pw = sub.add_parser(
+        "watch", help="stream a job's telemetry (level progress, "
+        "heartbeat, per-slice run headers) until it finishes",
+    )
+    pw.add_argument("job_id")
+    _add_client_args(pw)
+    pca = sub.add_parser("cancel", help="cancel a queued/running job")
+    pca.add_argument("job_id")
+    _add_client_args(pca)
+
+
 def _reader_parsers(sub) -> None:
     """The ``trace``, ``metrics``, ``top`` and ``ledger`` subcommands."""
     ptr = sub.add_parser(
@@ -1179,17 +1782,18 @@ def _reader_parsers(sub) -> None:
                      help="output trace file (default trace.json)")
     pm = sub.add_parser(
         "metrics",
-        help="Prometheus text metrics derived from a stream tail "
-        "(--stream)",
+        help="Prometheus text metrics: scrape the live daemon's `metrics` "
+        "verb, or derive the same families from a stream tail (--stream)",
     )
     pm.add_argument("--stream", default=None, metavar="FILE",
                     help="derive metrics from this telemetry JSONL")
     pm.add_argument("--aggregate", action="store_true",
                     help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+    _add_client_args(pm)
     pt = sub.add_parser(
         "top",
         help="dashboard: job table, rate sparklines, status line — "
-        "tailing stream(s) (--stream)",
+        "polling the daemon or tailing stream(s) (--stream)",
     )
     pt.add_argument("--stream", action="append", default=None,
                     metavar="FILE",
@@ -1200,6 +1804,7 @@ def _reader_parsers(sub) -> None:
                     help="render one frame (no ANSI clear) and exit")
     pt.add_argument("--dispatch", action="store_true",
                     help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+    _add_client_args(pt)
     pl = sub.add_parser(
         "ledger",
         help="cross-run regression ledger: ingest BENCH_*.json artifacts "
@@ -1397,10 +2002,14 @@ def main(argv=None) -> int:
     _tel_args(ps)
     _profile_args(ps)
     _tune_parser(sub)
+    _service_parsers(sub)
     _reader_parsers(sub)
     args = p.parse_args(argv)
     readers = {"trace": _cmd_trace, "metrics": _cmd_metrics,
-               "top": _cmd_top, "ledger": _cmd_ledger, "tune": _cmd_tune}
+               "top": _cmd_top, "ledger": _cmd_ledger, "tune": _cmd_tune,
+               "serve": _cmd_serve, "submit": _cmd_submit,
+               "status": _cmd_status, "watch": _cmd_watch,
+               "cancel": _cmd_cancel}
     if args.cmd in readers:
         return readers[args.cmd](args)
     if args.cmd == "simulate":

@@ -284,7 +284,10 @@ class DeviceChecker:
     ``rows_window="frontier"`` keeps only a window of ``row_cap_states``
     rows (plus one append window).  ``checkpoint_path`` writes a frame
     every ``checkpoint_every`` levels; ``run(resume=True)`` continues
-    from it.
+    from it.  ``suspend_hook`` (the daemon's time slicing, reassignable
+    between runs) is polled at each level boundary after the preemption
+    watcher: ``"cancelled"`` stops the run without a frame, any other
+    non-empty answer writes a frame and stops with that reason.
 
     ``telemetry`` (a path, or an ``obs.telemetry.Telemetry`` the caller
     keeps) takes the run's JSONL event stream; ``heartbeat_s`` prints a
@@ -347,6 +350,7 @@ class DeviceChecker:
         heartbeat_s: Optional[float] = None,
         xprof_dir: Optional[str] = None,
         xprof_levels: Optional[Tuple[int, int]] = None,
+        suspend_hook=None,
     ):
         if visited_impl not in ("fpset", "sort"):
             raise ValueError(
@@ -486,6 +490,21 @@ class DeviceChecker:
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.rec = recovery.RecoveryState(checkpoint_path)
         self._watcher = None
+        # the daemon's hooks (``service/scheduler.py``), reassigned
+        # between runs of one pooled checker: ``suspend_hook`` is polled
+        # at level boundaries ("suspended" or another reason: a frame,
+        # then a resumable stop; "cancelled": stop, no frame);
+        # ``final_frame`` writes a frame at a clean completion too (the
+        # warm-reseed artifact); ``extra_trace_depth`` widens the trace
+        # walk's depth bound for a reseeded run, whose merged seed
+        # levels no longer bound the parent chains; ``tenant``,
+        # ``trace_id`` and ``warm`` go onto the run header
+        self.suspend_hook = suspend_hook
+        self.final_frame = False
+        self.extra_trace_depth = 0
+        self.tenant: Optional[str] = None
+        self.trace_id: Optional[str] = None
+        self.warm: Optional[str] = None
         # telemetry: the stream opens a run with a fresh run_id; the
         # heartbeat reports from ``_snap``, the last host snapshot, so
         # neither reads the device
@@ -1002,6 +1021,9 @@ class DeviceChecker:
             adapt=self.adapt,
             hbm_budget=self.hbm_budget,
             mode="check",
+            tenant=self.tenant,
+            trace_id=self.trace_id,
+            warm=self.warm,
         )
 
     def _emit_spill(self, level: int) -> None:
@@ -1736,7 +1758,9 @@ class DeviceChecker:
                        nf: int) -> Optional[str]:
         """The stops checked at a level boundary before the next level:
         a degraded spill tier, a preemption request (after its frame),
-        and a frontier window that lost rows of the level to expand."""
+        the daemon's suspend hook, and a frontier window that lost rows
+        of the level to expand.  The hook runs on the host between
+        levels and reads nothing from the device."""
         if self.tstore is not None and self.tstore.durable:
             self.tstore.flush()
         if self.tstore is not None and self.tstore.degraded:
@@ -1747,6 +1771,14 @@ class DeviceChecker:
             if self._save_frame(level_sizes, level_base, nf) \
                     or self._rows_ok:
                 return "preempted"
+        elif self.suspend_hook is not None:
+            why = self.suspend_hook()
+            if why == "cancelled":
+                return "cancelled"
+            # a suspend without its frame would lose the work: a refused
+            # frame keeps the run going
+            if why and self._save_frame(level_sizes, level_base, nf):
+                return str(why)
         if self.frontier:
             if not self._rows_ok:
                 return "row_window"
@@ -1780,6 +1812,10 @@ class DeviceChecker:
                     self._save_frame(level_sizes, level_base, nf)
                 return self._result(t0, level_sizes, **reason)
             if nf == 0:
+                if self.final_frame:
+                    # the search is complete: this frame (empty
+                    # frontier) is the warm-reseed artifact
+                    self._save_frame(level_sizes, level_base, 0)
                 return self._result(t0, level_sizes)
             why = self._boundary_stop(level_sizes, level_base, nf)
             if why is not None:
@@ -2420,7 +2456,8 @@ class DeviceChecker:
         if gid is not None and live:
             res.violation_gid = gid
             res.trace, res.trace_actions = build_trace(
-                self.model, *self.merged_logs(), gid, len(level_sizes) + 2,
+                self.model, *self.merged_logs(), gid,
+                len(level_sizes) + 2 + int(self.extra_trace_depth),
             )
         elif gid is not None:
             res.violation_gid = gid

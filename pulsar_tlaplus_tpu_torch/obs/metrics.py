@@ -5,9 +5,11 @@ the stream side of ``pulsar_tlaplus_tpu/obs/metrics.py``.
 stream's tail (last ``level``/``flush`` records, event sums), so a solo
 ``-telemetry`` run exports them via ``cli.py metrics --stream
 run.jsonl``; daemon (``job_*``) and dispatcher streams render their
-families too, since these are pure functions over records.  The live
-scrapes of a daemon or a dispatcher (``scheduler_metrics``,
-``fleet_metrics``) come with those tiers (ROADMAP A15d/A15e).
+families too, since these are pure functions over records.
+:func:`scheduler_metrics` renders the same families from a live
+daemon's scheduler (``cli.py metrics`` scrapes it) out of host dicts
+only: a scrape never reads the device.  The dispatcher's live scrape
+(``fleet_metrics``) comes with the fleet tier (ROADMAP A15e).
 
 Exposition format: the Prometheus text format, one ``# HELP``/``# TYPE``
 pair per family.  :func:`parse_exposition` is the minimal inverse used
@@ -18,8 +20,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-# the daemon's job lifecycle states (``service/jobs.py`` of the JAX
-# package; the port's daemon is ROADMAP A15d)
+# the daemon's job lifecycle states (``service/jobs.py``)
 QUEUED = "queued"
 RUNNING = "running"
 SUSPENDED = "suspended"
@@ -726,6 +727,136 @@ def _fleet_families(
         f_resub, f_recon, f_part, f_recov, f_persist, f_holds,
         f_sheds,
     ] + _fleet_hist_families(hists)
+
+
+# ------------------------------------------------------- daemon scrape
+
+
+def _kernel_cache_stats() -> Tuple[int, int]:
+    """(bytes, entries) of the built kernel libraries
+    (``build/torch_kernels/*.so``): the port's counterpart of the JAX
+    daemon's AOT executable cache."""
+    from pulsar_tlaplus_tpu_torch.kernels import build as kbuild
+
+    sizes = [p.stat().st_size for p in kbuild.BUILD_DIR.glob("*.so")]
+    return sum(sizes), len(sizes)
+
+
+def scheduler_metrics(
+    sched, uptime_s: Optional[float] = None,
+    warmed: Optional[list] = None,
+) -> List[Family]:
+    """Metric families from a live Scheduler (``service/scheduler.py``)
+    — the job table, the admission and warm counters, the most recent
+    slice's engine stats (``sched.last_engine``) and, while a job runs,
+    the heartbeat snapshot of the active checker.  Reads ONLY host-side
+    dicts: a scrape never touches the device."""
+    with sched.cv:
+        jobs = list(sched.jobs.values())
+        running_id = sched._running_id
+        queue_depth = len(sched.fifo)
+    counts: Dict[str, int] = {}
+    for j in jobs:
+        counts[j.state] = counts.get(j.state, 0) + 1
+
+    f_up = Family(
+        "ptt_daemon_up", "gauge", "1 while the daemon answers"
+    ).add(1)
+    f_uptime = Family(
+        "ptt_daemon_uptime_seconds", "gauge", "Daemon uptime"
+    ).add(uptime_s)
+    f_jobs = Family(
+        "ptt_jobs", "gauge", "Jobs in the table by lifecycle state"
+    )
+    for state in STATES:
+        f_jobs.add(counts.get(state, 0), {"state": state})
+    f_queue = Family(
+        "ptt_queue_depth", "gauge", "Jobs waiting in the FIFO"
+    ).add(queue_depth)
+    f_active = Family(
+        "ptt_active_job", "gauge",
+        "1 when a job holds the device (job_id/spec labels)",
+    )
+    active = next((j for j in jobs if j.job_id == running_id), None)
+    if active is not None:
+        f_active.add(1, {"job_id": active.job_id, "spec": active.spec})
+    else:
+        f_active.add(0)
+    f_slices = Family(
+        "ptt_job_slices_total", "counter",
+        "Scheduling slices run across all jobs in the table",
+    ).add(sum(j.slices for j in jobs))
+    f_susp = Family(
+        "ptt_job_suspends_total", "counter",
+        "Frame-boundary suspensions across all jobs in the table",
+    ).add(sum(j.suspends for j in jobs))
+    f_warm = Family(
+        "ptt_warmed_specs", "gauge",
+        "Registry specs warmed (checkers built, kernels built, K0 run)",
+    ).add(len(warmed) if warmed is not None else None)
+    try:
+        kbytes, kentries = _kernel_cache_stats()
+        f_cache = Family(
+            "ptt_aot_cache_bytes", "gauge",
+            "Built kernel libraries on disk (build/torch_kernels)",
+        ).add(kbytes)
+        f_centries = Family(
+            "ptt_aot_cache_entries", "gauge",
+            "Built kernel libraries (one a CUDA source)",
+        ).add(kentries)
+    except OSError:  # build dir unreadable: skip, don't fail the scrape
+        f_cache = Family("ptt_aot_cache_bytes", "gauge", "unavailable")
+        f_centries = Family("ptt_aot_cache_entries", "gauge", "unavailable")
+
+    last = getattr(sched, "last_engine", None) or {}
+    stats = dict(last.get("stats") or {})
+    snap = dict(last.get("snap") or {})
+    ck = getattr(sched, "_active_ck", None)
+    if active is not None and ck is not None:
+        # the running job's heartbeat snapshot — the host dict the
+        # engine updates at its reads.  The engine thread may insert
+        # keys while this copies: retry, or skip (best effort)
+        for _attempt in range(3):
+            try:
+                snap.update(dict(getattr(ck, "_snap", {}) or {}))
+                break
+            except RuntimeError:
+                continue
+    if "states_per_sec" not in snap and last.get("states_per_sec"):
+        snap["states_per_sec"] = last["states_per_sec"]
+    fams = [
+        f_up, f_uptime, f_jobs, f_queue, f_active, f_slices, f_susp,
+        f_warm, f_cache, f_centries,
+    ] + _engine_families(stats, snap)
+    adm = getattr(sched, "admission", None)
+    if adm is not None:
+        snap_adm = adm.snapshot()
+        rejected = {}
+        for key, n in snap_adm["rejected"].items():
+            # reasons never contain "/", tenant names might: split from
+            # the right
+            tenant, _sl, reason = key.rpartition("/")
+            rejected[(tenant, reason)] = n
+        fams += _admission_families(
+            snap_adm["admitted"], rejected, snap_adm["deduped"]
+        )
+    wc = dict(getattr(sched, "warm_counts", None) or {})
+    wstore = getattr(sched, "warm_store", None)
+    if wc or wstore is not None:
+        wbytes = None
+        if wstore is not None:
+            try:
+                wbytes = wstore.total_bytes()
+            except OSError:
+                wbytes = None
+        fams += _warm_families(wc, wbytes)
+    fams.append(
+        Family(
+            "ptt_persist_failures_total", "counter",
+            "queue.json snapshots that failed past the retry",
+        ).add(getattr(sched, "persist_failures", 0) or None)
+    )
+    return fams
 
 
 # -------------------------------------------------------- file scrape

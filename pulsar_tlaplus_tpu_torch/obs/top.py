@@ -7,8 +7,10 @@ and the heartbeat-equivalent status line of whatever holds the device.
 The renderer is a pure function over a :class:`TopModel`, so a frame
 renders without a daemon, a terminal, or ANSI parsing.  Stream mode
 tails telemetry JSONL files: ``level`` records feed the sparkline,
-``job_*`` records the table.  The daemon and dispatcher polls come with
-those tiers (ROADMAP A15d/A15e).
+``job_*`` records the table.  Daemon mode (:func:`poll_daemon_frame`)
+polls a running daemon: one ping, one status listing and one metrics
+scrape a frame, all answered from host dicts.  The dispatcher's poll
+comes with the fleet tier (ROADMAP A15e).
 """
 
 from __future__ import annotations
@@ -175,6 +177,56 @@ def render_frame(model: TopModel, now: Optional[float] = None) -> str:
     lines.append("")
     lines.append(time.strftime("%H:%M:%S", time.localtime(now)))
     return "\n".join(lines)
+
+
+# ------------------------------------------------------------ daemon mode
+
+
+def poll_daemon_frame(client, model: TopModel) -> str:
+    """One daemon poll -> updated model -> rendered frame.  ``client`` is
+    a ``service.client.ServiceClient``; rates accumulate across polls
+    from the metrics scrape's ``ptt_states_per_sec`` and the active
+    job."""
+    from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+
+    pong = client.ping()
+    model.daemon = {k: pong.get(k) for k in ("pid", "uptime_s", "warmed")}
+    model.jobs = client.status()
+    text = client.metrics()
+    model.metrics_text = text
+    fams, _types = metrics_mod.parse_exposition(text)
+
+    def val(name, default=None):
+        samples = fams.get(name) or []
+        return samples[0][1] if samples else default
+
+    rate = val("ptt_states_per_sec")
+    active = [
+        (labels, v)
+        for labels, v in fams.get("ptt_active_job", [])
+        if v > 0 and labels.get("job_id")
+    ]
+    if active:
+        model.note_rate(active[0][0]["job_id"], rate or 0.0)
+    distinct = val("ptt_distinct_states")
+    level = val("ptt_bfs_level")
+    frontier = val("ptt_frontier_states")
+    occ = val("ptt_fpset_occupancy")
+    parts = []
+    if active:
+        parts.append(f"active {active[0][0]['job_id'][:8]}")
+    if level is not None:
+        parts.append(f"level {int(level)}")
+    if distinct is not None:
+        parts.append(f"{fmt_si(distinct)} distinct")
+    if frontier is not None:
+        parts.append(f"frontier {fmt_si(frontier)}")
+    if rate is not None:
+        parts.append(f"{fmt_si(rate)} st/s")
+    if occ is not None:
+        parts.append(f"occupancy {occ:.1%}")
+    model.status_line = ", ".join(parts)
+    return render_frame(model)
 
 
 # ------------------------------------------------------------ stream mode

@@ -1,0 +1,209 @@
+"""Admission control: per-tenant quotas + global load shedding — the port's copy of
+``pulsar_tlaplus_tpu/service/admission.py`` (pure Python, no device).
+
+An open-network daemon must reject at the door, never silently queue:
+an over-quota or over-capacity submit gets a *typed* error reply
+(``code: "quota"`` / ``code: "capacity"``) the client maps to a
+distinct exit code, and every decision lands in the counters the
+``metrics`` verb exports as ``ptt_admission_*`` and in an
+``admission`` telemetry event (schema v10).
+
+Quotas (``ServiceConfig``):
+
+- ``queue_cap`` — global cap on jobs alive in the table (queued +
+  running + suspended).  Past it, every submit is SHED regardless of
+  tenant (``reason: "queue_full"``) — the load-shedding backstop that
+  keeps a retry storm from growing ``queue.json`` without bound.
+- ``tenant_max_queued`` — per-tenant cap on QUEUED jobs.
+- ``tenant_max_running`` — per-tenant cap on jobs holding device
+  slices (running + suspended).
+- ``tenant_max_states`` — per-tenant cap on the aggregate
+  ``max_states`` budget of the tenant's live jobs (each job counts at
+  its requested budget, or the service default when unset) — the
+  device-time proxy that stops one tenant from parking a handful of
+  billion-state jobs in front of everyone else.
+
+The checks run under the scheduler's condition variable against the
+live job table, so a decision is consistent with the queue it judged.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Tuple
+
+from pulsar_tlaplus_tpu_torch.service import auth as authmod
+
+# admission decision reasons (the `reason` label on rejected/shed
+# counters and telemetry events)
+REASON_QUEUE_FULL = "queue_full"
+REASON_TENANT_QUEUED = "tenant_queued"
+REASON_TENANT_RUNNING = "tenant_running"
+REASON_TENANT_STATES = "tenant_states"
+
+# sim-job pricing defaults (mirror sim/engine.py: n_walkers resolves
+# to 1024 when neither the submit nor a tuned profile pins it, depth
+# to 64, and the legacy no-budget contract is ONE depth-round =
+# B * (depth + 1) swarm states)
+SIM_DEFAULT_WALKERS = 1024
+SIM_DEFAULT_DEPTH = 64
+
+
+def state_price(
+    max_states: Optional[int],
+    mode: str = "check",
+    sim: Optional[dict] = None,
+    default: int = 0,
+) -> int:
+    """One job's admission price in state units.
+
+    Check jobs price at their requested ``max_states`` (or the service
+    default).  Simulation jobs price at their ACTUAL swarm budget —
+    ``max_steps`` when set, else the legacy one-round total
+    ``n_walkers * (depth + 1)`` — instead of the BFS default
+    ``max_states`` (a 16-walker depth-64 job priced like a 50M-state
+    BFS run would let one sim submit eat a tenant's aggregate quota)."""
+    if mode == "simulate":
+        sim = sim or {}
+        steps = sim.get("max_steps")
+        if steps is None:
+            walkers = int(sim.get("n_walkers") or SIM_DEFAULT_WALKERS)
+            depth = int(sim.get("depth") or SIM_DEFAULT_DEPTH)
+            steps = walkers * (depth + 1)
+        return int(steps)
+    return int(max_states or default)
+
+
+class AdmissionError(ValueError):
+    """A submit rejected at the door.  ``code`` is the wire error
+    code (``"quota"`` for per-tenant limits, ``"capacity"`` for the
+    global shed); ``reason`` the counter label."""
+
+    def __init__(self, msg: str, code: str, reason: str, tenant: str):
+        super().__init__(msg)
+        self.code = code
+        self.reason = reason
+        self.tenant = tenant
+
+
+class AdmissionControl:
+    """Quota checks + the admitted/rejected/shed counters."""
+
+    def __init__(
+        self,
+        queue_cap: int = 0,
+        tenant_max_queued: int = 0,
+        tenant_max_running: int = 0,
+        tenant_max_states: int = 0,
+        default_max_states: int = 0,
+    ):
+        # 0 = unlimited for every knob
+        self.queue_cap = int(queue_cap)
+        self.tenant_max_queued = int(tenant_max_queued)
+        self.tenant_max_running = int(tenant_max_running)
+        self.tenant_max_states = int(tenant_max_states)
+        self.default_max_states = int(default_max_states)
+        self._lock = threading.Lock()
+        self.admitted: Dict[str, int] = {}
+        self.deduped: Dict[str, int] = {}
+        # (tenant, reason) -> count; shed lives under
+        # reason=queue_full so dashboards see one label scheme
+        self.rejected: Dict[Tuple[str, str], int] = {}
+
+    # ------------------------------------------------------- decisions
+
+    def price(self, job) -> int:
+        """One live job's state-budget price (:func:`state_price` on
+        the job's own mode/knobs)."""
+        return state_price(
+            job.max_states,
+            getattr(job, "mode", "check"),
+            getattr(job, "sim", None),
+            self.default_max_states,
+        )
+
+    def check(self, tenant: str, asking: int, jobs: List) -> None:
+        """Raise :class:`AdmissionError` when admitting one more job
+        for ``tenant`` would break a quota.  ``asking`` is the
+        incoming job's :func:`state_price`; ``jobs`` is the live job
+        table (the caller holds the scheduler cv)."""
+        alive = [j for j in jobs if not j.terminal]
+        if self.queue_cap and len(alive) >= self.queue_cap:
+            self._count_reject(tenant, REASON_QUEUE_FULL)
+            raise AdmissionError(
+                f"queue full ({len(alive)}/{self.queue_cap} jobs "
+                "alive); shedding load — retry later",
+                code="capacity", reason=REASON_QUEUE_FULL,
+                tenant=tenant,
+            )
+        if tenant == authmod.LOCAL_TENANT:
+            # the unix-socket operator is exempt from per-tenant
+            # quotas (they exist to stop tenants starving EACH OTHER;
+            # a local batch sweep queueing 20 specs must keep working)
+            # — the global queue_cap shed above still
+            # protects the daemon itself
+            return
+        mine = [j for j in alive if j.tenant == tenant]
+        if self.tenant_max_queued:
+            queued = sum(1 for j in mine if j.state == "queued")
+            if queued >= self.tenant_max_queued:
+                self._count_reject(tenant, REASON_TENANT_QUEUED)
+                raise AdmissionError(
+                    f"tenant {tenant!r} already has {queued} queued "
+                    f"job(s) (quota {self.tenant_max_queued})",
+                    code="quota", reason=REASON_TENANT_QUEUED,
+                    tenant=tenant,
+                )
+        if self.tenant_max_running:
+            running = sum(
+                1 for j in mine
+                if j.state in ("running", "suspended")
+            )
+            if running >= self.tenant_max_running:
+                self._count_reject(tenant, REASON_TENANT_RUNNING)
+                raise AdmissionError(
+                    f"tenant {tenant!r} already holds {running} "
+                    f"device slice(s) (quota "
+                    f"{self.tenant_max_running})",
+                    code="quota", reason=REASON_TENANT_RUNNING,
+                    tenant=tenant,
+                )
+        if self.tenant_max_states:
+            budget = sum(self.price(j) for j in mine)
+            asking = int(asking)
+            if budget + asking > self.tenant_max_states:
+                self._count_reject(tenant, REASON_TENANT_STATES)
+                raise AdmissionError(
+                    f"tenant {tenant!r} aggregate state budget "
+                    f"{budget} + {asking} exceeds the quota "
+                    f"{self.tenant_max_states}",
+                    code="quota", reason=REASON_TENANT_STATES,
+                    tenant=tenant,
+                )
+
+    # -------------------------------------------------------- counters
+
+    def _count_reject(self, tenant: str, reason: str) -> None:
+        with self._lock:
+            key = (tenant, reason)
+            self.rejected[key] = self.rejected.get(key, 0) + 1
+
+    def count_admit(self, tenant: str) -> None:
+        with self._lock:
+            self.admitted[tenant] = self.admitted.get(tenant, 0) + 1
+
+    def count_dedup(self, tenant: str) -> None:
+        with self._lock:
+            self.deduped[tenant] = self.deduped.get(tenant, 0) + 1
+
+    def snapshot(self) -> Dict[str, object]:
+        """Plain-dict counter snapshot (the metrics verb reads it)."""
+        with self._lock:
+            return {
+                "admitted": dict(self.admitted),
+                "deduped": dict(self.deduped),
+                "rejected": {
+                    f"{t}/{r}": n
+                    for (t, r), n in self.rejected.items()
+                },
+            }

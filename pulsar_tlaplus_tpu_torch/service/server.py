@@ -1,0 +1,693 @@
+"""The resident daemon: socket accept loop + graceful shutdown — the
+port's counterpart of ``pulsar_tlaplus_tpu/service/server.py``.
+
+``cli.py serve`` builds a :class:`ServiceDaemon`, prewarms the spec
+registry (each slot's checkers built, the kernel libraries built, K0
+launched on each card), and serves the JSONL protocol on a unix socket
+inside the state dir (and, with ``--tcp``, on an authenticated TCP
+listener).  The scheduler runs in its own threads; signal handlers stay
+on the main thread, so SIGTERM/SIGINT trigger the graceful path: the
+running job suspends at its next level boundary (its frame on disk, its
+place in the queue persisted), the queue writes ``queue.json``, and the
+process exits 0 — ``serve --recover`` then completes the queue with the
+same results.
+
+The fleet's artifact replication ops (``warm_list``, ``warm_offer``,
+``warm_pull``, ``warm_push``) answer a typed ``bad_request`` until the
+fleet tier is ported (ROADMAP A15e).
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import os
+import signal
+import socket
+import threading
+import time
+from typing import Optional
+
+from pulsar_tlaplus_tpu_torch.obs import telemetry as obs
+from pulsar_tlaplus_tpu_torch.service import admission as admmod
+from pulsar_tlaplus_tpu_torch.service import auth as authmod
+from pulsar_tlaplus_tpu_torch.service import jobs as jobmod
+from pulsar_tlaplus_tpu_torch.service import protocol
+from pulsar_tlaplus_tpu_torch.service.scheduler import (
+    CheckerPool,
+    Scheduler,
+    ServiceConfig,
+)
+from pulsar_tlaplus_tpu_torch.utils import faults
+
+# how long a watch stream may idle-poll a job's event file between
+# records before giving up (the job may be waiting behind a long slice
+# of another job — that is normal, so this is generous)
+WATCH_POLL_S = 0.05
+
+
+class _FaultyWriter:
+    """The reply-side PTT_FAULT shim: realizes ``drop@conn:N`` (close
+    before any byte of the reply) and ``torn@line:N`` (write half of
+    the N-th protocol line the daemon ever sends, then close) by
+    raising ``ConnectionResetError`` — exactly what a flaky network
+    looks like to the handler, so the SAME cleanup path runs.  Inert
+    (two attribute reads) when ``PTT_FAULT`` is unset."""
+
+    def __init__(self, wfile, server, drop: bool = False):
+        self._w = wfile
+        self._server = server
+        self._drop = drop
+
+    def write(self, data):
+        if self._drop:
+            raise ConnectionResetError(
+                "PTT_FAULT drop@conn: reply withheld"
+            )
+        if faults.active():
+            n = self._server._next_line()
+            if "torn" in faults.poll("line", n):
+                self._w.write(data[: max(1, len(data) // 2)])
+                self._w.flush()
+                raise ConnectionResetError(
+                    f"PTT_FAULT torn@line:{n}"
+                )
+        return self._w.write(data)
+
+    def flush(self):
+        self._w.flush()
+
+    def close(self):
+        self._w.close()
+
+
+class ServiceDaemon:
+    def __init__(
+        self,
+        config: ServiceConfig,
+        recover: bool = False,
+        log=None,
+        pool: Optional[CheckerPool] = None,
+    ):
+        self.config = config
+        os.makedirs(config.state_dir, exist_ok=True)
+        os.makedirs(config.jobs_dir, exist_ok=True)
+        self._log = log or (lambda m: None)
+        self._lock_fd: Optional[int] = None
+        # lock BEFORE touching queue.json (recover), the telemetry
+        # stream, or prewarm: the loser of a double-start race must
+        # fail fast and clean
+        self._acquire_state_lock()
+        self.tel = obs.Telemetry(config.telemetry_path)
+        self.pool = pool or CheckerPool(config)
+        self.sched = Scheduler(
+            config, pool=self.pool, telemetry=self.tel, log=self._log
+        )
+        self._sock: Optional[socket.socket] = None
+        self._tcp_sock: Optional[socket.socket] = None
+        self.tcp_port: Optional[int] = None
+        self._accept_threads: list = []
+        self._shutdown_evt = threading.Event()
+        self._shutdown_done = threading.Event()
+        self._t0 = time.time()
+        self.warmed: list = []
+        # bearer tokens for the TCP transport (service/auth.py): the
+        # unix socket stays the no-auth localhost path
+        self.tokens: dict = {}
+        if config.tokens_path:
+            self.tokens = authmod.load_tokens(config.tokens_path)
+        if config.tcp and not self.tokens:
+            raise ValueError(
+                "serve --tcp requires --tokens TOKENS.json: the TCP "
+                "transport is authenticated"
+            )
+        # validate HOST:PORT at construction (the CLI wraps ctor
+        # ValueErrors into a clean message; start() must not raise)
+        self._tcp_addr = None
+        if config.tcp:
+            self._tcp_addr = protocol.parse_tcp(
+                protocol.TCP_PREFIX + config.tcp
+            )
+        # service-layer fault-site counters (drop@conn / torn@line)
+        self._conn_n = 0
+        self._line_n = 0
+        self._fault_lock = threading.Lock()
+        # tenants whose first successful handshake was already logged
+        # (the accept audit record is once-per-tenant: routine polling
+        # opens a connection per request, and one record per poll
+        # would grow the daemon stream without bound)
+        self._auth_seen: set = set()
+        if recover:
+            self.sched.recover()
+
+    def _next_conn(self) -> int:
+        with self._fault_lock:
+            self._conn_n += 1
+            return self._conn_n
+
+    def _next_line(self) -> int:
+        with self._fault_lock:
+            self._line_n += 1
+            return self._line_n
+
+    def _acquire_state_lock(self) -> None:
+        """One daemon per state dir: a second `serve` would unlink the
+        live daemon's socket and both would rewrite queue.json from
+        diverging job tables (split-brain).  flock is kernel-released
+        on ANY process death, so a crashed daemon never wedges the
+        dir."""
+        path = os.path.join(self.config.state_dir, "serve.lock")
+        fd = os.open(path, os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            pid = b"?"
+            try:
+                pid = os.pread(fd, 32, 0).strip() or b"?"
+            except OSError:
+                pass
+            os.close(fd)
+            raise RuntimeError(
+                f"another daemon (pid {pid.decode()}) already serves "
+                f"{self.config.state_dir}; stop it first or use a "
+                "different state dir"
+            ) from None
+        os.ftruncate(fd, 0)
+        os.pwrite(fd, str(os.getpid()).encode(), 0)
+        self._lock_fd = fd
+
+    # ------------------------------------------------------- lifecycle
+
+    def prewarm(self) -> float:
+        """Warm every configured spec's checker (default cfg) on every
+        device slot: the checker built, the kernel libraries built and
+        K0 launched on the slot's card, so a submit to a warmed key
+        builds nothing.  Returns the total seconds."""
+        total = 0.0
+        specs = self.config.specs
+        if not specs:
+            from pulsar_tlaplus_tpu_torch.models import registry
+
+            specs = tuple(registry.COMPILED)
+        for spec in specs:
+            cfg_path = os.path.join(
+                self.config.spec_dir, f"{spec}.cfg"
+            )
+            if not os.path.exists(cfg_path):
+                self._log(
+                    f"prewarm: no default cfg for {spec!r} "
+                    f"({cfg_path}); skipping"
+                )
+                continue
+            try:
+                t0 = time.time()
+                compile_s = 0.0
+                for pool in self.sched.pools:
+                    _key, sec = pool.warm(spec, cfg_path)
+                    compile_s += sec
+                total += compile_s
+                self.warmed.append(spec)
+                self._log(
+                    f"prewarm: {spec} ready in {time.time() - t0:.1f}s "
+                    f"(build + K0 {compile_s:.1f}s)"
+                )
+            except Exception as e:  # noqa: BLE001 — a bad default cfg
+                #                      must not block the daemon
+                self._log(f"prewarm: {spec} FAILED ({e!r:.200})")
+        return total
+
+    def start(self) -> None:
+        try:
+            os.remove(self.config.socket_path)
+        except OSError:
+            pass
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.bind(self.config.socket_path)
+        s.listen(16)
+        s.settimeout(0.5)
+        self._sock = s
+        if self._tcp_addr is not None:
+            host, port = self._tcp_addr
+            ts = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            ts.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            ts.bind((host, port))
+            ts.listen(16)
+            ts.settimeout(0.5)
+            self._tcp_sock = ts
+            self.tcp_port = ts.getsockname()[1]
+            self._log(
+                f"TCP listener on {host}:{self.tcp_port} "
+                f"({len(self.tokens)} tenant token(s) loaded)"
+            )
+        self.tel.emit(
+            "serve",
+            action="start",
+            socket=self.config.socket_path,
+            tcp_port=self.tcp_port,
+            pid=os.getpid(),
+            warmed=list(self.warmed),
+            # wall-clock anchor for this stream's run_id: obs/trace.py
+            # aligns the daemon's monotonic t axis against per-job
+            # engine streams through it
+            wall_unix=round(time.time(), 3),
+        )
+        self.sched.start()
+        listeners = [(s, True)]
+        if self._tcp_sock is not None:
+            listeners.append((self._tcp_sock, False))
+        for sock, trusted in listeners:
+            t = threading.Thread(
+                target=self._accept_loop, args=(sock, trusted),
+                name="ptt-serve-accept", daemon=True,
+            )
+            t.start()
+            self._accept_threads.append(t)
+        self._log(f"serving on {self.config.socket_path}")
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT -> graceful shutdown (main thread only)."""
+
+        def _handle(signum, frame):
+            self._log(
+                f"{signal.Signals(signum).name} received: suspending "
+                "the active job at its next frame boundary and "
+                "persisting the queue"
+            )
+            self.request_shutdown()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _handle)
+
+    def request_shutdown(self) -> None:
+        """Signal-safe: arms the shutdown path and nudges the
+        scheduler so the running job's suspend hook fires at its next
+        level boundary."""
+        self._shutdown_evt.set()
+        self.sched._stop.set()
+        with self.sched.cv:
+            self.sched.cv.notify_all()
+
+    def wait_shutdown(self, timeout: Optional[float] = None) -> None:
+        self._shutdown_evt.wait(timeout)
+        if self._shutdown_evt.is_set():
+            self.shutdown()
+
+    def serve_forever(self, drain: bool = False) -> None:
+        """Block until shutdown is requested (signal or client
+        ``shutdown`` op).  ``drain=True`` additionally exits once the
+        queue is idle — the ``serve --recover --drain`` shape: complete
+        the persisted queue, then stop."""
+        while not self._shutdown_evt.is_set():
+            if drain and self.sched.idle():
+                self.request_shutdown()
+                break
+            self._shutdown_evt.wait(0.2)
+        self.shutdown()
+
+    def shutdown(self) -> None:
+        if self._shutdown_done.is_set():
+            return
+        self._shutdown_done.set()
+        self._shutdown_evt.set()
+        # scheduler first: the running job suspends (frame + requeue)
+        # before the queue snapshot persists
+        self.sched.stop(timeout=600.0)
+        for attr in ("_sock", "_tcp_sock"):
+            sock = getattr(self, attr)
+            if sock is not None:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+                setattr(self, attr, None)
+        try:
+            os.remove(self.config.socket_path)
+        except OSError:
+            pass
+        self.tel.emit("serve", action="stop", pid=os.getpid())
+        self.tel.close()
+        if self._lock_fd is not None:
+            try:
+                os.close(self._lock_fd)  # releases the flock
+            except OSError:
+                pass
+            self._lock_fd = None
+        self._log("shutdown complete (queue persisted)")
+
+    # ----------------------------------------------------- connection
+
+    def _accept_loop(self, sock: socket.socket, trusted: bool) -> None:
+        while not self._shutdown_evt.is_set():
+            try:
+                conn, _addr = sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # socket closed under us: shutting down
+            t = threading.Thread(
+                target=self._handle_conn, args=(conn, trusted),
+                daemon=True,
+            )
+            t.start()
+
+    def _handle_conn(
+        self, conn: socket.socket, trusted: bool = True
+    ) -> None:
+        conn.settimeout(600.0)
+        r = w = None
+        try:
+            r = conn.makefile("r", encoding="utf-8")
+            # the PTT_FAULT reply shim: drop@conn withholds this
+            # connection's whole reply (the request still PROCESSES —
+            # exactly the ack-lost shape idempotent resubmit exists
+            # for), torn@line tears the daemon's N-th sent line
+            drop = "drop" in faults.poll("conn", self._next_conn())
+            w = _FaultyWriter(
+                conn.makefile("w", encoding="utf-8"), self, drop=drop
+            )
+            try:
+                req = protocol.recv_json(r)
+            except protocol.ProtocolError as e:
+                protocol.send_json(
+                    w, protocol.error_response(str(e), code="protocol")
+                )
+                return
+            if req is None:
+                return
+            if not trusted:
+                # TCP: the bearer-token handshake.  The tenant is
+                # DERIVED from the token — a TCP client can never
+                # name its own tenant
+                tenant = authmod.authenticate(
+                    self.tokens, req.get("auth")
+                )
+                if tenant is None:
+                    self.tel.emit(
+                        "auth", action="reject", op=req.get("op"),
+                    )
+                    protocol.send_json(
+                        w,
+                        protocol.error_response(
+                            "bad or missing bearer token "
+                            "(submit with --token)",
+                            code="auth",
+                        ),
+                    )
+                    return
+                with self._fault_lock:
+                    first = tenant not in self._auth_seen
+                    self._auth_seen.add(tenant)
+                if first:
+                    self.tel.emit(
+                        "auth", action="accept", tenant=tenant
+                    )
+                req["_tenant"] = tenant
+            else:
+                req["_tenant"] = authmod.LOCAL_TENANT
+            op = req.get("op")
+            handler = getattr(self, f"_op_{op}", None)
+            if op not in protocol.OPS or handler is None:
+                protocol.send_json(
+                    w,
+                    protocol.error_response(
+                        f"unknown op {op!r} (known: {protocol.OPS})"
+                    ),
+                )
+                return
+            try:
+                handler(req, w)
+            except (BrokenPipeError, ConnectionResetError):
+                raise  # dead peer / injected fault: no error reply
+            except admmod.AdmissionError as e:
+                # typed rejection: the client maps `code` to its
+                # distinct exit code (quota=5, capacity=5, auth=4)
+                protocol.send_json(
+                    w, protocol.error_response(str(e), code=e.code)
+                )
+            except (KeyError, ValueError, TypeError, OSError) as e:
+                protocol.send_json(w, protocol.error_response(str(e)))
+        except (BrokenPipeError, ConnectionResetError):
+            pass  # client went away mid-reply: its problem, not ours
+        finally:
+            # close the makefile wrappers EXPLICITLY before the
+            # socket: conn.close() only closes the fd once every
+            # makefile's _io_refs is gone, and an injected-fault
+            # traceback can keep r/w alive in a reference cycle until
+            # a gc that a quiet process may not run for minutes — the
+            # peer would block on a reply fd that is "closed" but
+            # never FINs.  shutdown() forces the FIN either way.
+            for obj in (w, r):
+                try:
+                    if obj is not None:
+                        obj.close()
+                except OSError:
+                    pass
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    # ------------------------------------------------------- handlers
+
+    def _op_ping(self, req, w) -> None:
+        with self.sched.cv:
+            counts: dict = {}
+            for j in self.sched.jobs.values():
+                counts[j.state] = counts.get(j.state, 0) + 1
+        protocol.send_json(
+            w,
+            {
+                "ok": True,
+                "pid": os.getpid(),
+                "uptime_s": round(time.time() - self._t0, 1),
+                "warmed": list(self.warmed),
+                "jobs": counts,
+            },
+        )
+
+    def _op_submit(self, req, w) -> None:
+        mode = req.get("mode") or "check"
+        sim = req.get("sim")
+        if sim is not None and not isinstance(sim, dict):
+            raise ValueError("sim must be an object of knobs")
+        job = self.sched.submit(
+            spec=req["spec"],
+            cfg_path=req["cfg"],
+            invariants=req.get("invariants"),
+            max_states=req.get("max_states"),
+            time_budget_s=req.get("time_budget_s"),
+            mode=mode,
+            sim=sim,
+            # warm reuse opt-out: absent = opted in
+            warm=bool(req.get("warm", True)),
+            tenant=req["_tenant"],
+            priority=max(
+                protocol.PRIORITY_MIN,
+                min(
+                    protocol.PRIORITY_MAX,
+                    int(req.get("priority") or 0),
+                ),
+            ),
+            deadline_s=req.get("deadline_s"),
+            submit_id=req.get("submit_id"),
+            # trace propagation: a dispatcher's minted
+            # trace_id rides the wire so this backend's job_* events
+            # and run_headers join the fleet-wide chain; absent
+            # (standalone submit), the scheduler mints its own
+            trace_id=req.get("trace_id"),
+        )
+        protocol.send_json(
+            w,
+            {
+                "ok": True, "job_id": job.job_id, "state": job.state,
+                "tenant": job.tenant,
+                "trace_id": job.trace_id,
+                # the reuse plan, so `submit` can print it up front
+                **(
+                    {
+                        "warm_mode": job.warm_mode,
+                        "warm_reason": job.warm_reason,
+                    }
+                    if job.warm_mode is not None
+                    else {}
+                ),
+            },
+        )
+
+    def _op_status(self, req, w) -> None:
+        jid = req.get("job_id")
+        if jid:
+            job = self.sched.get(jid)
+            protocol.send_json(w, {"ok": True, "job": job.summary()})
+        else:
+            # the listing is tenant-scoped over TCP: job ids are the
+            # capability handles guarding result/cancel/watch, and a
+            # global listing would hand every tenant everyone else's.
+            # The reserved fleet tenant sees everything: this
+            # listing is the backend's authoritative job table, and
+            # `dispatch --recover` rebuilds its routing state from it
+            # — the same trust level the warm_* verbs already grant.
+            tenant = req.get("_tenant")
+            protocol.send_json(
+                w,
+                {
+                    "ok": True,
+                    "jobs": self.sched.snapshot(
+                        None
+                        if tenant
+                        in (authmod.LOCAL_TENANT, authmod.FLEET_TENANT)
+                        else tenant
+                    ),
+                },
+            )
+
+    def _op_result(self, req, w) -> None:
+        job = self.sched.get(req["job_id"])
+        if not job.terminal:
+            protocol.send_json(
+                w,
+                {"ok": True, "pending": True, "state": job.state},
+            )
+            return
+        protocol.send_json(
+            w,
+            {
+                "ok": True,
+                "state": job.state,
+                "result": job.result,
+                "error": job.error,
+            },
+        )
+
+    def _op_cancel(self, req, w) -> None:
+        job = self.sched.cancel(req["job_id"])
+        protocol.send_json(w, {"ok": True, "state": job.state})
+
+    def _op_watch(self, req, w) -> None:
+        """Relay the job's telemetry stream (per-slice run headers,
+        level progress, heartbeat, results — each under its slice's
+        run_id) until the job is terminal, then send ``done`` with the
+        summary + result."""
+        job = self.sched.get(req["job_id"])
+        timeout_s = float(req.get("timeout_s", 3600.0))
+        # a reconnecting client passes back the last `pos` it saw so
+        # the relay RESUMES instead of replaying the whole stream
+        # (the client's (run_id, seq) dedup would discard the replay,
+        # but serializing a long run's entire events.jsonl per
+        # reconnect is O(file) waste on exactly the flaky links the
+        # reconnect logic exists for)
+        pos = max(0, int(req.get("offset") or 0))
+        protocol.send_json(w, {"ok": True, "streaming": True})
+        deadline = time.monotonic() + timeout_s
+        while True:
+            # observe terminal BEFORE draining: records written between
+            # a drain and the terminal transition are caught by the
+            # next iteration's drain, which runs before we report done
+            terminal = job.terminal
+            emitted = False
+            if os.path.exists(job.events_path):
+                # binary mode: tell() is a plain byte offset, safe to
+                # hand to the client and seek() on reconnect
+                with open(job.events_path, "rb") as f:
+                    f.seek(pos)
+                    while True:
+                        line_start = f.tell()
+                        raw = f.readline()
+                        if not raw:
+                            break
+                        if not raw.endswith(b"\n"):
+                            # torn tail mid-write: re-read next poll
+                            f.seek(line_start)
+                            break
+                        pos = f.tell()
+                        line = raw.strip().decode("utf-8", "replace")
+                        if not line:
+                            continue
+                        try:
+                            rec = json.loads(line)
+                        except json.JSONDecodeError:
+                            continue
+                        protocol.send_json(
+                            w, {"event": rec, "pos": pos}
+                        )
+                        emitted = True
+            if terminal:
+                # one final drain already happened above; report
+                protocol.send_json(
+                    w,
+                    {
+                        "done": {
+                            **job.summary(),
+                            "result": job.result,
+                            "error": job.error,
+                        }
+                    },
+                )
+                return
+            if time.monotonic() >= deadline:
+                protocol.send_json(
+                    w,
+                    protocol.error_response(
+                        f"watch timed out after {timeout_s}s "
+                        f"(job {job.job_id} still {job.state})"
+                    ),
+                )
+                return
+            if not emitted:
+                time.sleep(WATCH_POLL_S)
+
+    def _op_metrics(self, req, w) -> None:
+        """Prometheus text exposition of live daemon + engine state —
+        rendered from the scheduler's job table, the pooled checkers'
+        ``last_stats``, and the active run's heartbeat snapshot.  All
+        host-side dicts: a scrape adds ZERO device stats fetches
+        (asserted on the card by chip_smoke.py)."""
+        from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+
+        text = metrics_mod.render_exposition(
+            metrics_mod.scheduler_metrics(
+                self.sched,
+                uptime_s=time.time() - self._t0,
+                warmed=self.warmed,
+            )
+        )
+        protocol.send_json(w, {"ok": True, "metrics": text})
+
+    # ------------------------------------------- fleet replication
+
+    def _fleet_refusal(self, req, w) -> None:
+        protocol.send_json(
+            w,
+            protocol.error_response(
+                f"{req.get('op')}: the fleet's artifact replication is "
+                "not ported yet (ROADMAP A15e)"
+            ),
+        )
+
+    _op_warm_list = _fleet_refusal
+    _op_warm_offer = _fleet_refusal
+    _op_warm_pull = _fleet_refusal
+    _op_warm_push = _fleet_refusal
+
+    def _op_shutdown(self, req, w) -> None:
+        if req.get("_tenant") != authmod.LOCAL_TENANT:
+            # daemon termination is an OPERATOR action: localhost
+            # (unix socket) only — a tenant token must not be able to
+            # stop every other tenant's jobs
+            protocol.send_json(
+                w,
+                protocol.error_response(
+                    "shutdown is localhost-only (connect via the "
+                    "unix socket)",
+                    code="auth",
+                ),
+            )
+            return
+        protocol.send_json(w, {"ok": True, "stopping": True})
+        # reply first, then arm: the main thread (wait_shutdown) or
+        # the caller of shutdown() performs the actual stop
+        self.request_shutdown()

@@ -51,12 +51,15 @@ workload; the counterpart of ``pulsar_tlaplus_tpu/sim/engine.py``
   simulate`` writes it).  A different width or segment is a different
   deterministic walk stream, so profiles resolve by config signature.
 
-Telemetry is ported (``telemetry``, ``heartbeat_s``); the daemon's sim
-jobs are not.
+Telemetry is ported (``telemetry``, ``heartbeat_s``).  The daemon's sim
+jobs (``service/scheduler.py``) time-slice through ``suspend_hook``,
+polled before every segment after the preemption watcher: ``"suspended"``
+writes a frame and stops resumably, ``"cancelled"`` stops without one.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -156,6 +159,7 @@ class StreamingSimulator:
         telemetry=None,
         heartbeat_s: Optional[float] = None,
         profile="auto",
+        suspend_hook=None,
     ):
         self.model = model
         if invariants is None:
@@ -215,6 +219,11 @@ class StreamingSimulator:
                 "must provide sample_initial(u) for simulation mode"
             )
         self.last_stats: Dict[str, object] = {}
+        # the daemon's per-slice hook and run-header identity
+        self.suspend_hook = suspend_hook
+        self.tenant: Optional[str] = None
+        self.trace_id: Optional[str] = None
+        self.warm: Optional[str] = None
         self._telemetry_arg = telemetry
         self.heartbeat_s = heartbeat_s
         self.tel = obs.NULL
@@ -357,6 +366,9 @@ class StreamingSimulator:
             segment_len=self.L,
             seed=self.seed,
             invariants=list(self.invariant_names),
+            tenant=self.tenant,
+            trace_id=self.trace_id,
+            warm=self.warm,
         )
 
     def _emit_sim_event(self, cum, epoch: int, wall: float) -> None:
@@ -422,6 +434,11 @@ class StreamingSimulator:
                 if watcher.requested:
                     stop_reason = "preempted"
                     break
+                if self.suspend_hook is not None:
+                    why = self.suspend_hook()
+                    if why in ("cancelled", "suspended"):
+                        stop_reason = why
+                        break
                 if (self.max_steps is not None
                         and cum["steps"] >= self.max_steps):
                     stop_reason = "step_budget"
@@ -461,13 +478,14 @@ class StreamingSimulator:
                         and cum["segments"] % self.checkpoint_every == 0):
                     self._save_frame(states, table, epoch, cum, digest,
                                      time.time() - t0)
-        if stop_reason == "preempted" and states is not None:
+        if stop_reason in ("preempted", "suspended") and states is not None:
             self._save_frame(states, table, epoch, cum, digest,
                              time.time() - t0)
-            self._log(f"simulation preempted at epoch {epoch} "
+            self._log(f"simulation {stop_reason} at epoch {epoch} "
                       f"({cum['steps']} steps banked)")
         res = self._mk_result(cum, epoch, t0, stop_reason)
-        res.truncated = stop_reason == "preempted"
+        res.truncated = stop_reason in ("preempted", "suspended",
+                                        "cancelled")
         self.last_stats["sim_walk_digest"] = digest
         if self.checkpoint_path:
             self.last_stats["ckpt_frames"] = self._frames
@@ -487,6 +505,15 @@ class StreamingSimulator:
             stats=dict(self.last_stats),
         )
         return res
+
+    def _free_buffers(self) -> None:
+        """Drop the device tensors the simulator keeps between runs and
+        PyTorch's cache of the freed blocks (the daemon calls this after
+        every slice: a suspended job's state is its frame on disk)."""
+        self._widx = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # ----------------------------------------------------- checkpoints
 

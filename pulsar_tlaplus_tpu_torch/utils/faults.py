@@ -15,6 +15,15 @@ the engines advance:
     PTT_FAULT=enospc@spill:1        spill write 1 fails with ENOSPC
     PTT_FAULT=kill@sweep:3          the liveness sweep's chunk 3
     PTT_FAULT=kill@segment:2        the simulator's segment epoch 2
+    PTT_FAULT=drop@conn:3           the daemon withholds connection 3's reply
+    PTT_FAULT=torn@line:5           the daemon writes half of protocol
+                                    line 5, then closes
+    PTT_FAULT=enospc@persist:2      queue.json snapshot 2 fails with ENOSPC
+    PTT_FAULT=corrupt@warm:1        warm-artifact verification 1 computes
+                                    a corrupted digest (cold fallback)
+    PTT_FAULT=torn@warmwrite:2      warm-artifact write 2 publishes half
+                                    a manifest (kill@warmwrite: dies
+                                    between frame and manifest)
     PTT_FAULT=oom@level:7,kill@level:9   comma-separated specs compose
 
 Syntax ``kind@site:count``.  The sites the port's engines advance:
@@ -22,9 +31,13 @@ Syntax ``kind@site:count``.  The sites the port's engines advance:
 states), ``flush`` (the flush sequence number), ``frame`` (the checkpoint
 frame sequence number), ``spill`` (the tiered store's spill-write
 sequence), ``sweep`` (the liveness sweep's chunk) and ``segment`` (the
-simulator's segment epoch).  The parser accepts every kind of the JAX
-package (its service and fleet kinds too: the same string parses to the
-same schedule), but nothing in the port fires those.  Each spec fires at
+simulator's segment epoch).  The daemon (``service/``) and the warm store
+(``warm/store.py``) advance ``conn`` (accepted connections), ``line``
+(protocol lines sent), ``persist`` (queue.json snapshots), ``warm``
+(artifact verifications) and ``warmwrite`` (artifact writes).  The parser
+accepts every kind of the JAX package (its fleet kinds too: the same
+string parses to the same schedule); the fleet's ``partition``, ``slow``
+and ``flap`` wait for the dispatcher (ROADMAP A15e).  Each spec fires at
 most once per process, so a run that recovers from an injected fault and
 re-runs the same level is not injected again.
 
@@ -107,6 +120,11 @@ def specs() -> List[Tuple[str, str, int]]:
     _cache_specs = out
     _fired.clear()
     return out
+
+
+def active() -> bool:
+    """Whether any fault is armed (one environment read)."""
+    return bool(os.environ.get("PTT_FAULT"))
 
 
 def poll(site: str, count: int) -> Tuple[str, ...]:

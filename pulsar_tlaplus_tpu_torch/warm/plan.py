@@ -1,0 +1,399 @@
+"""The reuse planner: signature algebra and the three warm modes — the
+port's copy of ``pulsar_tlaplus_tpu/warm/plan.py``.
+
+Every incoming ``check`` submit is diffed against the warm store:
+
+- **continue** — the engine config signature matches an artifact
+  exactly (module digest, constant bindings, invariant set, key
+  geometry, visited impl, engine frame revision: the engine's
+  ``_config_sig`` is the key).  The artifact's frame resumes at the
+  (possibly widened) state or time budget, state for state equal to an
+  uninterrupted run (the frames' resume contract).
+- **reseed** — same module, invariants and engine config, and the
+  bindings differ ONLY by widening declared-monotone axes
+  (``models/registry.MONOTONE_AXES``) with the packed layout
+  bit-identical.  The old states stay visited (the frame's rows reload
+  through the seed path: K2, then K1 + H1) and the run re-expands the
+  stored frontier plus every level from the first axis-saturated state
+  on — the only states that can gain successors under the widening.
+- **cold** — anything else: module edit, invariant change, non-widening
+  binding change, narrowing, a layout step, an init-set change, digest
+  mismatch, torn artifact, version skew, a budget below the artifact's
+  state count — and any artifact not written by this package (no
+  ``port`` tag, or a config signature of the JAX engine), which plans
+  cold with ``engine_config``.  Always a full recheck, never a wrong
+  verdict, with the machine-readable reason on the ``warm`` telemetry
+  event, the job record and ``ptt_warm_cold_total{reason}``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from pulsar_tlaplus_tpu_torch.models import registry
+from pulsar_tlaplus_tpu_torch.warm.store import PORT_TAG
+
+# cold reasons (the `reason` label on warm events and metrics)
+REASON_OPT_OUT = "opt_out"  # submit --no-warm
+REASON_NO_ARTIFACT = "no_artifact"
+REASON_SIM_MODE = "sim_mode"
+REASON_MODULE_EDIT = "module_edit"
+REASON_INVARIANT_CHANGE = "invariant_change"
+REASON_ENGINE_CONFIG = "engine_config"
+REASON_BINDING_CHANGE = "binding_change"
+REASON_NARROWED = "narrowed"
+REASON_LAYOUT_CHANGE = "layout_change"
+REASON_INIT_CHANGE = "init_change"
+REASON_BUDGET = "budget_too_small"
+REASON_ROWS = "rows_unavailable"
+REASON_DIGEST = "digest_mismatch"
+REASON_TORN = "torn_artifact"
+REASON_INSTALL = "install_failed"
+REASON_PLAN_ERROR = "plan_error"
+
+
+@dataclass
+class WarmPlan:
+    mode: str  # "continue" | "reseed" | "cold"
+    reason: str
+    artifact: Optional[str] = None  # artifact dir (continue/reseed)
+    manifest: Optional[dict] = None
+    # axis -> (old_value, new_value) for reseed
+    widened: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+
+
+# ------------------------------------------------------------ signatures
+
+
+def is_port_artifact(man: dict) -> bool:
+    """Whether a manifest was written by this package: its ``port`` tag,
+    and a config signature of the port's engines (theirs name a
+    ``*_torch_*`` engine revision; the JAX engines' never do)."""
+    return (man.get("port") == PORT_TAG
+            and "_torch_" in str(man.get("config_sig") or ""))
+
+
+def canon_bindings(constants: Dict[str, object]) -> Dict[str, str]:
+    """Canonical (order/representation-stable) binding map: set-valued
+    constants sort before repr so two loads of the same .cfg always
+    agree byte-for-byte."""
+    out: Dict[str, str] = {}
+    for k, v in constants.items():
+        if isinstance(v, (set, frozenset)):
+            v = sorted(v, key=repr)
+        out[str(k)] = repr(v)
+    return out
+
+
+def layout_sig(model) -> str:
+    """Bit-identity of the packed-state layout: every (field, elems,
+    width) triple in pack order.  Two models with equal layout sigs
+    produce byte-identical packings for semantically equal states —
+    the precondition for reusing fingerprint planes across a constant
+    widening."""
+    layout = getattr(model, "layout", None)
+    codec = getattr(layout, "_codec", None)
+    if codec is not None:
+        return repr(
+            [(f[0], int(f[1]), int(f[2])) for f in codec.fields]
+        )
+    return repr(
+        (
+            "total_bits", getattr(layout, "total_bits", None),
+            "W", getattr(layout, "W", None),
+        )
+    )
+
+
+def axis_values(
+    spec: str, constants: Dict[str, object]
+) -> Dict[str, int]:
+    """The declared-monotone axes' integer values out of a binding
+    (axes bound to non-ints are simply not eligible)."""
+    out: Dict[str, int] = {}
+    for a in registry.MONOTONE_AXES.get(spec, ()):
+        v = constants.get(a.constant)
+        if isinstance(v, bool) or not isinstance(v, int):
+            continue
+        out[a.constant] = int(v)
+    return out
+
+
+def manifest_for(
+    spec: str,
+    constants: Dict[str, object],
+    invariants,
+    ck,
+    result: Dict[str, object],
+) -> Dict[str, object]:
+    """The semantic-signature manifest for a finished run on checker
+    ``ck`` — everything the planner diffs, plus the run's counters."""
+    model = ck.model
+    man: Dict[str, object] = {
+        "spec": spec,
+        "config_sig": ck._config_sig(),
+        "module_digest": registry.module_digest(spec),
+        "bindings": canon_bindings(constants),
+        "axis_values": axis_values(spec, constants),
+        "invariants": list(invariants),
+        "layout_sig": layout_sig(model),
+        "state_bits": int(model.layout.total_bits),
+        "n_initial": int(model.n_initial),
+        "visited_impl": ck.visited_impl,
+        "rows_window": ck.rows_window,
+        "check_deadlock": bool(ck.check_deadlock),
+        "tiered": bool(ck.tiered),
+        # the reseed path needs the FULL row store in the frame:
+        # windowed or tiered frames hold only a device window
+        "rows_all": ck.rows_window == "all" and not ck.tiered,
+    }
+    man.update(result)
+    return man
+
+
+# ------------------------------------------------------------- planning
+
+
+def _reseed_compat(
+    spec: str,
+    man: dict,
+    bindings: Dict[str, str],
+    axis_vals: Dict[str, int],
+    invariants,
+    module_digest: str,
+    lsig: str,
+    n_initial: int,
+    max_states: int,
+    check_deadlock: bool,
+) -> Tuple[Optional[str], Dict[str, Tuple[int, int]]]:
+    """(cold-reason | None, widened axes) for one candidate artifact.
+    None means the candidate is reseed-eligible."""
+    if not is_port_artifact(man):
+        return REASON_ENGINE_CONFIG, {}
+    if man.get("module_digest") != module_digest:
+        return REASON_MODULE_EDIT, {}
+    if bool(man.get("check_deadlock", True)) != bool(check_deadlock):
+        return REASON_ENGINE_CONFIG, {}
+    if list(man.get("invariants") or []) != list(invariants):
+        return REASON_INVARIANT_CHANGE, {}
+    old = man.get("bindings") or {}
+    axes = {a.constant: a for a in registry.MONOTONE_AXES.get(spec, ())}
+    diffs = [
+        k for k in sorted(set(old) | set(bindings))
+        if old.get(k) != bindings.get(k)
+    ]
+    if not diffs:
+        # identical bindings but a different config_sig: the engine
+        # config (visited impl, key geometry, frame revision) moved
+        return REASON_ENGINE_CONFIG, {}
+    non_axis = [k for k in diffs if k not in axes]
+    if non_axis:
+        return REASON_BINDING_CHANGE, {}
+    old_axis = man.get("axis_values") or {}
+    widened: Dict[str, Tuple[int, int]] = {}
+    for k in diffs:
+        ov, nv = old_axis.get(k), axis_vals.get(k)
+        if not isinstance(ov, int) or not isinstance(nv, int):
+            return REASON_BINDING_CHANGE, {}
+        if nv < ov:
+            return REASON_NARROWED, {}
+        widened[k] = (ov, nv)
+    if man.get("layout_sig") != lsig:
+        # the widening stepped a bitlen(): old packings are not valid
+        # encodings under the new layout — fingerprints unusable
+        return REASON_LAYOUT_CHANGE, {}
+    if man.get("n_initial") != n_initial:
+        return REASON_INIT_CHANGE, {}
+    if man.get("visited_impl") != "fpset" or not man.get("rows_all"):
+        return REASON_ROWS, {}
+    if int(man.get("distinct_states") or 0) > max_states:
+        return REASON_BUDGET, {}
+    return None, widened
+
+
+def plan(
+    store,
+    *,
+    spec: str,
+    constants: Dict[str, object],
+    invariants,
+    config_sig: str,
+    module_digest: str,
+    lsig: str,
+    n_initial: int,
+    max_states: int,
+    check_deadlock: bool = True,
+    enabled: bool = True,
+) -> WarmPlan:
+    """Pick the reuse mode for one incoming submit.  Digest
+    verification is deferred to INSTALL time (the scheduler's first
+    slice) — a plan is an intention, and an artifact that fails its
+    verify there demotes to cold with the verify's reason."""
+    if store is None:
+        return WarmPlan("cold", REASON_NO_ARTIFACT)
+    if not enabled:
+        return WarmPlan("cold", REASON_OPT_OUT)
+    adir = store.lookup(config_sig)
+    if adir is not None:
+        try:
+            man = store.load_manifest(adir)
+        except ValueError:
+            return WarmPlan("cold", REASON_TORN)
+        if not is_port_artifact(man):
+            return WarmPlan("cold", REASON_ENGINE_CONFIG, adir, man)
+        if man.get("module_digest") != module_digest:
+            # the engine config signature identifies the model by
+            # NAME + bindings + lane structure, not by source — an
+            # edited action guard keeps the sig.  The SOURCE digest
+            # is what enforces "a module edit is never warm-started"
+            return WarmPlan("cold", REASON_MODULE_EDIT, adir, man)
+        if int(man.get("distinct_states") or 0) > max_states:
+            return WarmPlan("cold", REASON_BUDGET, adir, man)
+        return WarmPlan("continue", "sig_match", adir, man)
+    bindings = canon_bindings(constants)
+    axis_vals = axis_values(spec, constants)
+    cands = [
+        (d, m) for d, m in store.manifests() if m.get("spec") == spec
+    ]
+    if not cands:
+        return WarmPlan("cold", REASON_NO_ARTIFACT)
+    cands.sort(
+        key=lambda dm: dm[1].get("created_unix") or 0, reverse=True
+    )
+    first_reason: Optional[str] = None
+    for adir, man in cands:
+        reason, widened = _reseed_compat(
+            spec, man, bindings, axis_vals, invariants,
+            module_digest, lsig, n_initial, max_states,
+            check_deadlock,
+        )
+        if reason is None:
+            store.touch(adir)
+            return WarmPlan(
+                "reseed",
+                "widened:" + ",".join(sorted(widened)),
+                adir, man, widened,
+            )
+        if first_reason is None:
+            first_reason = reason
+    return WarmPlan("cold", first_reason or REASON_NO_ARTIFACT)
+
+
+# ---------------------------------------------------------- reseed seed
+
+
+def extract_field(layout, rows: np.ndarray, name: str) -> np.ndarray:
+    """Host-side unpack of ONE field from packed rows ``[n, W]``
+    (uint32) via the port layout codec's static tables
+    (``ops/packing._FieldCodec``) — no device work.  Returns
+    ``[n, n_elems]`` int64."""
+    codec = getattr(layout, "_codec", None)
+    if codec is None:
+        raise ValueError("layout exposes no field codec")
+    for fname, n_el, width, widx, shift, spill, shr in codec.fields:
+        if fname == name:
+            break
+    else:
+        raise ValueError(f"layout has no field {name!r}")
+    n = rows.shape[0]
+    if width == 0 or n_el == 0:
+        return np.zeros((n, max(n_el, 1)), np.int64)
+    ext = np.concatenate(
+        [rows.astype(np.uint32), np.zeros((n, 1), np.uint32)], axis=1
+    )
+    mask = np.int64((1 << width) - 1)
+    lo = ext[:, widx].astype(np.int64) >> shift.astype(np.int64)
+    if spill.any():
+        hi = np.where(
+            spill, ext[:, widx + 1].astype(np.int64) << shr.astype(
+                np.int64
+            ), 0,
+        )
+        lo = lo | hi
+    return (lo & mask).astype(np.int64)
+
+
+def build_reseed_seed(
+    adir: str,
+    man: dict,
+    model,
+    widened: Dict[str, Tuple[int, int]],
+) -> Tuple[tuple, Dict[str, int]]:
+    """Construct the engine seed for a reseed run from a VERIFIED
+    artifact: all stored states (rows + parent/lane logs) in gid
+    order, with the trailing levels from the REPLAY POINT on merged
+    into one frontier level the engine re-expands under the new
+    model.
+
+    The replay point is the earliest of (a) the stored frontier
+    (states the old run never expanded — including any partially
+    appended next level) and (b) the first state SATURATED on any
+    widened axis (counter >= the old bound — the only states whose
+    enabled-action set can grow under the widening), aligned DOWN to
+    a level boundary; at least the final stored level always
+    replays.  Re-expanding an already-expanded state is sound (its
+    successors dedup against the reloaded fingerprint set), so the
+    alignment only costs work, never coverage.
+
+    The frame is the port engine's (``engine/device_bfs._frame_arrays``):
+    ``rows`` holds gids ``[rows_lo, n_visited)`` flat, ``parent``/``lane``
+    the logs, ``lb`` the frontier's first gid, ``level_sizes`` the
+    levels; a windowed frame (``rows_lo`` > 0) is refused."""
+    import os
+
+    d = np.load(os.path.join(adir, "frame.npz"))
+    sig = man.get("config_sig")
+    frame_sig = d["sig"].tobytes().decode()
+    if sig != frame_sig:
+        raise ValueError(
+            "artifact frame signature disagrees with its manifest"
+        )
+    nv = int(d["n_visited"])
+    level_sizes = [int(x) for x in d["level_sizes"]]
+    lb = int(d["lb"])
+    lo = int(d["rows_lo"])
+    if lo != 0:
+        raise ValueError("artifact rows are windowed — not reseedable")
+    W = int(model.layout.W)
+    rows = np.asarray(d["rows"], np.uint32)[: nv * W].reshape(nv, W)
+    parent = np.asarray(d["parent"], np.int32)[:nv]
+    lane = np.asarray(d["lane"], np.int32)[:nv]
+    replay_lo = min(lb, nv)
+    axes = {
+        a.constant: a
+        for a in registry.MONOTONE_AXES.get(man.get("spec"), ())
+    }
+    for const, (old_val, _new_val) in sorted(widened.items()):
+        axis = axes.get(const)
+        if axis is None:
+            raise ValueError(f"widened axis {const!r} is not declared")
+        vals = extract_field(model.layout, rows, axis.field)
+        per_state = (
+            vals.sum(axis=1) if axis.kind == "popcount" else vals[:, 0]
+        )
+        sat = np.flatnonzero(per_state >= old_val)
+        if len(sat):
+            replay_lo = min(replay_lo, int(sat[0]))
+    # align down to a level start; always replay >= the last level
+    cum = 0
+    keep = 0
+    for i, c in enumerate(level_sizes):
+        if cum + c > replay_lo:
+            break
+        cum += c
+        keep = i + 1
+    if keep >= len(level_sizes) and level_sizes:
+        keep = len(level_sizes) - 1
+        cum = sum(level_sizes[:keep])
+    merged: List[int] = list(level_sizes[:keep]) + [nv - cum]
+    seed = (rows, parent, lane, merged)
+    info = {
+        "states": nv,
+        "reused_rows": int(cum),
+        "replay_rows": int(nv - cum),
+        "levels_reused": int(keep),
+    }
+    return seed, info

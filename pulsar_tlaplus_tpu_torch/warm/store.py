@@ -1,0 +1,584 @@
+"""Warm-artifact store: one digest-verified artifact per config-sig —
+the port's copy of ``pulsar_tlaplus_tpu/warm/store.py``.
+
+Layout under the store root (``<state_dir>/warm/``)::
+
+    <sha1(config_sig)[:16]>/
+        frame.npz            the engine's frame (visited table, rows,
+                             parent/lane logs, level cursor —
+                             ``utils/ckpt.py`` format)
+        frame.npz.spill/     the tiered store's cold runs, when the
+                             producing run spilled
+        manifest.json        the binding manifest: semantic signature
+                             (module digest, constant bindings,
+                             invariant set, engine config), per-file
+                             SHA-256 digests, the run's counters and the
+                             port tag
+    quarantine/              unverifiable artifacts moved aside by the
+                             startup sweep (kept, never reused)
+
+Every manifest this package writes carries ``port: "torch"``
+(:data:`PORT_TAG`); the planner (``warm/plan.py``) never continues or
+reseeds from an artifact without it, so a JAX-package artifact is never
+used here (its frame layout and module digest are the JAX package's).
+
+Robustness discipline:
+
+- every file is written to a per-writer-unique tmp and ``os.replace``d:
+  a crash mid-write never tears a published file;
+- the manifest is written LAST, after every byte it digests is durable,
+  so "manifest present and digest-clean" means the whole artifact is
+  usable; a kill between frame and manifest leaves a manifest-less dir
+  the sweep quarantines;
+- **every** read path re-verifies the SHA-256 digests before any byte is
+  trusted (``PTT_FAULT=corrupt@warm:N`` flips the N-th verification's
+  computed digest; ``torn@warmwrite:N`` / ``kill@warmwrite:N`` fire
+  inside the N-th artifact write);
+- the store is LRU-capped by bytes (``serve --warm-max-bytes``): loads
+  touch the manifest mtime, saves evict the oldest-touched entries past
+  the cap — an artifact larger than the cap is evicted at once.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import fcntl
+import hashlib
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from pulsar_tlaplus_tpu_torch.utils import faults
+
+WARM_VERSION = 1
+# the package tag every manifest of this package carries (``port``): the
+# planner plans cold on a manifest without it
+PORT_TAG = "torch"
+MANIFEST = "manifest.json"
+FRAME = "frame.npz"
+
+# manifest fields every artifact must carry (the validator and every
+# read path check these before anything else is trusted)
+REQUIRED_FIELDS = (
+    "warm_v", "spec", "config_sig", "module_digest", "bindings",
+    "invariants", "files", "distinct_states", "levels", "truncated",
+)
+
+DEFAULT_MAX_BYTES = 1 << 30  # 1 GiB
+
+
+def sig_key(config_sig: str) -> str:
+    """Directory name for a config signature (stable, path-safe)."""
+    return hashlib.sha1(config_sig.encode()).hexdigest()[:16]
+
+
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _copy_atomic(src: str, dst: str) -> int:
+    """Copy ``src`` to ``dst`` through a per-writer-unique tmp +
+    ``os.replace``; returns the byte count."""
+    tmp = f"{dst}.tmp.{os.getpid()}.{threading.get_ident()}"
+    try:
+        shutil.copyfile(src, tmp)
+        n = os.path.getsize(tmp)
+        os.replace(tmp, dst)
+        return n
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+
+
+class WarmStore:
+    """Artifact persistence + verification + LRU cap for one daemon
+    state dir.  Thread-safe for the daemon's scheduler/handler mix."""
+
+    def __init__(
+        self,
+        root: str,
+        max_bytes: int = DEFAULT_MAX_BYTES,
+        log=None,
+    ):
+        self.root = root
+        self.max_bytes = int(max_bytes)
+        self._log = log or (lambda msg: None)
+        self._lock = threading.RLock()
+        self._write_n = 0  # warmwrite fault-site counter
+        self._verify_n = 0  # warm fault-site counter
+        os.makedirs(root, exist_ok=True)
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """Store-wide writer mutex.  The warm dir has several writers (a
+        harvest after a run, the LRU cap, an installed artifact), and two
+        saves for one sig must not interleave one writer's frame with the
+        other's manifest.  The thread lock serializes this process; the
+        flock on ``<root>/.lock`` serializes processes and is released by
+        the kernel on any death, so a crashed writer never wedges the
+        store."""
+        with self._lock:
+            fd = os.open(
+                os.path.join(self.root, ".lock"),
+                os.O_CREAT | os.O_RDWR,
+                0o644,
+            )
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX)
+                yield
+            finally:
+                try:
+                    fcntl.flock(fd, fcntl.LOCK_UN)
+                except OSError:
+                    pass
+                os.close(fd)
+
+    # ------------------------------------------------------------ paths
+
+    def dir_for(self, config_sig: str) -> str:
+        return os.path.join(self.root, sig_key(config_sig))
+
+    @property
+    def quarantine_dir(self) -> str:
+        return os.path.join(self.root, "quarantine")
+
+    def _entries(self) -> List[str]:
+        try:
+            names = sorted(os.listdir(self.root))
+        except OSError:
+            return []
+        return [
+            os.path.join(self.root, n)
+            for n in names
+            if n != "quarantine"
+            and not n.startswith(".")  # .lock / .stage.* writer tmp
+            and os.path.isdir(os.path.join(self.root, n))
+        ]
+
+    # ------------------------------------------------------------- save
+
+    def save(
+        self, frame_path: str, manifest: Dict[str, object]
+    ) -> Optional[str]:
+        """Persist ``frame_path`` (plus its ``.spill/`` dir when
+        present) as the artifact for ``manifest["config_sig"]``,
+        replacing any previous artifact for that signature.  The
+        manifest gains ``warm_v``, per-file SHA-256 ``files``, byte
+        counts, and a creation stamp, and is written LAST.  Returns
+        the artifact dir, or None when the save failed (a warm-layer
+        failure must never fail the job that produced the run —
+        callers log and move on).
+
+        Fault sites: the ``warmwrite`` counter advances once per save;
+        ``kill@warmwrite:N`` dies mid-write (between frame and
+        manifest — the sweep-quarantine drill), ``torn@warmwrite:N``
+        publishes a half-written manifest (the digest-verification
+        drill)."""
+        sig = str(manifest["config_sig"])
+        adir = self.dir_for(sig)
+        with self._lock:
+            self._write_n += 1
+            n = self._write_n
+        try:
+            with self._locked():
+                return self._save_locked(
+                    frame_path, manifest, sig, adir, n
+                )
+        except OSError as e:
+            self._log(
+                f"warm: artifact save FAILED for {sig_key(sig)} "
+                f"({e!r:.120}); the run's result is unaffected"
+            )
+            return None
+
+    def _save_locked(
+        self, frame_path: str, manifest, sig: str, adir: str, n: int
+    ) -> str:
+        os.makedirs(adir, exist_ok=True)
+        files: Dict[str, Dict[str, object]] = {}
+        nbytes = _copy_atomic(
+            frame_path, os.path.join(adir, FRAME)
+        )
+        files[FRAME] = {
+            "sha256": file_sha256(os.path.join(adir, FRAME)),
+            "bytes": nbytes,
+        }
+        spill_src = f"{frame_path}.spill"
+        spill_dst = os.path.join(adir, f"{FRAME}.spill")
+        if os.path.isdir(spill_src):
+            os.makedirs(spill_dst, exist_ok=True)
+            for name in sorted(os.listdir(spill_src)):
+                src = os.path.join(spill_src, name)
+                if not os.path.isfile(src):
+                    continue
+                rel = f"{FRAME}.spill/{name}"
+                files[rel] = {
+                    "sha256": file_sha256(src),
+                    "bytes": _copy_atomic(
+                        src, os.path.join(spill_dst, name)
+                    ),
+                }
+        elif os.path.isdir(spill_dst):
+            # the previous artifact for this sig spilled, this run
+            # did not: stale cold runs must not survive under the
+            # new manifest
+            shutil.rmtree(spill_dst, ignore_errors=True)
+        man = dict(manifest)
+        man["warm_v"] = WARM_VERSION
+        man["port"] = PORT_TAG
+        man["files"] = files
+        man["bytes"] = sum(int(f["bytes"]) for f in files.values())
+        man["created_unix"] = round(time.time(), 3)
+        mpath = os.path.join(adir, MANIFEST)
+        blob = json.dumps(man, sort_keys=True)
+        # the fault site sits BETWEEN the frame write and the
+        # manifest publish: kill here is the mid-warm-write drill
+        # (manifest-less dir -> sweep quarantine), torn publishes
+        # half a manifest (digest/parse failure -> quarantine)
+        kinds = faults.poll("warmwrite", n)
+        if "torn" in kinds:
+            with open(mpath, "w") as f:
+                f.write(blob[: max(1, len(blob) // 2)])
+            raise OSError(
+                f"injected fault torn@warmwrite:{n} (PTT_FAULT)"
+            )
+        tmp = f"{mpath}.tmp.{os.getpid()}.{threading.get_ident()}"
+        try:
+            with open(tmp, "w") as f:
+                f.write(blob)
+            os.replace(tmp, mpath)
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        self._enforce_cap_locked()
+        return adir
+
+    # ---------------------------------------------------------- install
+
+    def install(
+        self,
+        manifest: Dict[str, object],
+        blobs: Dict[str, bytes],
+        reuse_from: Optional[str] = None,
+    ) -> Tuple[Optional[str], str]:
+        """Install a replicated artifact (the fleet tier's push, ROADMAP
+        A15e): ``manifest`` is the owning
+        daemon's published manifest verbatim (its ``files`` digests
+        are the contract), ``blobs`` maps the rels the sieve shipped
+        to their decoded bytes, and rels listed in the manifest but
+        absent from ``blobs`` are reused from ``reuse_from`` (this
+        store's existing artifact for the same sig — the "peer
+        already holds these" half of the handshake).  The artifact is
+        staged fully, digest-verified byte-for-byte against the
+        manifest BEFORE publication, then swapped in atomically under
+        the store lock.  Returns ``(adir, "ok")`` or
+        ``(None, reason)`` — a bad push never replaces a good
+        artifact."""
+        try:
+            files = manifest["files"]
+            sig = str(manifest["config_sig"])
+        except (KeyError, TypeError):
+            return None, "bad_manifest: missing files/config_sig"
+        if not isinstance(files, dict) or FRAME not in files:
+            return None, "bad_manifest: manifest lists no frame"
+        if manifest.get("port") != PORT_TAG:
+            return None, "bad_manifest: not an artifact of this package"
+        adir = self.dir_for(sig)
+        stage = os.path.join(
+            self.root,
+            f".stage.{os.getpid()}.{threading.get_ident()}."
+            f"{sig_key(sig)}",
+        )
+        try:
+            shutil.rmtree(stage, ignore_errors=True)
+            os.makedirs(stage)
+            for rel, meta in sorted(files.items()):
+                # rels come off the wire: confine them to the stage
+                dst = os.path.join(stage, rel)
+                if not os.path.realpath(dst).startswith(
+                    os.path.realpath(stage) + os.sep
+                ):
+                    return None, f"bad_manifest: unsafe rel {rel!r}"
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                if rel in blobs:
+                    with open(dst, "wb") as f:
+                        f.write(blobs[rel])
+                elif reuse_from:
+                    src = os.path.join(reuse_from, rel)
+                    if not os.path.isfile(src):
+                        return None, f"missing_blob: {rel}"
+                    shutil.copyfile(src, dst)
+                else:
+                    return None, f"missing_blob: {rel}"
+                got = file_sha256(dst)
+                if got != meta.get("sha256"):
+                    return None, f"digest_mismatch: {rel}"
+                if os.path.getsize(dst) != meta.get("bytes"):
+                    return None, f"byte_mismatch: {rel}"
+            mpath = os.path.join(stage, MANIFEST)
+            tmp = f"{mpath}.tmp.{os.getpid()}.{threading.get_ident()}"
+            with open(tmp, "w") as f:
+                f.write(json.dumps(manifest, sort_keys=True))
+            os.replace(tmp, mpath)
+            with self._locked():
+                shutil.rmtree(adir, ignore_errors=True)
+                os.replace(stage, adir)
+                self._enforce_cap_locked()
+            return adir, "ok"
+        except OSError as e:
+            return None, f"install_failed: {e!r:.120}"
+        finally:
+            shutil.rmtree(stage, ignore_errors=True)
+
+    # ------------------------------------------------------------- read
+
+    def load_manifest(self, adir: str) -> Dict[str, object]:
+        """Parse + shape-check one artifact manifest; raises
+        ``ValueError`` on anything unusable (torn JSON, missing
+        fields, version skew)."""
+        mpath = os.path.join(adir, MANIFEST)
+        try:
+            with open(mpath) as f:
+                man = json.load(f)
+        except FileNotFoundError:
+            raise ValueError("no manifest (torn or mid-write artifact)")
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(f"unreadable manifest ({e})")
+        if not isinstance(man, dict):
+            raise ValueError("manifest is not a JSON object")
+        missing = [k for k in REQUIRED_FIELDS if k not in man]
+        if missing:
+            raise ValueError(f"manifest missing fields {missing}")
+        v = man.get("warm_v")
+        if not isinstance(v, int) or v < 1:
+            raise ValueError(f"bad warm_v {v!r}")
+        if v > WARM_VERSION:
+            raise ValueError(
+                f"artifact version v{v} is newer than this build "
+                f"supports (v{WARM_VERSION})"
+            )
+        return man
+
+    def verify(self, adir: str) -> Tuple[bool, str]:
+        """Re-verify every digest the manifest claims; returns
+        ``(ok, reason)``.  ``PTT_FAULT=corrupt@warm:N`` perturbs the
+        N-th verification's computed digest, driving the exact
+        mismatch path a flipped bit on disk would."""
+        with self._lock:
+            self._verify_n += 1
+            n = self._verify_n
+        corrupt = "corrupt" in faults.poll("warm", n)
+        try:
+            man = self.load_manifest(adir)
+        except ValueError as e:
+            return False, f"torn_artifact: {e}"
+        files = man.get("files")
+        if not isinstance(files, dict) or FRAME not in files:
+            return False, "torn_artifact: manifest lists no frame"
+        for rel, meta in sorted(files.items()):
+            path = os.path.join(adir, rel)
+            if not os.path.isfile(path):
+                return False, f"digest_mismatch: {rel} missing"
+            try:
+                got = file_sha256(path)
+            except OSError as e:
+                return False, f"digest_mismatch: {rel} unreadable ({e})"
+            if corrupt:
+                # drill: the computed digest is what a corrupted file
+                # would produce — same branch, same quarantine
+                got = "corrupt-" + got[8:]
+                corrupt = False
+            if got != meta.get("sha256"):
+                return False, f"digest_mismatch: {rel}"
+        return True, "ok"
+
+    def lookup(self, config_sig: str) -> Optional[str]:
+        """Artifact dir for an exact config signature (manifest
+        present and sig-matching), else None.  Touches the LRU
+        clock."""
+        adir = self.dir_for(config_sig)
+        try:
+            man = self.load_manifest(adir)
+        except ValueError:
+            return None
+        if man.get("config_sig") != config_sig:
+            return None
+        self.touch(adir)
+        return adir
+
+    def manifests(self) -> List[Tuple[str, Dict[str, object]]]:
+        """Every readable ``(dir, manifest)`` in the store (the reseed
+        planner's cross-signature scan).  Unreadable entries are
+        skipped here — the startup sweep is what quarantines them."""
+        out = []
+        for adir in self._entries():
+            try:
+                out.append((adir, self.load_manifest(adir)))
+            except ValueError:
+                continue
+        return out
+
+    def touch(self, adir: str) -> None:
+        try:
+            os.utime(os.path.join(adir, MANIFEST))
+        except OSError:
+            pass
+
+    # ------------------------------------------------------ maintenance
+
+    def sweep(self) -> List[str]:
+        """Startup hygiene: every artifact that fails verification —
+        torn manifest, missing file, digest mismatch, version skew —
+        is moved to ``quarantine/`` (kept for forensics, never
+        reused).  Returns the quarantined reasons.  Runs under the
+        store lock: a concurrent writer mid-save would otherwise look
+        exactly like a torn artifact and get quarantined while live."""
+        quarantined: List[str] = []
+        with self._locked():
+            for adir in self._entries():
+                ok, reason = self.verify(adir)
+                if ok:
+                    continue
+                os.makedirs(self.quarantine_dir, exist_ok=True)
+                dst = os.path.join(
+                    self.quarantine_dir,
+                    f"{os.path.basename(adir)}."
+                    f"{int(time.time() * 1000)}",
+                )
+                try:
+                    os.replace(adir, dst)
+                except OSError:
+                    shutil.rmtree(adir, ignore_errors=True)
+                    dst = "<removed>"
+                quarantined.append(
+                    f"{os.path.basename(adir)}: {reason}"
+                )
+                self._log(
+                    f"warm: quarantined unverifiable artifact "
+                    f"{os.path.basename(adir)} ({reason}) -> {dst}"
+                )
+        return quarantined
+
+    def quarantine(self, adir: str, reason: str) -> None:
+        """Move one artifact aside after a failed install-time verify
+        (the corrupt@warm drill path)."""
+        with self._locked():
+            os.makedirs(self.quarantine_dir, exist_ok=True)
+            dst = os.path.join(
+                self.quarantine_dir,
+                f"{os.path.basename(adir)}.{int(time.time() * 1000)}",
+            )
+            try:
+                os.replace(adir, dst)
+            except OSError:
+                shutil.rmtree(adir, ignore_errors=True)
+        self._log(
+            f"warm: quarantined {os.path.basename(adir)} ({reason})"
+        )
+
+    def entry_bytes(self, adir: str) -> int:
+        total = 0
+        for dirpath, _dirs, names in os.walk(adir):
+            for name in names:
+                try:
+                    total += os.path.getsize(os.path.join(dirpath, name))
+                except OSError:
+                    pass
+        return total
+
+    def total_bytes(self) -> int:
+        return sum(self.entry_bytes(d) for d in self._entries())
+
+    def enforce_cap(self) -> int:
+        """Evict oldest-touched artifacts past ``max_bytes`` (mtime
+        LRU).  0 disables the store rather
+        than the cap — the scheduler never constructs one then.
+        Returns the number evicted.  Takes the store lock: evicting
+        while another writer is mid-save would rmtree a dir that
+        writer is still filling."""
+        if self.max_bytes <= 0:
+            return 0
+        with self._locked():
+            return self._enforce_cap_locked()
+
+    def _enforce_cap_locked(self) -> int:
+        if self.max_bytes <= 0:
+            return 0
+        entries = []
+        for adir in self._entries():
+            try:
+                mtime = os.path.getmtime(os.path.join(adir, MANIFEST))
+            except OSError:
+                mtime = 0.0  # manifest-less: oldest possible
+            entries.append((mtime, adir, self.entry_bytes(adir)))
+        total = sum(e[2] for e in entries)
+        evicted = 0
+        for _mtime, adir, nbytes in sorted(entries):
+            if total <= self.max_bytes:
+                break
+            shutil.rmtree(adir, ignore_errors=True)
+            total -= nbytes
+            evicted += 1
+            self._log(
+                f"warm: evicted {os.path.basename(adir)} "
+                f"({nbytes >> 10} KiB) — cap {self.max_bytes} bytes"
+            )
+        return evicted
+
+
+# ------------------------------------------------------------ validator
+
+
+def validate_artifact(path: str) -> List[str]:
+    """Schema + integrity violations for one warm artifact (a dir or
+    its manifest.json) — the ``torch_check_telemetry_schema.py --warm``
+    front-end.  Empty list = clean."""
+    adir = path
+    if os.path.isfile(path) and os.path.basename(path) == MANIFEST:
+        adir = os.path.dirname(path) or "."
+    if not os.path.isdir(adir):
+        return [f"{path}: not a warm artifact directory"]
+    store = WarmStore(os.path.dirname(adir) or ".", max_bytes=0)
+    errors: List[str] = []
+    try:
+        man = store.load_manifest(adir)
+    except ValueError as e:
+        return [f"{adir}: {e}"]
+    if not isinstance(man.get("bindings"), dict):
+        errors.append(f"{adir}: bindings is not an object")
+    if not isinstance(man.get("invariants"), list):
+        errors.append(f"{adir}: invariants is not a list")
+    if man.get("port") != PORT_TAG:
+        errors.append(
+            f"{adir}: manifest carries no port tag {PORT_TAG!r} (not an "
+            "artifact of this package)")
+    files = man.get("files")
+    if not isinstance(files, dict) or FRAME not in files:
+        errors.append(f"{adir}: manifest lists no frame")
+        return errors
+    for rel, meta in sorted(files.items()):
+        fpath = os.path.join(adir, rel)
+        if not os.path.isfile(fpath):
+            errors.append(f"{adir}: {rel} missing")
+            continue
+        if file_sha256(fpath) != meta.get("sha256"):
+            errors.append(
+                f"{adir}: {rel} digest mismatch (corrupt or "
+                "hand-edited)"
+            )
+        if os.path.getsize(fpath) != meta.get("bytes"):
+            errors.append(f"{adir}: {rel} byte count mismatch")
+    return errors

@@ -9,9 +9,13 @@ the versioned schemas, with the PyTorch port's own validator
     python scripts/torch_check_telemetry_schema.py --ledger ledger.jsonl
     python scripts/torch_check_telemetry_schema.py --metrics scrape.txt
     python scripts/torch_check_telemetry_schema.py --profile SIG.json
+    python scripts/torch_check_telemetry_schema.py --tokens tokens.json
+    python scripts/torch_check_telemetry_schema.py --warm STATE/warm/<dir>
 
 File kind is sniffed by extension: ``.jsonl`` = event stream, ``.json``
-= bench artifact (``--profile``: a tuned profile of ``cli tune``).  Exit status: 0 clean, 1 violations (listed on
+= bench artifact (``--profile``: a tuned profile of ``cli tune``;
+``--tokens``: a daemon tokens file; ``--warm``: a warm artifact dir or
+its manifest.json).  Exit status: 0 clean, 1 violations (listed on
 stderr), 2 usage.
 """
 
@@ -56,6 +60,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="treat the .json files as tuned-profile files "
                     "(cli tune output; tune/profiles.py)")
+    ap.add_argument("--tokens", action="store_true",
+                    help="treat the .json files as daemon tokens files "
+                    "(serve --tokens; service/auth.py)")
+    ap.add_argument("--warm", action="store_true",
+                    help="treat the paths as warm-artifact dirs (or their "
+                    "manifest.json): manifest shape, port tag, SHA-256 "
+                    "digests (warm/store.py)")
     args = ap.parse_args(argv)
     files = list(args.files)
     if args.all_bench:
@@ -75,6 +86,10 @@ def main(argv=None) -> int:
                     errors += validate_exposition(fh.read(), label=p)
             except OSError as e:
                 errors += [f"{p}: unreadable ({e})"]
+        elif args.warm:
+            from pulsar_tlaplus_tpu_torch.warm.store import validate_artifact
+
+            errors += validate_artifact(p)
         elif p.endswith(".jsonl"):
             if args.ledger:
                 from pulsar_tlaplus_tpu_torch.obs.ledger import (
@@ -90,6 +105,12 @@ def main(argv=None) -> int:
             errors += validate_trace(p)
         elif args.profile:
             errors += validate_profile_file(p)
+        elif args.tokens:
+            from pulsar_tlaplus_tpu_torch.service.auth import (
+                validate_tokens_file,
+            )
+
+            errors += validate_tokens_file(p)
         else:
             errors += validate_bench_artifact(p)
     for e in errors:

@@ -846,3 +846,124 @@ def test_cli_tune_on_card_then_check_resolves(card, tune_dir, capsys):
     assert "297 distinct states found" in capsys.readouterr().out
     with open(s) as f:
         assert json.loads(f.readline())["profile_sig"] == prof["sig"]
+
+
+# ---- the checker daemon (service/, warm/) on the card ----------------------
+
+DAEMON_GEOM = dict(sub_batch=64, visited_cap=1 << 10, frontier_cap=1 << 8,
+                   max_states=1 << 20, checkpoint_every=1)
+BK_CRASH2 = """
+CONSTANTS
+    NumBookies = 3
+    WriteQuorum = 2
+    AckQuorum = 2
+    EntryLimit = 2
+    MaxBookieCrashes = 2
+SPECIFICATION Spec
+INVARIANTS
+    ConfirmedEntryReadable
+"""
+
+
+def _daemon_solo(path, spec, dev):
+    tlc = cfgmod.load(path)
+    model, _ = registry.COMPILED[spec](tlc)
+    geom = {k: v for k, v in DAEMON_GEOM.items() if k != "checkpoint_every"}
+    return DeviceChecker(model, invariants=tuple(tlc.invariants),
+                         device=dev, **geom).run()
+
+
+def test_daemon_time_slices_the_card_equal_to_cpu(card, tune_dir):
+    """Two jobs time-sliced on the card at a zero slice (every boundary
+    after a slice's first suspends while the other waits): each result
+    equals a solo CPU run of the same cfg (counts, level sizes, verdict,
+    trace), and after every suspend the pooled checker holds no device
+    memory."""
+    from pulsar_tlaplus_tpu_torch.service.scheduler import (
+        Scheduler,
+        ServiceConfig,
+    )
+
+    bk = tune_dir / "bk.cfg"
+    bk.write_text(BK_CRASH2)
+    shipped = os.path.join(SPECS, "compaction.cfg")
+    sched = Scheduler(ServiceConfig(state_dir=str(tune_dir / "s"),
+                                    slice_s=0.0, **DAEMON_GEOM))
+    assert sched.pool.device.type == "cuda"
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(card)
+    after = []
+    run_slice = sched._run_slice
+
+    def slice_(job, device=0):
+        run_slice(job, device)
+        if job.state == "suspended":
+            after.append(torch.cuda.memory_allocated(card) - base)
+
+    sched._run_slice = slice_
+    jobs = [sched.submit("compaction", shipped),
+            sched.submit("bookkeeper", str(bk))]
+    sched.run_until_idle()
+    assert after and max(after) < 1 << 20
+    for job, (path, spec) in zip(jobs, ((shipped, "compaction"),
+                                        (str(bk), "bookkeeper"))):
+        solo = _daemon_solo(path, spec, "cpu")
+        r = job.result
+        assert job.suspends >= 1
+        assert (r["distinct_states"], r["level_sizes"], r["violation"],
+                r["violation_gid"]) == (solo.distinct_states,
+                                        solo.level_sizes, solo.violation,
+                                        solo.violation_gid)
+        assert r["trace"] == (None if solo.trace is None
+                              else [repr(s) for s in solo.trace])
+
+
+def test_daemon_warm_continue_and_reseed_on_card(card, tune_dir):
+    """A truncated job resubmitted continues from its artifact, and a
+    widened MaxCrashTimes reseeds from one, on the card: counts equal
+    the cold runs on the CPU."""
+    from pulsar_tlaplus_tpu_torch.service.scheduler import (
+        Scheduler,
+        ServiceConfig,
+    )
+
+    sub = """
+CONSTANTS
+    MessageLimit = 2
+    MaxCrashTimes = %d
+SPECIFICATION Spec
+INVARIANTS
+"""
+    for n in (2, 3):
+        (tune_dir / f"sub{n}.cfg").write_text(sub % n)
+    shipped = os.path.join(SPECS, "compaction.cfg")
+    sched = Scheduler(ServiceConfig(state_dir=str(tune_dir / "s"),
+                                    **DAEMON_GEOM))
+    j1 = sched.submit("compaction", shipped, max_states=9_000)
+    sched.run_until_idle()
+    j2 = sched.submit("compaction", shipped)
+    assert j2.warm_mode == "continue"
+    s1 = sched.submit("subscription", str(tune_dir / "sub2.cfg"))
+    sched.run_until_idle()
+    s2 = sched.submit("subscription", str(tune_dir / "sub3.cfg"))
+    assert (s2.warm_mode, s2.warm_reason) == ("reseed",
+                                              "widened:MaxCrashTimes")
+    sched.run_until_idle()
+    assert j1.result["status"] == "truncated" and s1.result["status"] == "ok"
+    assert (j2.result["distinct_states"], j2.result["diameter"]) == (45198,
+                                                                   20)
+    cold = _daemon_solo(str(tune_dir / "sub3.cfg"), "subscription", "cpu")
+    assert s2.result["warm"] == "reseed"
+    assert s2.result["distinct_states"] == cold.distinct_states
+
+
+def test_daemon_refuses_more_slots_than_cards(card, tune_dir):
+    from pulsar_tlaplus_tpu_torch.service.scheduler import ServiceConfig
+
+    n = torch.cuda.device_count()
+    cfg = ServiceConfig(state_dir=str(tune_dir / "s"), devices=n + 1)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cfg.slot_devices()
+    assert [d.index for d in ServiceConfig(
+        state_dir=str(tune_dir / "s"), devices=n).slot_devices()] == \
+        list(range(n))

@@ -269,11 +269,20 @@ def test_cli_metrics_and_top_equal_jax(files, name, monkeypatch):
     ["metrics"], ["metrics", "--aggregate"], ["top", "--once"],
     ["top", "--dispatch", "--once"],
 ])
-def test_daemon_and_fleet_modes_are_refused(argv):
-    rc, out, err = _run(cli.main, argv)
+def test_daemon_and_fleet_modes_are_refused(argv, tmp_path):
+    """The daemon modes with no daemon listening exit 2 (transport, never
+    a verdict), as the JAX CLI does; the fleet modes exit 2 naming the
+    dispatcher, which is not ported yet."""
+    rc, out, err = _run(cli.main, argv + ["--retries", "0", "--socket",
+                                          str(tmp_path / "none.sock")])
     assert rc == 2 and not out
-    assert "needs the checker daemon: not ported yet (ROADMAP A15d/A15e)" \
-        in err
+    if "--aggregate" in argv or "--dispatch" in argv:
+        assert "needs the fleet dispatcher: not ported yet (ROADMAP " \
+            "A15e)" in err
+    else:
+        assert "no daemon socket" in err
+        assert _run(jcli.main, argv + ["--retries", "0", "--socket", str(
+            tmp_path / "none.sock")])[0] == 2
 
 
 def test_cli_check_flags_reach_the_engine(tmp_path):

@@ -67,3 +67,8 @@ def test_port_imports_no_jax():
     for mod in ("tune", "tune.space", "tune.profiles", "tune.predict",
                 "tune.online", "tune.search"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("warm", "warm.store", "warm.plan", "service",
+                "service.jobs", "service.protocol", "service.auth",
+                "service.admission", "service.scheduler", "service.server",
+                "service.client"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
