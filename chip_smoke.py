@@ -30,7 +30,8 @@ each with the kernels' launch counters zeroed before and read after:
   K = 3 binding tiered at a hot table of 2^23 slots, equal to its
   untiered run.  Phase 2e holds K2 (exact w = 1 and 3, hashed w = 5),
   K1, H1 and K3 (K = 3) against their plain versions on flushes these
-  models make, and phase 18 profiles the K = 3 binding.
+  models make, and phase 18 profiles the K = 3 binding's first 16
+  levels.
 
 - liveness (phases 19-21): ``Termination`` of the 9,445,152-state tier
   of ``scripts/liveness_scale.py`` under ``wf_next`` and ``none``, its
@@ -45,21 +46,24 @@ each with the kernels' launch counters zeroed before and read after:
   depth 64 on the scaled config, the card's syncs counted against one a
   segment; both seeded compaction bugs found at the shipped cfg, each
   trace verified and replayed on the oracle, and the same seed's run on
-  the CPU identical (trace and counters).  Phase 25 profiles the 9m
-  liveness run and the 65,536-walker simulation.
+  the CPU identical (trace and counters).  Phase 25 profiles four
+  chunks of the 9m tier's liveness sweep and 16 steps of the
+  65,536-walker simulation.
 
 - the spec->kernel compiler (phases 26-30, launch counters zeroed
   around them): ``cli check -force-compile`` of the four shipped cfgs
   and the 253,361-state config, both compaction counterexamples
   replayed step by step through the compiled ``successors`` on the card
   and the interpreter; compiled compaction.tla at the 9m binding in the
-  fused level and the stage loop in turns, cut after level 15, level
-  sizes equal to the hand model's, profiled, with the host seconds per
-  window; the four scaled bindings to their pins (geo_exact cut after
-  level 20, geo_hashed after level 13: ``COMPILED_*_LEVELS``); a tiered
-  run equal to its untiered run; liveness to the ``compiled_full`` pins
-  and the seeded bugs by simulation for seeds 0-2.  Phase 2f holds K2 (hashed W = 5 and 7),
-  K1 and H1 against their plain versions on compiled models' flushes;
+  fused level and the stage loop in turns, cut after level 13, level
+  sizes equal to the hand model's, its first 9 levels profiled, with
+  the host seconds per window; the four scaled bindings to their pins
+  (geo_exact cut after level 16, geo_hashed after level 11:
+  ``COMPILED_*_LEVELS``); a tiered run equal to its untiered run;
+  liveness to the ``compiled_full`` pins and the seeded bugs by
+  simulation for seeds 0-2 in segments of 16 steps.  Phase 2f holds K2
+  (hashed W = 5 and 7), K1 and H1 against their plain versions on
+  compiled models' flushes;
   ``[30c graphs]`` prints each compiled model's graph statistics.
 
 Phases 31-35 are runs that survive, at the scaled binding unless said:
@@ -74,8 +78,9 @@ window to phase 6's totals and logs (peak memory beside phase 6's); 34
 runs phase 11's budget with a durable spill, preempted by
 ``sigterm@level:6`` after the fused handoff and resumed equal to phase
 6's logs, then ``enospc@spill:1`` ends ``spill_enospc``; 35 kills the
-9m-tier liveness sweep and the 65,536-walker simulation in processes
-of their own and resumes them to the pins and the same walk digest,
+253,361-state config's liveness sweep and the 65,536-walker simulation
+in processes of their own and resumes them to the pins and the same
+walk digest,
 and the seeded bug across a preemption gives the same trace.  Frames go
 to a temporary directory that phase 35 removes; ``[35b ...]`` prints
 the launch counts of phases 31-35.
@@ -90,17 +95,17 @@ totals; 38 ``cli check -sharded`` (shipped cfg, both counterexamples,
 ``-slices 2``, a compiled spec at ``-sharded 2``, ``-workers 4`` on one
 card), each checker run held against the same run on the CPU shard for
 shard; 39 a killed sharded run resumed in a fresh process to phase
-36's totals and logs, and ``LivenessChecker(n_devices=4)`` at the 9m
-tier to the pins of both verdicts.  The kernels' record carries each
+36's totals and logs, and ``LivenessChecker(n_devices=4)`` at the
+253,361-state config to the pins of both verdicts.  The kernels' record carries each
 kernel's ``sharded_launches``: the counts of phases 36-39 less the
 launches of the single-card engine's runs among them (phase 36's turns,
 ``-workers 4`` on one card).
 
 Phases 40-43 run the engines of the eleventh slice: 40 builds the
-scaled binding's host seed at the bench's caps (its host seconds
+scaled binding's host seed of its first four levels (its host seconds
 printed), prestages it and runs it seeded in the frontier row window
 with ``metrics_path`` to phase 6's level totals (every record with the
-JAX keys), and the seed-frontier guard raises; 40b holds seeded runs
+JAX keys), and the seed-frontier guard raises on a five-level seed; 40b holds seeded runs
 (both counterexamples, one inside the seed) and a seeded N = 4 sharded
 run card against CPU; 41 runs ``visited_impl="sort"`` on both device
 engines to 253,361 / 23, gid for gid equal to the fpset runs, the two
@@ -188,6 +193,34 @@ token exit 4, quota exit 5), then ``torch_check_telemetry_schema.py
 counts phases 53-55's daemon runs less the solo runs; K3 is 0 there (the
 daemon runs no ``hbm_budget``).
 
+Phases 58-62 run the fleet tier (``fleet/``): daemons behind one
+dispatcher, every backend's slot on the one card.  58, in process: two
+backends and a dispatcher (replication off, TCP with two tenants'
+tokens): two scaled jobs placed least-loaded one on each backend, run at
+once, level sizes and logs equal to the solo run's (phase 53's run of
+phase 6's cut), the shipped cfg placed sticky, each job's wall beside
+the solo run's and the card's peak memory; then one timed sieve pass of
+a scaled artifact (a frame of about 2 GB, one blob past the protocol's
+32 MiB line) to an empty peer: ``unreachable``, with the owner's CPU
+seconds and resident growth.  59: replication on; a probe of the
+producer-on binding truncated at 100,000 states is shipped to the peer
+by the health thread (blobs, wire bytes, each blob's line against
+``MAX_LINE``), a second pass answers ``identical`` at 0 bytes, and a
+resubmit straight to the peer continues to phase 4's 253,361 / 23.  60,
+in subprocesses (``serve`` x 2, ``dispatch``): the dispatcher killed -9
+and restarted with ``--recover`` (a retried ``submit_id`` dedups to the
+same job); then a backend dies (``PTT_FAULT=kill@level:7``) while its
+scaled job runs and a second waits: the queued job is resubmitted to the
+survivor and equals the solo run, the running one is ``lost``; ``serve
+--recover`` brings the backend back and the lost job reconciles to the
+solo run's result (``fleet_failover_ms``, ``fleet_reconcile_ms``, ready
+times).  61: ``submit``/``status``/``watch``/``cancel``, ``metrics
+--aggregate`` (both backends' families, the six latency histograms, a
+scrape error with one backend down), ``top --dispatch``, ``metrics
+--stream`` of the dispatcher's stream against its live families, every
+stream valid and ``trace`` stitching them.  ``fleet_launches`` (62)
+counts the in-process phases 58-59: K0, K1, K2 and H1 launched, K3 not.
+
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
 profiles the stage loop the same way and prints where the two loops'
@@ -216,6 +249,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -226,6 +260,7 @@ HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 SCALED_PREV_TOTAL = 636_718  # cumulative states after level 5
 SCALED_TOTAL = 17_787_334  # cumulative states after level 6
+SEED_LEVELS = 4  # phase 40's host seed: 22,765 states
 SEED = 20261017
 # the kernels each path runs (the tiered path runs all five)
 MAIN_PATH_KERNELS = ("selftest", "member_block", "key_plane", "insert_tail")
@@ -233,6 +268,7 @@ TIERED_PATH_KERNELS = MAIN_PATH_KERNELS + ("sieve_mask",)
 TIERED_TCAP = 1 << 25  # phase 11's hot-table ceiling
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPECS = os.path.join(ROOT, "specs")
+T0 = time.time()  # the script's start: each phase's start is logged
 # the other three specs.  Shipped cfgs: (distinct states, diameter).
 SPEC_SHIPPED = {"subscription": (2272, 24), "bookkeeper": (297, 14),
                 "georeplication": (6400, 18)}
@@ -292,13 +328,28 @@ TIER9M_LEVELS = [1, 10, 100, 999, 9918, 38601, 68733, 119133, 187335,
                  196830]
 # the compiled path's runs cut in depth at a level boundary (every
 # window size stops there alike), to keep the script inside its time
-# limit: the 9m binding after level 15 (phase 27), geo_exact after level
-# 20 and geo_hashed after level 13 (phase 28); their level sizes are
-# held to the pins' prefixes
-COMPILED_9M_LEVELS = 15
-COMPILED_SCALED_LEVELS = {"geo_exact": 20, "geo_hashed": 13}
+# limit: the 9m binding after level 13 and its profile after level 9
+# (phase 27), geo_exact after level 16 and geo_hashed after level 11
+# (phase 28); their level sizes are held to the pins' prefixes
+COMPILED_9M_LEVELS = 13
+COMPILED_9M_PROFILE_LEVELS = 9
+COMPILED_SCALED_LEVELS = {"geo_exact": 16, "geo_hashed": 11}
+# phase 30's simulations of the seeded bugs on the compiled model: steps
+# a segment (a run stops at the end of the segment that finds its bug)
+COMPILED_SIM_SEGMENT = 16
+# phase 25's profiled windows (the profiler's post-processing, not the
+# run, took most of the phase): sweep chunks of the 9m tier, simulation
+# steps of the 65,536 walkers (phase 23 times depth 64 unprofiled)
+LIVE_PROFILE_CHUNKS = 4
+SIM_PROFILE_DEPTH = 16
+# phase 18 profiles geo_exact's first levels (phase 16 runs all 31 of
+# them unprofiled): 805,931 of its 9,735,256 states
+GEO_PROFILE_LEVELS = 16
 LIVENESS_9M_KW = dict(frontier_chunk=1 << 16, visited_cap=1 << 24,
                       max_states=12_000_000, sweep_chunk=1 << 19)
+# the 253,361-state config's liveness runs (phase 20; the resume of 35
+# and the mesh of 39): windows of 4,096 states, sweep chunks of 2^14
+LIVENESS_FULL_KW = dict(frontier_chunk=4096, visited_cap=1 << 18)
 # the JAX LivenessChecker's results on the CPU (scripts/liveness_pins.py):
 # edge count, bincount of the out-degrees, SHA-256 of the edge list
 # (engine/liveness.edge_digest), and per fairness (holds, reason, lasso
@@ -370,7 +421,8 @@ FRONTIER_ROWS = 18_000_000
 # the processes of phases 31 and 35 (a kill ends the process, so it runs
 # in one of its own): the scaled config's checker with frames at argv[1]
 # every argv[2] levels (argv[3] == "1": resume), max_states argv[4]; the
-# 9m liveness checker with sweep frames every 4 chunks; the 65,536-walker
+# liveness checker of the 253,361-state config (LIVENESS_FULL_KW: 16
+# sweep chunks) with sweep frames every 4 chunks; the 65,536-walker
 # simulation with frames every segment.  Each prints one JSON line.
 SCALED_DRIVER = r"""
 import json, sys, warnings, torch
@@ -397,17 +449,14 @@ print(json.dumps(dict(
     **{k: v for k, v in st.items() if k.startswith(("ckpt", "restore"))})))
 """
 LIVE_DRIVER = r"""
-import sys
+import dataclasses, sys
 from pulsar_tlaplus_tpu_torch.engine.liveness import LivenessChecker
 from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
 from pulsar_tlaplus_tpu_torch.ref import pyeval
-c = pyeval.Constants(message_sent_limit=4, compaction_times_limit=3,
-                     num_keys=2, num_values=2, retain_null_key=True,
-                     max_crash_times=2, model_producer=True,
-                     model_consumer=False)
+c = dataclasses.replace(pyeval.SHIPPED_CFG, model_producer=True,
+                        retain_null_key=False)
 LivenessChecker(CompactionModel(c), fairness="wf_next",
-                frontier_chunk=1 << 16, visited_cap=1 << 24,
-                max_states=12_000_000, sweep_chunk=1 << 19,
+                frontier_chunk=%d, visited_cap=%d,
                 checkpoint_path=sys.argv[1], checkpoint_every=4).run()
 """
 SIM_DRIVER = r"""
@@ -491,6 +540,10 @@ def _shard_digest(ck, level):
 
 def _phase(name, fn, failures):
     t = time.time()
+    # on stderr as each phase starts: a run stopped at its time limit
+    # shows which phase it was in
+    print(f"chip_smoke: phase {name.split()[0]} starts at {t - T0:.0f}s",
+          file=sys.stderr, flush=True)
     try:
         detail = fn()
         status = "ok"
@@ -631,6 +684,18 @@ def _frame_logs(path):
     keys = _join_keys(np.asarray(d["fpk0"], np.uint32),
                       np.asarray(d["fpk1"], np.uint32))
     return nv, [int(x) for x in d["level_sizes"]], dig, keys
+
+
+def _frame_digest(path):
+    """(n_visited, logs digest) of a device checker's frame: its rows,
+    parent and lane logs only (the key planes are not read)."""
+    import numpy as np
+
+    d = np.load(path)
+    nv = int(d["n_visited"])
+    rows = d["rows"]
+    W = rows.size // max(nv - int(d["rows_lo"]), 1)
+    return nv, _logs_digest(rows[: nv * W], d["parent"][:nv], d["lane"][:nv])
 
 
 def _join_keys(k0, k1):
@@ -1234,7 +1299,712 @@ def service_path(torch, dev, kernels, failures):
     if service_launches["sieve_mask"]:
         failures.append("57: K3 launched on the service path (no "
                         "hbm_budget there)")
-    return service_launches, notes
+    return service_launches, notes, solo
+
+
+# ---- the fleet path (phases 58-62): the dispatcher fronting daemons on
+# the card
+#
+# Every backend is a ``serve`` daemon with one slot on cuda:0 (the
+# machine has one card), so two backends share one card's capacity while
+# the registry sees two idle backends.  The dispatcher touches no device.
+FLEET_TOKENS_JSON = {"tokens_v": 1, "tenants": [
+    {"tenant": "alpha", "token": "chip-smoke-alpha-1"},
+    {"tenant": "beta", "token": "chip-smoke-beta-22"},
+    {"tenant": "fleet", "token": "chip-smoke-fleet-333"}]}
+# the 253,361-state binding (producer on, RetainNullKey = FALSE) as a .cfg
+PRODUCER_CFG_TEXT = """CONSTANTS
+    MessageSentLimit = 3
+    CompactionTimesLimit = 3
+    ModelConsumer = FALSE
+    ConsumeTimesLimit = 2
+    KeySpace = {1, 2}
+    ValueSpace = {1, 2}
+    RetainNullKey = FALSE
+    MaxCrashTimes = 1
+    ModelProducer = TRUE
+SPECIFICATION Spec
+INVARIANTS
+    TypeSafe
+    CompactionHorizonCorrectness
+"""
+FLEET_PROBE_CAP = 100_000  # phase 59's truncated probe
+FLEET_BACKEND_TIMEOUT = 10.0  # the dispatcher's default backend_timeout_s
+# how long after phase 61 the full-width pull's owner may still encode
+# (it ends during phase 60 on an H100 host)
+FLEET_OWNER_WAIT = 120.0
+FLEET_HISTS = ("ptt_fleet_route_seconds", "ptt_fleet_submit_ack_seconds",
+               "ptt_fleet_failover_seconds", "ptt_fleet_reconcile_seconds",
+               "ptt_fleet_watch_leg_seconds", "ptt_fleet_job_e2e_seconds")
+
+
+def _vm_rss():
+    """This process's resident bytes (``/proc/self/status`` VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _until(pred, what, timeout):
+    """Poll ``pred`` until it returns a truthy value (returned), or raise
+    TimeoutError naming ``what``."""
+    end = time.time() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.time() > end:
+            raise TimeoutError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def fleet_path(torch, dev, kernels, failures, solo, ref):
+    """Phases 58-62: the fleet dispatcher (``fleet/``) fronting checker
+    daemons whose jobs run on the card.  ``solo`` is the service path's
+    solo runs (phase 53's run of phase 6's cut: level sizes, logs digest),
+    ``ref`` phase 6's wall and peak and phase 4's level sizes.  Returns
+    ``(fleet_launches, notes)``: the kernels' launch counts of the
+    in-process phases 58-59 and the numbers printed."""
+    from pulsar_tlaplus_tpu_torch.fleet import replicate
+    from pulsar_tlaplus_tpu_torch.fleet.dispatcher import (
+        FleetConfig,
+        FleetDispatcher,
+    )
+    from pulsar_tlaplus_tpu_torch.obs import metrics as obs_metrics
+    from pulsar_tlaplus_tpu_torch.obs import schema as obs_schema
+    from pulsar_tlaplus_tpu_torch.service import protocol
+    from pulsar_tlaplus_tpu_torch.service.client import (
+        ServiceClient,
+        ServiceError,
+    )
+    from pulsar_tlaplus_tpu_torch.service.scheduler import ServiceConfig
+    from pulsar_tlaplus_tpu_torch.service.server import ServiceDaemon
+    from pulsar_tlaplus_tpu_torch.utils import cfg as cfgmod
+
+    t58 = time.time()
+    root = tempfile.mkdtemp(prefix="ptt_flt_")  # short: socket paths
+    cfgs = {}
+    for name, text in (("scaled", SCALED_CFG_TEXT),
+                       ("producer", PRODUCER_CFG_TEXT)):
+        cfgs[name] = os.path.join(root, f"{name}.cfg")
+        with open(cfgs[name], "w") as f:
+            f.write(text)
+    shipped = os.path.join(SPECS, "compaction.cfg")
+    tokens = os.path.join(root, "tokens.json")
+    with open(tokens, "w") as f:
+        json.dump(FLEET_TOKENS_JSON, f)
+    tok = {t["tenant"]: t["token"] for t in FLEET_TOKENS_JSON["tenants"]}
+    base = dict(devices=1, slice_s=0.5, max_states=SERVICE_CAP,
+                checkpoint_every=1000, warm_max_bytes=SERVICE_WARM_BYTES)
+    notes: dict = {}
+    owner_pull: dict = {}  # phase 58's full-width pull on its owner
+    live = []  # every daemon and dispatcher started in the process
+    procs = []  # every subprocess
+
+    def backend(name, **kw):
+        d = ServiceDaemon(ServiceConfig(state_dir=os.path.join(root, name),
+                                        **dict(base, **kw)))
+        live.append(d)
+        d.start()
+        return d
+
+    def dispatcher(name, backends, **kw):
+        disp = FleetDispatcher(FleetConfig(
+            state_dir=os.path.join(root, name), backends=tuple(backends),
+            health_interval_s=0.2, **kw))
+        live.append(disp)
+        disp.start()
+        return disp
+
+    def checker(d, name):
+        tlc = cfgmod.load(cfgs[name])
+        invs = d.pool.resolve_invariants("compaction", tlc, None)
+        return d.pool.get("compaction", tlc, invs, None)[1]
+
+    def artifact(d, name):
+        adir = d.sched.warm_store.lookup(checker(d, name)._config_sig())
+        if adir is None:
+            raise AssertionError(f"no warm artifact for {name} on "
+                                 f"{d.config.socket_path}")
+        return adir, d.sched.warm_store.load_manifest(adir)
+
+    def events(path, kind):
+        return [e for e in _events(path) if e["event"] == kind]
+
+    kernels.reset_launches()
+
+    # ---- 58: routing at full width, in process
+    def routing():
+        b = [backend("b0"), backend("b1")]
+        prewarm = [round(d.prewarm(), 3) for d in b]
+        addrs = [d.config.socket_path for d in b]
+        disp = dispatcher("d58", addrs, replicate=False, tcp="127.0.0.1:0",
+                          tokens_path=tokens,
+                          backend_timeout_s=FLEET_BACKEND_TIMEOUT)
+        tcp = f"tcp://127.0.0.1:{disp.tcp_port}"
+        alpha = ServiceClient(tcp, token=tok["alpha"], timeout=SERVICE_WAIT)
+        beta = ServiceClient(tcp, token=tok["beta"], timeout=SERVICE_WAIT)
+        # each job's resident device bytes when its checker frees its
+        # run (the card's peak below covers both jobs at once), and the
+        # unix span of each engine run (a slice) on each backend
+        resident, spans = {}, {}
+        for d in b:
+            ck = checker(d, "scaled")
+            free, run = ck._free_buffers, ck.run
+
+            def run_(*a, run=run, addr=d.config.socket_path, **kw):
+                t0 = time.time()
+                try:
+                    return run(*a, **kw)
+                finally:
+                    spans.setdefault(addr, []).append((t0, time.time()))
+
+            def free_(ck=ck, free=free, addr=d.config.socket_path):
+                n = sum(t.numel() * t.element_size()
+                        for t in vars(ck).values()
+                        if isinstance(t, torch.Tensor) and t.device == dev)
+                n += sum(t.numel() * t.element_size()
+                         for ts in vars(ck).values()
+                         if isinstance(ts, (list, tuple))
+                         for t in ts if isinstance(t, torch.Tensor)
+                         and t.device == dev)
+                resident[addr] = max(resident.get(addr, 0), n)
+                free()
+
+            ck._free_buffers = free_
+            ck.run = run_
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = t_sub = time.time()
+        r1 = alpha.submit("compaction", cfgs["scaled"], full=True)
+
+        def load(addr):
+            s = disp.registry.detail_snapshot()[addr]
+            return s["running"] + s["queue_depth"]
+
+        # a health poll straddling the first submit resets its in-flight
+        # mark and reads the backend before the job lands: wait for a
+        # poll that sees it, so least-loaded places the second beside it
+        _until(lambda: load(r1["backend"]) >= 1, "the first job's load",
+               SERVICE_WAIT)
+        r2 = beta.submit("compaction", cfgs["scaled"], full=True)
+        r3 = alpha.submit("compaction", shipped, full=True)
+        res = {r["job_id"]: (cl.wait(r["job_id"], timeout=SERVICE_WAIT),
+                             time.time() - t)
+               for r, cl in ((r1, alpha), (r2, beta), (r3, alpha))}
+        card_peak = torch.cuda.max_memory_allocated(dev)
+        for r in (r1, r2, r3):
+            w, _s = res[r["job_id"]]
+            if r["backend"] not in addrs or w["backend"] != r["backend"]:
+                raise AssertionError(f"reply backends {r} {w}")
+        if r1["backend"] == r2["backend"]:
+            raise AssertionError("least-loaded put both scaled jobs on "
+                                 f"{r1['backend']}")
+        # the two scaled jobs ran on the card at once: the seconds in
+        # which an engine run of each backend was in flight together
+        overlap = sum(max(0.0, min(e0, e1) - max(s0, s1))
+                      for s0, e0 in spans.get(r1["backend"], ())
+                      for s1, e1 in spans.get(r2["backend"], ()))
+        if overlap <= 0:
+            raise AssertionError(f"the scaled jobs never overlapped {spans}")
+        want = (SERVICE_SCALED_STATES, solo["scaled"]["level_sizes"],
+                "max_states")
+        for r in (r1, r2):
+            g = res[r["job_id"]][0]["result"]
+            if (g["distinct_states"], g["level_sizes"], g["stop_reason"]
+                    ) != want:
+                raise AssertionError(f"scaled job {g}")
+        g = res[r3["job_id"]][0]["result"]
+        if (g["distinct_states"], g["diameter"]) != (45198, 20):
+            raise AssertionError(f"shipped job {g}")
+        digests = {}
+        for d in b:
+            adir, _man = artifact(d, "scaled")
+            digests[d.config.socket_path] = _frame_digest(
+                os.path.join(adir, "frame.npz"))
+        if set(digests.values()) != {(SERVICE_SCALED_STATES,
+                                      solo["scaled"]["digest"])}:
+            raise AssertionError(f"scaled logs {digests} against the solo "
+                                 "run's")
+        routes = disp.metrics_snapshot()["routes"]
+        want_routes = {(r1["backend"], "least_loaded"): 1,
+                       (r2["backend"], "least_loaded"): 1,
+                       (r3["backend"], "sticky"): 1}
+        if routes != want_routes or r3["backend"] != r1["backend"]:
+            raise AssertionError(f"routes {routes}")
+        by_addr = {d.config.socket_path: d for d in b}
+        jobs_n = {}
+        for r in (r1, r2, r3):
+            job = by_addr[r["backend"]].sched.get(r["job_id"])
+            jobs_n[r["job_id"]] = dict(
+                backend=r["backend"][-12:],
+                engine_wall_s=res[r["job_id"]][0]["result"]["wall_s"],
+                done_after_s=round(res[r["job_id"]][1], 3),
+                slices=res[r["job_id"]][0]["result"]["slices"],
+                # seconds after the first submit
+                started_s=round(job.started_unix - t_sub, 3),
+                finished_s=round(job.finished_unix - t_sub, 3))
+        # one timed sieve pass of a scaled artifact to an empty peer: its
+        # frame is one blob far past the protocol's line limit
+        owner = next(d for d in b if d.config.socket_path == r1["backend"])
+        adir, man = artifact(owner, "scaled")
+        peer = backend("bx")
+        op = ServiceDaemon._op_warm_pull
+        rec, ended = {}, threading.Event()
+
+        def timed_pull(self, req, w):
+            rss0, peak, stop = _vm_rss(), [0], threading.Event()
+
+            def sample():
+                while not stop.wait(0.02):
+                    peak[0] = max(peak[0], _vm_rss())
+
+            th = threading.Thread(target=sample, daemon=True)
+            th.start()
+            c0, w0 = time.thread_time(), time.time()
+            try:
+                return op(self, req, w)
+            except Exception as e:
+                rec["error"] = repr(e)[:120]
+                raise
+            finally:
+                stop.set()
+                th.join(5)
+                rec.update(owner_cpu_s=round(time.thread_time() - c0, 3),
+                           owner_wall_s=round(time.time() - w0, 3),
+                           owner_ended_unix=time.time(),
+                           owner_rss_peak_gib=round(
+                               max(peak[0] - rss0, 0) / 2**30, 3))
+                ended.set()
+
+        ServiceDaemon._op_warm_pull = timed_pull
+        try:
+            # the sieve step of replicate_all for this one artifact (the
+            # owner also holds the shipped job's), its transport failure
+            # recorded as replicate_all records it
+            t = time.time()
+            try:
+                passes = [replicate.replicate_artifact(
+                    r1["backend"], peer.config.socket_path, man,
+                    timeout=FLEET_BACKEND_TIMEOUT)]
+            except (OSError, protocol.ProtocolError) as e:
+                passes = [{"status": f"unreachable: {e!r:.80}",
+                           "blobs": 0, "wire_bytes": 0}]
+            pass_wall = time.time() - t
+        finally:
+            # the owner's thread resolved its handler when the pull
+            # arrived; it goes on encoding while the next phases run
+            # (their numbers are taken beside it), and the end of phase
+            # 61 collects its numbers and the phase it ended in
+            ServiceDaemon._op_warm_pull = op
+        owner_pull.update(rec=rec, ended=ended)
+        if [p["status"].split(":")[0] for p in passes] != ["unreachable"] \
+                or peer.sched.warm_store.manifests():
+            raise AssertionError(f"full-width pass {passes}")
+        notes["58"] = dict(
+            jobs=jobs_n, solo_wall=ref["scaled_wall"],
+            engine_spans_s={a[-12:]: [(round(s0 - t_sub, 3),
+                                       round(e0 - t_sub, 3))
+                                      for s0, e0 in v]
+                            for a, v in spans.items()},
+            overlap_s=round(overlap, 3),
+            card_peak_gib=round(card_peak / 2**30, 2),
+            solo_peak_gib=round(ref["scaled_peak"] / 2**30, 2),
+            resident_gib={a[-12:]: round(n / 2**30, 2)
+                          for a, n in resident.items()},
+            prewarm_s=prewarm, artifact_bytes=man["bytes"],
+            frame_bytes=man["files"]["frame.npz"]["bytes"],
+            max_line=protocol.MAX_LINE,
+            full_width_pass=dict(status=passes[0]["status"],
+                                 wall_s=round(pass_wall, 3)))
+        return (f"scaled x2 on {r1['backend'][-12:]} and "
+                f"{r2['backend'][-12:]} (least_loaded), shipped sticky "
+                f"beside the first; level sizes and logs = the solo run's; "
+                f"engine walls {[j['engine_wall_s'] for j in jobs_n.values()]}"
+                f" s against the solo {ref['scaled_wall']:.3f} s, the two "
+                f"scaled jobs' engine runs in flight together {overlap:.2f}"
+                f" s; card peak "
+                f"{notes['58']['card_peak_gib']} GiB (solo "
+                f"{notes['58']['solo_peak_gib']}); resident at the end "
+                f"{notes['58']['resident_gib']} GiB; full-width sieve of "
+                f"{man['files']['frame.npz']['bytes']} frame bytes: "
+                f"{passes[0]['status'][:60]} in {pass_wall:.2f}s (the "
+                f"owner's numbers at phase 62)")
+
+    # ---- 59: replication and a warm start on the peer
+    def replication():
+        # a ceiling above the producer-on binding's 253,361 states
+        b = [backend("b2", max_states=60_000_000),
+             backend("b3", max_states=60_000_000)]
+        for d in b:
+            d.prewarm()
+        addrs = [d.config.socket_path for d in b]
+        disp = dispatcher("d59", addrs, replicate=True,
+                          backend_timeout_s=FLEET_BACKEND_TIMEOUT)
+        cl = ServiceClient(disp.config.socket_path, timeout=SERVICE_WAIT)
+        probe = cl.submit("compaction", cfgs["producer"],
+                          max_states=FLEET_PROBE_CAP, full=True)
+        done = cl.wait(probe["job_id"], timeout=SERVICE_WAIT)["result"]
+        if done["status"] != "truncated":
+            raise AssertionError(f"probe {done}")
+        owner = b[addrs.index(probe["backend"])]
+        peer = b[1 - addrs.index(probe["backend"])]
+        _adir, man = artifact(owner, "producer")
+        # the largest blob's protocol line against the line limit
+        lines = {rel: len(json.dumps(replicate.read_blob(
+            owner.sched.warm_store, man["config_sig"], rel)))
+            for rel in man["files"]}
+        if max(lines.values()) >= protocol.MAX_LINE:
+            raise AssertionError(f"blob lines {lines} past MAX_LINE")
+        _until(lambda: [m for _a, m in peer.sched.warm_store.manifests()
+                        if m == man], "the artifact on the peer",
+               SERVICE_WAIT)
+        rep = _until(lambda: [e for e in events(disp.config.telemetry_path,
+                                                "replicate")
+                              if e["trace_id"] == probe["trace_id"]],
+                     "the replicate record", SERVICE_WAIT)[0]
+        again = replicate.replicate_all(owner.config.socket_path,
+                                        [peer.config.socket_path])
+        if [(p["status"], p["blobs"], p["wire_bytes"]) for p in again] != [
+                ("identical", 0, 0)]:
+            raise AssertionError(f"second pass {again}")
+        pcl = ServiceClient(peer.config.socket_path, timeout=SERVICE_WAIT)
+        t = time.time()
+        wide = pcl.submit("compaction", cfgs["producer"], full=True)
+        if (wide["warm_mode"], wide["warm_reason"]) != ("continue",
+                                                        "sig_match"):
+            raise AssertionError(f"plan on the peer {wide}")
+        r = pcl.wait(wide["job_id"], timeout=SERVICE_WAIT)["result"]
+        w = time.time() - t
+        full = ref["full_levels"]  # phase 4's run: 253,361 / 23
+        if (r["distinct_states"], r["diameter"], r["level_sizes"],
+                r["warm"]) != (sum(full), len(full), full, "continue"):
+            raise AssertionError(f"warm continue on the peer {r}")
+        notes["59"] = dict(blobs=rep["blobs"], wire_bytes=rep["wire_bytes"],
+                           raw_bytes=man["bytes"], line_bytes=lines,
+                           max_line=protocol.MAX_LINE,
+                           repl_wall_ms=rep["wall_ms"],
+                           continue_wall=round(w, 3),
+                           continue_engine_wall=r["wall_s"])
+        return (f"probe truncated at {done['distinct_states']} on "
+                f"{owner.config.socket_path[-12:]}; the health thread "
+                f"shipped {rep['blobs']} blob(s), {rep['wire_bytes']} wire "
+                f"bytes of {man['bytes']} ({rep['wall_ms']} ms); largest "
+                f"line {max(lines.values())} of MAX_LINE "
+                f"{protocol.MAX_LINE}; second pass identical, 0 bytes; the "
+                f"peer continued to {r['distinct_states']} / "
+                f"{r['diameter']}, level sizes = phase 4's, in {w:.2f}s")
+
+    # ---- 60-61: the CLI's daemons and dispatcher in subprocesses
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("PTT_FAULT", None)
+    sk, ss, sd = (os.path.join(root, n) for n in ("f60k", "f60s", "f60d"))
+    ksock, ssock = (os.path.join(s, "serve.sock") for s in (sk, ss))
+    dsock = os.path.join(sd, "dispatch.sock")
+    common = ["--maxstates", str(SERVICE_CAP), "--warm-max-bytes", "0",
+              "--checkpoint-every", "1000", "--slice", "600", "--spec",
+              "compaction"]
+    dargs = ["dispatch", sd, "--backend", ksock, "--backend", ssock,
+             "--tcp", "127.0.0.1:0", "--tokens", tokens,
+             "--health-interval", "0.2", "--fail-after", "3",
+             "--readmit-after", "2", "--no-replicate"]
+    sub: dict = {}
+
+    def spawn(*args, fault=None):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli", *args],
+            cwd=ROOT, env=dict(env, PTT_FAULT=fault) if fault else env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        procs.append(p)
+        return p
+
+    def ready(p, want):
+        t = time.time()
+        line = _read_line(p, SERVICE_WAIT)
+        if not line.startswith(want):
+            raise AssertionError(f"no ready line from {p.args}: {line!r}")
+        return time.time() - t, line
+
+    def start_dispatcher(*extra):
+        t = time.time()
+        p = spawn(*dargs, *extra)
+        ready(p, "dispatching on")
+        port = int(_read_line(p, SERVICE_WAIT).split()[-1])
+        return p, time.time() - t, port
+
+    def failover():
+        t = time.time()
+        s = spawn("serve", "--state-dir", ss, *common)
+        ready_s = {"survivor": round(ready(s, "serving on")[0], 2)}
+        d, ready_s["dispatcher"], port = start_dispatcher()
+        cl = ServiceClient(dsock, timeout=SERVICE_WAIT, retries=8)
+        # a finished job in the table before the crashes below
+        j0 = cl.submit("compaction", shipped, submit_id="f60-shipped",
+                       full=True)
+        r0 = cl.wait(j0["job_id"], timeout=SERVICE_WAIT)["result"]
+        if (j0["backend"], r0["distinct_states"]) != (ssock, 45198):
+            raise AssertionError(f"shipped job {j0} {r0}")
+        # the failover: the first backend dies as its running job starts
+        # level 7 (PTT_FAULT's kill, os._exit 137; a second past the
+        # job's start, so the dispatcher's sweep has seen it running), a
+        # second job queued behind it
+        k = spawn("serve", "--state-dir", sk, *common,
+                  fault="kill@level:7")
+        ready_s["backend"] = round(ready(k, "serving on")[0], 2)
+        _until(lambda: cl.ping()["backends"][ksock] == "up",
+               "the backend's admission", SERVICE_WAIT)
+        alpha = ServiceClient(f"tcp://127.0.0.1:{port}", token=tok["alpha"],
+                              timeout=SERVICE_WAIT, retries=8)
+        s1 = alpha.submit("compaction", cfgs["scaled"], submit_id="f60-run",
+                          full=True)
+        s2 = alpha.submit("compaction", cfgs["scaled"],
+                          submit_id="f60-queued", full=True)
+        if (s1["backend"], s2["backend"]) != (ksock, ksock):
+            raise AssertionError(f"placement {s1['backend']} "
+                                 f"{s2['backend']}")
+        if k.wait(timeout=SERVICE_WAIT) != 137:
+            raise AssertionError(f"the backend exited {k.returncode}")
+        t_dead = time.time()
+        states = _until(lambda: (lambda m: m if m.get(s1["job_id"]) == (
+            "lost", ksock) and m.get(s2["job_id"], ("", ""))[1] == ssock
+            else None)({j["job_id"]: (j["state"], j["backend"])
+                        for j in cl.status()}), "the failover",
+            SERVICE_WAIT)
+        # the dispatcher's crash, with the running job lost and the
+        # queued one resubmitted to the survivor: kill -9, then
+        # --recover rebuilds the table from fleet_jobs.json and the
+        # survivor's own table
+        s2_at_crash = states[s2["job_id"]][0]
+        d.kill()
+        d.wait(timeout=60)
+        d, ready_s["recovered_dispatcher"], port = start_dispatcher(
+            "--recover")
+        alpha = ServiceClient(f"tcp://127.0.0.1:{port}", token=tok["alpha"],
+                              timeout=SERVICE_WAIT, retries=8)
+        listing = {j["job_id"]: (j["state"], j["backend"])
+                   for j in cl.status()}
+        if set(listing) != {j0["job_id"], s1["job_id"], s2["job_id"]} or (
+                listing[j0["job_id"]], listing[s1["job_id"]],
+                listing[s2["job_id"]][1]) != (("done", ssock),
+                                              ("lost", ksock), ssock) or \
+                listing[s2["job_id"]][0] == "lost":
+            raise AssertionError(f"recovered listing {listing}")
+        again = cl.submit("compaction", shipped, submit_id="f60-shipped",
+                          full=True)
+        if again["job_id"] != j0["job_id"]:
+            raise AssertionError(f"the retried submit {again} is not "
+                                 f"{j0['job_id']}")
+        w2 = alpha.wait(s2["job_id"], timeout=SERVICE_WAIT)
+        want = (SERVICE_SCALED_STATES, solo["scaled"]["level_sizes"])
+        g2 = w2["result"]
+        if (w2["backend"], g2["distinct_states"], g2["level_sizes"]) != (
+                ssock, *want):
+            raise AssertionError(f"the failed-over job {w2}")
+        try:
+            alpha.result(s1["job_id"])
+            raise AssertionError("result of a lost job answered")
+        except ServiceError as e:
+            lost_error = str(e)
+            if "lost with its backend" not in lost_error:
+                raise
+        # the reconcile: once the recovered dispatcher has drained the
+        # dead backend, it restarts from its queue; after two clean
+        # polls the lost job takes its real result
+        _until(lambda: cl.ping()["backends"][ksock] != "up",
+               "the recovered dispatcher's drain", SERVICE_WAIT)
+        k = spawn("serve", sk, "--recover", *common)
+        ready_s["recovered_backend"] = round(ready(k, "serving on")[0], 2)
+        t_back = time.time()
+        _until(lambda: [j for j in cl.status() if j["job_id"] ==
+                        s1["job_id"] and j["state"] == "done"
+                        and j.get("reconciled")], "the reconciled job",
+               SERVICE_WAIT)
+        w1 = alpha.wait(s1["job_id"], timeout=SERVICE_WAIT)
+        g1 = w1["result"]
+        if (w1["backend"], g1["distinct_states"], g1["level_sizes"]) != (
+                ksock, *want):
+            raise AssertionError(f"the reconciled job {w1}")
+        stream = os.path.join(sd, "dispatch.jsonl")
+        # (a failover record with no job is a dispatcher's start finding
+        # the backend not up yet, or the recovered one draining it)
+        fo = [e for e in events(stream, "failover") if e["trace_ids"]]
+        part = events(stream, "partition")
+        rec = events(stream, "recover")
+        if len(fo) != 1 or fo[0]["resubmitted"] != 1 or len(part) != 1 \
+                or part[0]["reconciled"] != 1:
+            raise AssertionError(f"failover {fo} partition {part}")
+        if len(rec) != 1 or rec[0]["lost"]:
+            raise AssertionError(f"recover {rec}")
+        sub.update(d=d, k=k, s=s, alpha=alpha, cl=cl, jobs=[
+            j0["job_id"], s1["job_id"], s2["job_id"]])
+        notes["60"] = dict(
+            fleet_failover_ms=fo[0]["wall_ms"],
+            fleet_reconcile_ms=part[0]["wall_ms"],
+            fleet_recover_ms=rec[0]["wall_ms"],
+            lost_state=states[s1["job_id"]][0],
+            queued_at_crash=s2_at_crash,
+            ready_s={k_: round(v, 2) for k_, v in ready_s.items()},
+            failover_seen_s=round(t_back - t_dead, 2),
+            wall_s=round(time.time() - t, 2))
+        return (f"backend killed at level 7 of its running job: queued job "
+                f"resubmitted to the survivor, running job lost "
+                f"({lost_error[:60]}...); dispatcher kill -9 + --recover "
+                f"with the resubmitted job {s2_at_crash} on the survivor: "
+                f"all 3 jobs listed with their backends, the retried "
+                f"submit deduped to {j0['job_id']}, the resubmitted job "
+                f"ended at {g2['distinct_states']} states = solo; the lost "
+                f"job reconciled to {g1['distinct_states']} = solo after "
+                f"serve --recover; fleet_failover_ms {fo[0]['wall_ms']}, "
+                f"fleet_reconcile_ms {part[0]['wall_ms']}; ready s "
+                f"{notes['60']['ready_s']}")
+
+    def cli_fleet():
+        d, env1 = ["--socket", dsock], env
+
+        def client(*args, rc=0):
+            p = subprocess.run(
+                [sys.executable, "-m", "pulsar_tlaplus_tpu_torch.cli",
+                 *args], cwd=ROOT, env=env1, capture_output=True,
+                text=True, timeout=SERVICE_WAIT)
+            if p.returncode != rc:
+                raise AssertionError(f"{args}: rc {p.returncode} (want {rc})"
+                                     f" {p.stdout[-300:]} {p.stderr[-300:]}")
+            return p.stdout
+
+        def state_of(jid):
+            return client("status", jid, *d).split()[2]
+
+        out = client("submit", "compaction", shipped, "--wait", *d)
+        if "45198 distinct states found, search depth (diameter) 20." \
+                not in out:
+            raise AssertionError(out)
+        jid = out.split()[0]
+        listing = client("status", *d)
+        if jid not in listing or listing.count(" @") < 4:
+            raise AssertionError(f"status {listing}")
+        out = client("watch", jid, *d)
+        if "run_header" not in out or "45198 distinct states" not in out:
+            raise AssertionError(f"watch {out[-300:]}")
+        jc = client("submit", "compaction", cfgs["scaled"], *d).split()[0]
+        _until(lambda: state_of(jc) == "running", "the job to cancel",
+               SERVICE_WAIT)
+        client("cancel", jc, *d)
+        _until(lambda: state_of(jc) in ("cancelled", "done"),
+               "the cancel", SERVICE_WAIT)
+        if state_of(jc) != "cancelled":
+            raise AssertionError("the cancelled job completed")
+        text = client("metrics", "--aggregate", *d)
+        fams, types = obs_metrics.parse_exposition(text)
+        hists = sorted(n for n, k in types.items() if k == "histogram")
+        if hists != sorted(FLEET_HISTS) or \
+                obs_metrics.validate_exposition(text):
+            raise AssertionError(f"aggregate histograms {hists}")
+        for sock in (ksock, ssock):
+            if f'ptt_daemon_up{{backend="{sock}"}} 1' not in text:
+                raise AssertionError(f"no families of {sock}")
+        top = client("top", "--dispatch", "--once", *d)
+        if "fleet @" not in top or "BACKEND" not in top:
+            raise AssertionError(f"top {top[-300:]}")
+        # the dispatcher's stream against its live families
+        stream = os.path.join(sd, "dispatch.jsonl")
+        _f, live_t = obs_metrics.parse_exposition(client("metrics", *d))
+        _f, stream_t = obs_metrics.parse_exposition(
+            client("metrics", "--stream", stream))
+        fleet_t = [{n: k for n, k in t.items() if n.startswith("ptt_fleet")}
+                   for t in (live_t, stream_t)]
+        if fleet_t[0] != fleet_t[1]:
+            raise AssertionError(f"stream families {fleet_t}")
+        # every stream, and the trace that stitches them
+        paths = [stream] + [os.path.join(s, "service.jsonl")
+                            for s in (sk, ss)]
+        for s in (sk, ss):
+            jd = os.path.join(s, "jobs")
+            paths += [os.path.join(jd, j, "events.jsonl")
+                      for j in sorted(os.listdir(jd))
+                      if os.path.exists(os.path.join(jd, j, "events.jsonl"))]
+        errs = [e for p in paths for e in obs_schema.validate_stream(p)]
+        if errs:
+            raise AssertionError(f"stream violations {errs[:3]}")
+        tpath = os.path.join(root, "fleet_trace.json")
+        client("trace", *paths, "-o", tpath)
+        with open(tpath) as f:
+            tr = json.load(f)["traceEvents"]
+        hops = sum(1 for e in tr if e.get("cat") == "ptt.fleet")
+        if not hops:
+            raise AssertionError("the trace has no fleet hops")
+        # one backend down: the aggregate scrape counts it, never fails
+        sub["s"].send_signal(signal.SIGTERM)
+        if sub["s"].wait(timeout=SERVICE_WAIT) != 0:
+            raise AssertionError("the survivor exited non-zero")
+        down = _until(lambda: (lambda t: t if f'ptt_fleet_scrape_errors{{'
+                               f'backend="{ssock}"}} 1' in t else None)(
+            client("metrics", "--aggregate", *d)), "the scrape error",
+            SERVICE_WAIT)
+        if obs_metrics.validate_exposition(down):
+            raise AssertionError("aggregate exposition with a backend down")
+        for p in (sub["d"], sub["k"]):
+            p.send_signal(signal.SIGTERM)
+            if p.wait(timeout=SERVICE_WAIT) != 0:
+                raise AssertionError(f"{p.args[3]} exited {p.returncode}")
+        notes["61"] = dict(streams=len(paths), trace_events=len(tr),
+                           fleet_hops=hops)
+        return (f"submit/status/watch/cancel through the dispatcher; "
+                f"metrics --aggregate: both backends' families, the six "
+                f"histograms, clean, a scrape error with one backend down; "
+                f"top --dispatch; {len(paths)} streams valid, trace of "
+                f"{len(tr)} events ({hops} fleet hops); the stream's fleet "
+                f"families = the live dispatcher's")
+
+    starts = {}  # each phase's start, to place the owner's end
+
+    def phase(n, name, fn):
+        starts[n] = time.time()
+        _phase(f"{n} fleet: {name}", fn, failures)
+
+    try:
+        phase("58", "routing at full width (two backends on the card, in "
+              "process), a full-width sieve pass", routing)
+        phase("59", "replication and a warm continue on the peer",
+              replication)
+        fleet_launches = dict(kernels.LAUNCHES)
+        phase("60", "failover, reconcile and dispatcher recovery "
+              "(subprocesses)", failover)
+        if "d" in sub:
+            phase("61", "the CLI and the flight deck against the "
+                  "dispatcher", cli_fleet)
+        if owner_pull and "58" in notes:
+            t = time.time()
+            if owner_pull["ended"].wait(FLEET_OWNER_WAIT):
+                rec = dict(owner_pull["rec"])
+                end = rec.pop("owner_ended_unix")
+                notes["58"]["full_width_pass"].update(
+                    rec, owner_done_after_61_s=round(time.time() - t, 2),
+                    owner_ended_in_phase=max(
+                        (n for n, t0 in starts.items() if t0 <= end),
+                        default="58"))
+            else:
+                failures.append("58: the owner never finished the "
+                                "full-width pull")
+    finally:
+        for obj in reversed(live):
+            obj.shutdown()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[62 launches on the fleet path] {fleet_launches} (phases 58-59 "
+          f"in process; 58-61 {time.time() - t58:.1f}s)", flush=True)
+    print(f"[62 numbers] {json.dumps(notes, default=str)}", flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if fleet_launches[name] <= 0:
+            failures.append(f"62: {name} never launched on the fleet path")
+    if fleet_launches["sieve_mask"]:
+        failures.append("62: K3 launched on the fleet path (no hbm_budget "
+                        "there)")
+    return fleet_launches, notes
 
 
 class _HookView:
@@ -2733,11 +3503,14 @@ def _main() -> int:
     torch.cuda.empty_cache()
     # ---- 18: where the time goes in the largest scaled spec binding
     # (after the counts were read)
-    _s, consts, _m, _p = SPEC_SCALED["geo_exact"]
-    _phase("18 profile of georeplication scaled-exact",
+    _s, consts, _m, geo_levels = SPEC_SCALED["geo_exact"]
+    _phase("18 profile of georeplication scaled-exact, levels 1-"
+           f"{GEO_PROFILE_LEVELS}",
            lambda: profile(phase="18", model=spec_model("georeplication",
                                                         consts),
-                           max_states=1 << 26), failures)
+                           max_states=sum(
+                               geo_levels[:GEO_PROFILE_LEVELS]) + 1),
+           failures)
     torch.cuda.empty_cache()
 
     # ---- 19-21: liveness, launch counters zeroed around it
@@ -2871,7 +3644,7 @@ def _main() -> int:
             pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
         )
         lc = LivenessChecker(CompactionModel(full), fairness="wf_next",
-                             frontier_chunk=4096, visited_cap=1 << 18)
+                             **LIVENESS_FULL_KW)
         for fairness in ("wf_next", "none"):
             live_check("253361-state config", lc, LIVENESS_PINS["full"],
                        fairness)
@@ -2903,11 +3676,10 @@ def _main() -> int:
                      "satisfied, rc 0")
         # tiered exploration at a tight budget: the same edges
         probe = LivenessChecker(CompactionModel(full), hbm_budget="1T",
-                                frontier_chunk=4096, visited_cap=1 << 18)
+                                **LIVENESS_FULL_KW)
         budget = tight_budget(probe._checker)
         lt = LivenessChecker(CompactionModel(full), fairness="wf_next",
-                             frontier_chunk=4096, visited_cap=1 << 18,
-                             hbm_budget=budget)
+                             hbm_budget=budget, **LIVENESS_FULL_KW)
         live_check("253361-state config tiered", lt, LIVENESS_PINS["full"],
                    "wf_next")
         ck = lt._checker
@@ -3110,17 +3882,29 @@ def _main() -> int:
         )
 
     def profile_live():
-        """The 9m tier's exploration, then its sweep, each profiled."""
+        """The 9m tier's exploration (unprofiled: phase 19 times it and
+        phase 8 profiles the engine), then a window of its sweep's chunks,
+        profiled: the profiler's post-processing grows with the events."""
         lc = LivenessChecker(CompactionModel(tier9m), fairness="wf_next",
                              **LIVENESS_9M_KW)
-        explore = where_time(lc._explore)
-        sweep = where_time(lambda: lc._edges(lc._explored[0]))
-        return f"explore: {explore}; sweep: {sweep}"
+        lc._explore()
+        n = lc._explored[0]
+        tcols, tgid = lc._table(n)
+        starts = list(range(0, n, lc.SF))
+
+        def window():
+            for s in starts[:LIVE_PROFILE_CHUNKS]:
+                lc._sweep_chunk(s, n, tcols, tgid)
+
+        return (f"sweep chunks 1-{LIVE_PROFILE_CHUNKS} of {len(starts)}: "
+                + where_time(window))
 
     def profile_sim():
         sim = StreamingSimulator(CompactionModel(scaled_cfg()),
-                                 n_walkers=65536, depth=64, seed=SEED)
-        return "65536 walkers x depth 64: " + where_time(sim.run)
+                                 n_walkers=65536, depth=SIM_PROFILE_DEPTH,
+                                 seed=SEED)
+        return (f"65536 walkers x depth {SIM_PROFILE_DEPTH}: "
+                + where_time(sim.run))
 
     _phase("25a profile of the 9m-tier liveness run", profile_live,
            failures)
@@ -3352,10 +4136,12 @@ def _main() -> int:
                     raise AssertionError(f"{fuse}: levels {r.level_sizes}")
         finally:
             gc.callbacks.remove(gc_clock)
-        # the profile covers levels 1-12 (1,500,000 states): the
-        # profiler's tables over the whole run's ~4M events take minutes
+        # the profile covers the first COMPILED_9M_PROFILE_LEVELS levels:
+        # the profiler's tables grow with the events (a minute past
+        # level 12)
+        pcut = sum(TIER9M_LEVELS[:COMPILED_9M_PROFILE_LEVELS])
         prof = where_time(lambda: DeviceChecker(
-            cs, sub_batch=1 << 16, max_states=1_500_000).run())
+            cs, sub_batch=1 << 16, max_states=pcut).run())
         return (f"{cut} states in the first {COMPILED_9M_LEVELS} levels, "
                 f"level sizes equal to the hand model's (its run: "
                 f"{TIER9M_STATES} states, diameter 24; state width "
@@ -3370,8 +4156,9 @@ def _main() -> int:
                             f"collections, {a} cudaMalloc)"
                             for f, w, n, h, s, g, m, a in walls)
                 + f"; the stage run made {n_sync} card syncs; "
-                f"{graph_note(cs)}; profile of the fused run to "
-                f"1,500,000 states: {prof}")
+                f"{graph_note(cs)}; profile of the fused run's first "
+                f"{COMPILED_9M_PROFILE_LEVELS} levels ({pcut} states): "
+                f"{prof}")
 
     def c_scaled():
         notes = []
@@ -3446,10 +4233,15 @@ def _main() -> int:
             raise AssertionError("edges differ from the pins")
         for inv in ("CompactedLedgerLeak", "DuplicateNullKeyMessage"):
             cs, _f = compile_spec("compaction", invariants=(inv,))
+            # short segments: a walk is keyed by (seed, step, walker),
+            # so each seed finds its bug at the same step whatever the
+            # segment, and the run stops at that segment's end (every
+            # step past the bug is host-bound replays)
             for seed in (0, 1, 2):
                 s = StreamingSimulator(cs, invariants=(inv,),
-                                       n_walkers=1024, depth=64, seed=seed,
-                                       max_rounds=20).run()
+                                       n_walkers=1024, depth=64,
+                                       segment_len=COMPILED_SIM_SEGMENT,
+                                       seed=seed, max_rounds=20).run()
                 if (s.violation, s.verified) != (inv, True):
                     raise AssertionError(f"{inv} seed {seed}: "
                                          f"{s.violation} {s.verified}")
@@ -3756,19 +4548,21 @@ def _main() -> int:
     def live_sim_resume():
         notes = []
         path = os.path.join(surv_dir, "live.npz")
-        rc, _o, err = drive(LIVE_DRIVER, path, fault="kill@sweep:10")
+        rc, _o, err = drive(LIVE_DRIVER % (
+            LIVENESS_FULL_KW["frontier_chunk"],
+            LIVENESS_FULL_KW["visited_cap"]), path, fault="kill@sweep:10")
         if rc != 137 or not os.path.exists(path):
             raise AssertionError(f"liveness kill: rc {rc}\n{err}")
-        lc = LivenessChecker(CompactionModel(tier9m), checkpoint_path=path,
-                             **LIVENESS_9M_KW)
+        lc = LivenessChecker(CompactionModel(full_cfg), checkpoint_path=path,
+                             **LIVENESS_FULL_KW)
         t = time.time()
-        live_check("9m resumed", lc, LIVENESS_PINS["9m"], "wf_next",
+        live_check("253361 resumed", lc, LIVENESS_PINS["full"], "wf_next",
                    resume=True)
         notes.append(
-            f"9m wf_next killed at sweep chunk 10 (frames every 4 "
-            f"chunks), resumed in {time.time() - t:.2f}s with no "
-            f"re-exploration: verdict, lasso and "
-            f"{lc.last_stats['edges']} edges equal to the pins")
+            f"253361-state config wf_next killed at sweep chunk 10 of "
+            f"{-(-253361 // lc.SF)} (frames every 4 chunks), resumed in "
+            f"{time.time() - t:.2f}s with no re-exploration: verdict, "
+            f"lasso and {lc.last_stats['edges']} edges equal to the pins")
         del lc
         torch.cuda.empty_cache()
         path = os.path.join(surv_dir, "sim.npz")
@@ -4040,10 +4834,10 @@ def _main() -> int:
                  f"digest of every shard's rows and logs through level 6 "
                  f"({out['frames']} frame(s) in the resumed run, wall "
                  f"{out['wall']:.2f}s over both)"]
-        pin = LIVENESS_PINS["9m"]
+        pin = LIVENESS_PINS["full"]
         torch.cuda.empty_cache()
-        lc = LivenessChecker(CompactionModel(tier9m), fairness="wf_next",
-                             n_devices=SHARDS, **LIVENESS_9M_KW)
+        lc = LivenessChecker(CompactionModel(full_cfg), fairness="wf_next",
+                             n_devices=SHARDS, **LIVENESS_FULL_KW)
         for fairness in ("wf_next", "none"):
             lc.fairness = fairness
             t = time.time()
@@ -4052,17 +4846,18 @@ def _main() -> int:
             got = (r.holds, r.reason, r.lasso_prefix, r.lasso_cycle)
             if (r.distinct_states, got) != (pin["distinct"],
                                             pin["verdicts"][fairness]):
-                raise AssertionError(f"9m {fairness}: {r.distinct_states} "
-                                     f"{got}")
+                raise AssertionError(f"253361 {fairness}: "
+                                     f"{r.distinct_states} {got}")
             if fairness == "wf_next":
                 src, _dst, out_deg = lc._edge_cache
                 if (len(src), np.bincount(out_deg).tolist()) != (
                         pin["edges"], pin["out_deg_hist"]):
-                    raise AssertionError(f"9m edges {len(src)}")
+                    raise AssertionError(f"253361 edges {len(src)}")
                 st = lc.last_stats
                 notes.append(
-                    f"9m liveness on {SHARDS} shards: {r.distinct_states} "
-                    f"states, {len(src)} edges, out-degree histogram equal "
+                    f"253361-state config liveness on {SHARDS} shards: "
+                    f"{r.distinct_states} states, {len(src)} edges, "
+                    f"out-degree histogram equal "
                     f"to the pins; wf_next holds in {wall:.2f}s (explore "
                     f"{st['explore_s']:.2f}s, sweep {st['sweep_s']:.2f}s, "
                     f"analysis {st['analysis_s']:.2f}s)")
@@ -4115,10 +4910,12 @@ def _main() -> int:
     def seeded_scaled():
         m = CompactionModel(scaled_cfg())
         t = time.time()
-        seed = m.host_seed(max_level_states=800_000, max_total=1_000_000)
+        # the first SEED_LEVELS levels (the bench's caps, 800,000 and
+        # 1,000,000, take five, and 40 s of the host's oracle)
+        seed = m.host_seed(max_level_states=30_000, max_total=32_000)
         host_s = time.time() - t
         n, lsizes = len(seed[0]), list(seed[3])
-        if totals(lsizes)[-1] != SCALED_PREV_TOTAL:
+        if lsizes != untiered["scaled"][0][:SEED_LEVELS]:
             raise AssertionError(f"seed levels {lsizes}")
         mpath = os.path.join(eng_dir, "seeded.jsonl")
         torch.cuda.empty_cache()
@@ -4145,16 +4942,27 @@ def _main() -> int:
         torch.cuda.empty_cache()
         # the second frontier guard alone: the window admits the seed
         # (n + SEED_CHUNK <= LCAP) but not its frontier plus one append
-        # window (lsizes[-1] + NQ > LCAP)
+        # window (lsizes[-1] + NQ > LCAP).  Some window isolates it only
+        # if the seed's last level passes min(n, 2^15), which the
+        # four-level seed's does not: the guard gets levels 1-5, from a
+        # card run stopped at their end
+        pk = DeviceChecker(m, max_states=SCALED_PREV_TOTAL)
+        pr = engines_off(pk.run)
+        if pr.level_sizes != untiered["scaled"][0][:5]:
+            raise AssertionError(f"five-level prefix {pr.level_sizes}")
+        gn = SCALED_PREV_TOTAL
+        gseed = (pk.merged_rows().reshape(gn, pk.W), *pk.merged_logs(),
+                 pr.level_sizes)
+        del pk
         sub = 8192
         nq = sub * m.A
-        rc = max(n + min(1 << 15, nq) - nq, nq)
-        if not rc < lsizes[-1]:
+        rc = max(gn + min(1 << 15, nq) - nq, nq)
+        if not rc < pr.level_sizes[-1]:
             raise AssertionError(f"no window isolates the guard ({rc})")
         g = DeviceChecker(m, sub_batch=sub, rows_window="frontier",
                           row_cap_states=rc, max_states=SCALED_TOTAL + 1)
         try:
-            g.run(seed=seed)
+            g.run(seed=gseed)
             raise AssertionError("the seed-frontier guard did not raise")
         except ValueError as e:
             if "seed frontier" not in str(e):
@@ -4167,7 +4975,8 @@ def _main() -> int:
             f"unseeded {untiered['scaled_wall']:.2f}s; {len(recs)} metrics "
             f"records with the JAX keys (last {recs[-1]}); host_syncs "
             f"{st['host_syncs']}; peak {peak / 2**30:.2f} GiB; the "
-            f"seed-frontier guard raised at row_cap_states {rc}"
+            f"seed-frontier guard raised on the five-level prefix at "
+            f"row_cap_states {rc}"
         )
 
     def seeded_card_cpu():
@@ -5131,8 +5940,15 @@ def _main() -> int:
             failures.append(f"52b: {name} never launched on the tune path")
 
     # ---- 53-57: the checker daemon (service/, warm/) on the card
-    service_launches, _service_notes = service_path(torch, dev, kernels,
-                                                    failures)
+    service_launches, _service_notes, service_solo = service_path(
+        torch, dev, kernels, failures)
+
+    # ---- 58-62: the fleet dispatcher (fleet/) fronting daemons on the card
+    fleet_launches, _fleet_notes = fleet_path(
+        torch, dev, kernels, failures, service_solo,
+        dict(scaled_wall=untiered["scaled_wall"],
+             scaled_peak=untiered["scaled_peak"],
+             full_levels=[int(x) for x in untiered["full"][0]]))
 
 
     if failures:
@@ -5180,6 +5996,7 @@ def _main() -> int:
             obs_launches=obs_launches[name],
             tune_launches=tune_launches[name],
             service_launches=service_launches[name],
+            fleet_launches=fleet_launches[name],
             **({"tune_shape": record["tune_kernels"][tk]}
                if (tk := {"member_block": "K1@16",
                           "insert_tail": "H1@32"}.get(name)) else {}),

@@ -91,8 +91,12 @@ checkers warmed for the registry, jobs time-sliced on the card at level
 boundaries, warm starts from earlier runs (``warm/``); ``submit``,
 ``status``, ``watch``, ``cancel``, and ``metrics``/``top`` without
 ``--stream`` talk to it over its unix socket (``--socket tcp://HOST:
-PORT --token T`` for the TCP listener).  The fleet modes (``metrics
---aggregate``, ``top --dispatch``) wait for the dispatcher and exit 2.
+PORT --token T`` for the TCP listener).  ``dispatch`` runs the fleet
+dispatcher (``fleet/``): N ``serve`` daemons behind one endpoint that
+speaks the same protocol (routing by live load, warm-artifact
+replication, failover); the client commands work against it unchanged,
+``metrics --aggregate`` scrapes every backend through it, and ``top
+--dispatch`` shows its routing view.
 Exit code 0 when the search completes clean (or
 the property holds, or the walks found nothing), 1 on a violation, a
 deadlock or a violated property (or an error), 3 when a budget, device
@@ -1190,6 +1194,50 @@ def _cmd_serve(args) -> int:
     return 0
 
 
+def _cmd_dispatch(args) -> int:
+    """The fleet dispatcher: poll the backends, listen, route until
+    SIGTERM/SIGINT or a ``shutdown`` request.  Touches no device."""
+    from pulsar_tlaplus_tpu_torch.fleet.dispatcher import (
+        FleetConfig,
+        FleetDispatcher,
+    )
+
+    def log(msg: str) -> None:
+        print(f"tpu-tlc dispatch: {msg}", file=sys.stderr, flush=True)
+
+    config = FleetConfig(
+        state_dir=os.path.abspath(args.state_dir),
+        backends=tuple(args.backend or ()),
+        socket_path=args.socket or "",
+        tcp=args.tcp or "",
+        tokens_path=args.tokens or "",
+        health_interval_s=args.health_interval,
+        fail_after=args.fail_after,
+        backend_timeout_s=args.backend_timeout,
+        replicate=not args.no_replicate,
+        recover=args.recover,
+        readmit_after=args.readmit_after,
+        hold_max=args.hold_max,
+        hold_s=args.hold_s,
+    )
+    try:
+        disp = FleetDispatcher(config, log=log)
+    except (RuntimeError, ValueError) as e:  # lock held / bad tokens
+        sys.exit(f"tpu-tlc: {e}")
+    try:
+        disp.start()
+    except OSError as e:
+        disp.shutdown()
+        sys.exit(f"tpu-tlc: cannot listen: {e}")
+    disp.install_signal_handlers()
+    # the ready line goes to STDOUT so wrappers/tests can block on it
+    print(f"dispatching on {config.socket_path}", flush=True)
+    if disp.tcp_port is not None:
+        print(f"dispatching on tcp port {disp.tcp_port}", flush=True)
+    disp.serve_forever()
+    return 0
+
+
 def _cmd_submit(args) -> int:
     from pulsar_tlaplus_tpu_torch.service.client import ServiceError
 
@@ -1331,10 +1379,6 @@ def _cmd_cancel(args) -> int:
 
 # ------------------------------------------------------ stream readers
 
-FLEET_REFUSAL = ("needs the fleet dispatcher: not ported yet "
-                 "(ROADMAP A15e)")
-
-
 def _load_stream(path: str):
     """``(events, rc)``: a stream's events with its parse warnings
     printed, or rc 2 when it cannot be read."""
@@ -1389,10 +1433,6 @@ def _cmd_metrics(args) -> int:
     from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
     from pulsar_tlaplus_tpu_torch.service.client import ServiceError
 
-    if args.aggregate:
-        print(f"tpu-tlc: metrics --aggregate {FLEET_REFUSAL}",
-              file=sys.stderr)
-        return 2
     if args.stream:
         events, rc = _load_stream(args.stream)
         if rc:
@@ -1401,7 +1441,7 @@ def _cmd_metrics(args) -> int:
         return 0
     cl = _service_client(args)
     try:
-        sys.stdout.write(cl.metrics())
+        sys.stdout.write(cl.metrics(aggregate=args.aggregate))
     except (ServiceError, OSError) as e:
         _client_fail("metrics", e)
     return 0
@@ -1414,14 +1454,19 @@ def _cmd_top(args) -> int:
     from pulsar_tlaplus_tpu_torch.obs import top as top_mod
     from pulsar_tlaplus_tpu_torch.service.client import ServiceError
 
-    if args.dispatch:
-        print(f"tpu-tlc: top --dispatch {FLEET_REFUSAL}", file=sys.stderr)
-        return 2
     if args.stream:
         model = top_mod.TopModel(", ".join(args.stream))
 
         def frame():
             return top_mod.tail_stream_frame(args.stream, model)
+    elif args.dispatch:
+        # fleet flight deck: one dispatcher ping + one aggregate scrape
+        # a frame
+        cl = _service_client(args)
+        fleet_model = top_mod.FleetTopModel(_socket_of(args))
+
+        def frame():
+            return top_mod.poll_dispatch_frame(cl, fleet_model)
     else:
         cl = _service_client(args)
         model = top_mod.TopModel(_socket_of(args))
@@ -1573,8 +1618,8 @@ def _add_client_args(sp) -> None:
 
 
 def _service_parsers(sub) -> None:
-    """The ``serve``, ``submit``, ``status``, ``watch`` and ``cancel``
-    subcommands."""
+    """The ``serve``, ``dispatch``, ``submit``, ``status``, ``watch`` and
+    ``cancel`` subcommands."""
     ps = sub.add_parser(
         "serve",
         help="resident multi-tenant checker daemon: checkers and kernels "
@@ -1687,6 +1732,82 @@ def _service_parsers(sub) -> None:
         "default 1)",
     )
 
+    pd = sub.add_parser(
+        "dispatch",
+        help="fleet dispatcher: front N `serve` daemons behind one "
+        "authenticated endpoint speaking the same wire protocol — "
+        "load-signal routing, warm-artifact replication, failover",
+    )
+    pd.add_argument(
+        "state_dir", nargs="?",
+        default=os.path.expanduser("~/.ptt_fleet"),
+        help="dispatcher state directory (socket, fleet_jobs.json; "
+        "default ~/.ptt_fleet)",
+    )
+    pd.add_argument(
+        "--backend", action="append", default=None, metavar="ADDR",
+        help="backend daemon address (repeatable; a unix socket path "
+        "or tcp://HOST:PORT — TCP backends need a tokens.json entry "
+        "for the 'fleet' tenant)",
+    )
+    pd.add_argument(
+        "--socket", default=None, help="override dispatcher socket path"
+    )
+    pd.add_argument(
+        "--tcp", default=None, metavar="HOST:PORT",
+        help="additionally listen on an authenticated TCP socket "
+        "(port 0 = ephemeral; REQUIRES --tokens)",
+    )
+    pd.add_argument(
+        "--tokens", default=None, metavar="FILE",
+        help="tokens.json shared with the backends (client tokens "
+        "are forwarded; the 'fleet' entry is the dispatcher's own "
+        "identity)",
+    )
+    pd.add_argument(
+        "--health-interval", type=float, default=0.5, metavar="SEC",
+        help="backend health-poll period (default 0.5s)",
+    )
+    pd.add_argument(
+        "--fail-after", type=int, default=3, metavar="N",
+        help="consecutive failed polls before a backend is drained "
+        "from routing (default 3)",
+    )
+    pd.add_argument(
+        "--backend-timeout", type=float, default=10.0, metavar="SEC",
+        help="per-request timeout toward a backend (default 10s)",
+    )
+    pd.add_argument(
+        "--no-replicate", action="store_true",
+        help="disable warm-artifact replication between backends "
+        "(jobs still route and fail over; resubmits only warm-start "
+        "on their original backend)",
+    )
+    pd.add_argument(
+        "--recover", action="store_true",
+        help="rebuild the routing table from fleet_jobs.json + a "
+        "re-poll of every backend before accepting work (after a "
+        "crash or kill -9): acked jobs resolve exactly-once, "
+        "unconfirmed jobs on reachable backends are typed 'lost'",
+    )
+    pd.add_argument(
+        "--readmit-after", type=int, default=2, metavar="N",
+        help="consecutive clean polls before a drained backend "
+        "rejoins routing (default 2 — hysteresis so a flapping "
+        "backend cannot thrash failover)",
+    )
+    pd.add_argument(
+        "--hold-max", type=int, default=16, metavar="N",
+        help="submits held waiting for a backend while the whole "
+        "fleet is down (overflow sheds with a typed 'capacity' "
+        "rejection; default 16)",
+    )
+    pd.add_argument(
+        "--hold-s", type=float, default=10.0, metavar="SEC",
+        help="how long a held submit waits for a backend to rejoin "
+        "before the typed backend_unavailable rejection (default 10s)",
+    )
+
     pj = sub.add_parser(
         "submit", help="queue a check job on the running daemon"
     )
@@ -1788,7 +1909,9 @@ def _reader_parsers(sub) -> None:
     pm.add_argument("--stream", default=None, metavar="FILE",
                     help="derive metrics from this telemetry JSONL")
     pm.add_argument("--aggregate", action="store_true",
-                    help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+                    help="fleet mode: against a dispatcher, scrape every "
+                    "live backend too, re-emitted under a `backend` "
+                    "label beside the fleet rollups")
     _add_client_args(pm)
     pt = sub.add_parser(
         "top",
@@ -1803,7 +1926,8 @@ def _reader_parsers(sub) -> None:
     pt.add_argument("--once", action="store_true",
                     help="render one frame (no ANSI clear) and exit")
     pt.add_argument("--dispatch", action="store_true",
-                    help="fleet mode (needs the dispatcher, ROADMAP A15e)")
+                    help="fleet flight deck: poll a dispatcher (backend "
+                    "table, routing scores, fleet latency quantiles)")
     _add_client_args(pt)
     pl = sub.add_parser(
         "ledger",
@@ -2007,7 +2131,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     readers = {"trace": _cmd_trace, "metrics": _cmd_metrics,
                "top": _cmd_top, "ledger": _cmd_ledger, "tune": _cmd_tune,
-               "serve": _cmd_serve, "submit": _cmd_submit,
+               "serve": _cmd_serve, "dispatch": _cmd_dispatch,
+               "submit": _cmd_submit,
                "status": _cmd_status, "watch": _cmd_watch,
                "cancel": _cmd_cancel}
     if args.cmd in readers:

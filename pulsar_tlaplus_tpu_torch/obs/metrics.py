@@ -1,5 +1,5 @@
-"""Flight deck: Prometheus text-exposition metrics from a run's stream —
-the stream side of ``pulsar_tlaplus_tpu/obs/metrics.py``.
+"""Flight deck: Prometheus text-exposition metrics — the port's copy of
+``pulsar_tlaplus_tpu/obs/metrics.py``.
 
 :func:`stream_metrics` derives the ``ptt_*`` families from a telemetry
 stream's tail (last ``level``/``flush`` records, event sums), so a solo
@@ -8,8 +8,11 @@ run.jsonl``; daemon (``job_*``) and dispatcher streams render their
 families too, since these are pure functions over records.
 :func:`scheduler_metrics` renders the same families from a live
 daemon's scheduler (``cli.py metrics`` scrapes it) out of host dicts
-only: a scrape never reads the device.  The dispatcher's live scrape
-(``fleet_metrics``) comes with the fleet tier (ROADMAP A15e).
+only: a scrape never reads the device.  :func:`fleet_metrics` renders
+the fleet dispatcher's own ``ptt_fleet_*`` families from its host-side
+counters (``fleet/dispatcher.py``), never a backend round-trip, and
+:func:`aggregate_exposition` adds every live backend's families under a
+``backend`` label (``cli.py metrics --aggregate``).
 
 Exposition format: the Prometheus text format, one ``# HELP``/``# TYPE``
 pair per family.  :func:`parse_exposition` is the minimal inverse used
@@ -727,6 +730,34 @@ def _fleet_families(
         f_resub, f_recon, f_part, f_recov, f_persist, f_holds,
         f_sheds,
     ] + _fleet_hist_families(hists)
+
+
+def fleet_metrics(dispatcher, uptime_s: Optional[float] = None) -> List[Family]:
+    """Metric families from a live FleetDispatcher — reads only its
+    host-side counter dicts (fleet/dispatcher.py), never a backend
+    round-trip: a dispatcher scrape must stay cheap while a backend
+    is down."""
+    snap = dispatcher.metrics_snapshot()
+    fams = [
+        Family(
+            "ptt_daemon_up", "gauge", "1 while the dispatcher answers"
+        ).add(1),
+        Family(
+            "ptt_daemon_uptime_seconds", "gauge", "Dispatcher uptime"
+        ).add(uptime_s),
+    ]
+    return fams + _fleet_families(
+        snap["backends"], snap["routes"], snap["route_s"],
+        snap["repl_blobs"], snap["repl_bytes"], snap["failovers"],
+        snap["resubmitted"],
+        reconciled=snap.get("reconciled"),
+        partitions=snap.get("partitions"),
+        recoveries=snap.get("recoveries", 0.0),
+        persist_failures=snap.get("persist_failures", 0.0),
+        holds=snap.get("holds", 0.0),
+        held_sheds=snap.get("held_sheds", 0.0),
+        hists=snap.get("hists"),
+    )
 
 
 # ------------------------------------------------------- daemon scrape

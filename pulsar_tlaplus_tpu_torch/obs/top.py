@@ -1,5 +1,5 @@
 """Flight deck: the ``cli.py top`` dashboard (curses-free ANSI) — the
-stream side of ``pulsar_tlaplus_tpu/obs/top.py``.
+port's copy of ``pulsar_tlaplus_tpu/obs/top.py``.
 
 One frame = a plain string: a header line (the stream path), the job
 table, a per-job rate sparkline built from recent ``level`` records,
@@ -9,8 +9,13 @@ renders without a daemon, a terminal, or ANSI parsing.  Stream mode
 tails telemetry JSONL files: ``level`` records feed the sparkline,
 ``job_*`` records the table.  Daemon mode (:func:`poll_daemon_frame`)
 polls a running daemon: one ping, one status listing and one metrics
-scrape a frame, all answered from host dicts.  The dispatcher's poll
-comes with the fleet tier (ROADMAP A15e).
+scrape a frame, all answered from host dicts.  Fleet mode
+(:func:`poll_dispatch_frame`, ``cli.py top --dispatch``) polls a
+dispatcher: one ``ping`` (each backend's health, score and stickiness)
+and one ``metrics --aggregate`` scrape a frame — the backend table, the
+fleet's job rollups, route/complete rate sparklines from successive
+polls' counter deltas, and p50/p99 from the ``ptt_fleet_*_seconds``
+histograms.
 """
 
 from __future__ import annotations
@@ -227,6 +232,188 @@ def poll_daemon_frame(client, model: TopModel) -> str:
         parts.append(f"occupancy {occ:.1%}")
     model.status_line = ", ".join(parts)
     return render_frame(model)
+
+
+# ---------------------------------------------------- fleet flight deck
+
+
+class FleetTopModel(TopModel):
+    """Everything one dispatcher frame renders: the per-backend
+    routing view, fleet job rollups, and histogram quantiles —
+    accumulated rates ride the inherited :attr:`rates` table."""
+
+    def __init__(self, source: str):
+        super().__init__(source)
+        self.backends: Dict[str, dict] = {}
+        self.job_counts: Dict[str, object] = {}
+        self.held = 0
+        self.persist_failures = 0
+        # [(family, p50_s, p99_s, count)] from the aggregate scrape
+        self.quantiles: List[tuple] = []
+        # (unix, {key: counter total}) of the previous poll, for the
+        # rate sparkline deltas
+        self._prev: Optional[tuple] = None
+
+
+def _fmt_lat(v) -> str:
+    """Seconds -> table cell ('3.2ms' / '1.4s' / '-')."""
+    if v is None:
+        return "-"
+    v = float(v)
+    if v < 1.0:
+        return f"{v * 1000.0:.1f}ms"
+    return f"{v:.2f}s"
+
+
+def hist_quantiles(fams, types) -> List[tuple]:
+    """(family, p50_s, p99_s, count) for every histogram family in a
+    parsed exposition — the dispatcher's own rollup samples only
+    (per-``backend``-labelled copies from an aggregate scrape are
+    the SAME observations re-emitted, and double-counting them would
+    skew every quantile)."""
+    from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+
+    out: List[tuple] = []
+    for name in sorted(types):
+        if types[name] != "histogram":
+            continue
+        pairs = []
+        for labels, v in fams.get(name + "_bucket", []):
+            if labels.get("backend") or labels.get("le") is None:
+                continue
+            pairs.append((float(labels["le"]), v))
+        count = 0.0
+        for labels, v in fams.get(name + "_count", []):
+            if not labels.get("backend"):
+                count = v
+        if not pairs or count <= 0:
+            continue
+        out.append(
+            (
+                name,
+                metrics_mod.histogram_quantile(0.5, pairs),
+                metrics_mod.histogram_quantile(0.99, pairs),
+                int(count),
+            )
+        )
+    return out
+
+
+def render_fleet_frame(
+    model: FleetTopModel, now: Optional[float] = None
+) -> str:
+    """One fleet dashboard frame (pure function over the model, like
+    :func:`render_frame` — the smoke test renders without a
+    dispatcher or a terminal)."""
+    now = time.time() if now is None else now
+    lines: List[str] = []
+    d = model.daemon
+    head = f"tpu-tlc top — fleet @ {model.source}"
+    if d:
+        head += (
+            f"  (dispatcher pid {d.get('pid', '?')}, up "
+            f"{float(d.get('uptime_s', 0)):.0f}s, "
+            f"{len(model.backends)} backend(s))"
+        )
+    lines.append(head)
+    lines.append("=" * min(len(head), 78))
+    if model.backends:
+        lines.append(
+            f"{'BACKEND':<28} {'STATE':<6} {'SCORE':>7} {'QUEUE':>5} "
+            f"{'RUN':>4} {'INFL':>4} {'SHED':>5} {'WARM':>4} "
+            f"{'STICKY':>6}"
+        )
+        for addr in sorted(model.backends):
+            b = model.backends[addr]
+            lines.append(
+                f"{addr[:28]:<28} {str(b.get('state', '?'))[:6]:<6} "
+                f"{float(b.get('score', 0)):>7.1f} "
+                f"{b.get('queue_depth', 0):>5} "
+                f"{b.get('running', 0):>4} "
+                f"{b.get('inflight', 0):>4} "
+                f"{fmt_si(b.get('sheds', 0)):>5} "
+                f"{b.get('warmed', 0):>4} "
+                f"{b.get('sticky_tenants', 0):>6}"
+            )
+    else:
+        lines.append("(no backends)")
+    jc = model.job_counts or {}
+    jobs_bit = ", ".join(
+        f"{k} {jc[k]}" for k in sorted(jc)
+    ) or "none"
+    lines.append(
+        f"jobs: {jobs_bit} | held {model.held} | "
+        f"persist failures {model.persist_failures}"
+    )
+    rate_bits = []
+    for key, title in (("routes", "routes"), ("completes", "done")):
+        hist = model.rates.get(key) or []
+        if hist:
+            rate_bits.append(
+                f"{title} {sparkline(hist)} {hist[-1]:.2f}/s"
+            )
+    if rate_bits:
+        lines.append("  ".join(rate_bits))
+    if model.quantiles:
+        lines.append("")
+        lines.append(
+            f"{'LATENCY':<32} {'P50':>9} {'P99':>9} {'N':>7}"
+        )
+        for name, p50, p99, n in model.quantiles:
+            short = name
+            if short.startswith("ptt_fleet_"):
+                short = short[len("ptt_fleet_"):]
+            if short.endswith("_seconds"):
+                short = short[: -len("_seconds")]
+            lines.append(
+                f"{short:<32} {_fmt_lat(p50):>9} {_fmt_lat(p99):>9} "
+                f"{n:>7}"
+            )
+    lines.append("")
+    lines.append(time.strftime("%H:%M:%S", time.localtime(now)))
+    return "\n".join(lines)
+
+
+def poll_dispatch_frame(client, model: FleetTopModel) -> str:
+    """One dispatcher poll -> updated model -> rendered fleet frame:
+    ``ping`` for the routing view, ``metrics(aggregate=True)`` for
+    rollups + histograms; counter deltas between successive polls
+    feed the rate sparklines."""
+    from pulsar_tlaplus_tpu_torch.obs import metrics as metrics_mod
+
+    pong = client.ping()
+    model.daemon = {
+        k: pong.get(k) for k in ("pid", "uptime_s", "warmed")
+    }
+    model.backends = pong.get("backends_detail") or {
+        a: {"state": s}
+        for a, s in (pong.get("backends") or {}).items()
+    }
+    model.job_counts = pong.get("jobs") or {}
+    model.held = int(pong.get("held") or 0)
+    model.persist_failures = int(pong.get("persist_failures") or 0)
+    text = client.metrics(aggregate=True)
+    model.metrics_text = text
+    fams, types = metrics_mod.parse_exposition(text)
+    model.quantiles = hist_quantiles(fams, types)
+
+    def total(name: str) -> float:
+        return sum(v for _labels, v in fams.get(name, []))
+
+    now = time.time()
+    totals = {
+        "routes": total("ptt_fleet_routes_total"),
+        "completes": total("ptt_fleet_job_e2e_seconds_count"),
+    }
+    if model._prev is not None:
+        prev_t, prev_totals = model._prev
+        dt = max(now - prev_t, 1e-9)
+        for key, cur in totals.items():
+            model.note_rate(
+                key, max(cur - prev_totals.get(key, 0.0), 0.0) / dt
+            )
+    model._prev = (now, totals)
+    return render_fleet_frame(model)
 
 
 # ------------------------------------------------------------ stream mode

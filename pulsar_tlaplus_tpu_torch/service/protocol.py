@@ -37,9 +37,10 @@ from typing import Iterator, Optional
 # scheduler state + last-fetched engine stats — a scrape never adds a
 # device sync.
 # ``warm_list``/``warm_offer``/``warm_pull``/``warm_push`` are the fleet
-# replication verbs (the dispatcher moves a finished job's warm artifact
-# between backends); the port's daemon answers them with a typed
-# ``bad_request`` until the fleet tier lands (ROADMAP A15e).
+# replication verbs (``fleet/replicate.py``): the dispatcher sieves a
+# completed job's warm artifact across backends — digests first, only the
+# blobs a peer is missing, each delta-compressed with the plane codec
+# (``store/compress.py``).
 OPS = (
     "ping", "submit", "status", "result", "cancel", "watch",
     "metrics", "shutdown",

@@ -13,8 +13,8 @@ process exits 0 — ``serve --recover`` then completes the queue with the
 same results.
 
 The fleet's artifact replication ops (``warm_list``, ``warm_offer``,
-``warm_pull``, ``warm_push``) answer a typed ``bad_request`` until the
-fleet tier is ported (ROADMAP A15e).
+``warm_pull``, ``warm_push``) serve the dispatcher (``fleet/``): they
+answer the unix socket, or the ``auth.FLEET_TENANT`` token over TCP.
 """
 
 from __future__ import annotations
@@ -659,19 +659,102 @@ class ServiceDaemon:
 
     # ------------------------------------------- fleet replication
 
-    def _fleet_refusal(self, req, w) -> None:
+    def _fleet_allowed(self, req, w) -> bool:
+        """The warm_* replication verbs are fleet-internal: trusted
+        unix-socket callers, or the TCP tenant named
+        ``auth.FLEET_TENANT`` (the dispatcher's own token).  An
+        ordinary tenant token must not be able to siphon the warm
+        store off a backend."""
+        if req.get("_tenant") in (
+            authmod.LOCAL_TENANT, authmod.FLEET_TENANT
+        ):
+            return True
         protocol.send_json(
             w,
             protocol.error_response(
-                f"{req.get('op')}: the fleet's artifact replication is "
-                "not ported yet (ROADMAP A15e)"
+                "warm replication verbs are fleet-internal "
+                f"(tenant {authmod.FLEET_TENANT!r} or the unix "
+                "socket)",
+                code="auth",
             ),
         )
+        return False
 
-    _op_warm_list = _fleet_refusal
-    _op_warm_offer = _fleet_refusal
-    _op_warm_pull = _fleet_refusal
-    _op_warm_push = _fleet_refusal
+    def _fleet_store(self, w):
+        """The warm store, or None after replying with the typed
+        refusal a dispatcher logs as ``offer_refused`` — a backend
+        serving with ``--warm-max-bytes 0`` has nothing to sieve."""
+        store = self.sched.warm_store
+        if store is None:
+            protocol.send_json(
+                w,
+                protocol.error_response(
+                    "warm store disabled on this backend "
+                    "(--warm-max-bytes 0)"
+                ),
+            )
+        return store
+
+    def _op_warm_list(self, req, w) -> None:
+        from pulsar_tlaplus_tpu_torch.fleet import replicate as replmod
+
+        if not self._fleet_allowed(req, w):
+            return
+        store = self._fleet_store(w)
+        if store is None:
+            return
+        protocol.send_json(
+            w,
+            {"ok": True, "artifacts": replmod.list_artifacts(store)},
+        )
+
+    def _op_warm_offer(self, req, w) -> None:
+        from pulsar_tlaplus_tpu_torch.fleet import replicate as replmod
+
+        if not self._fleet_allowed(req, w):
+            return
+        store = self._fleet_store(w)
+        if store is None:
+            return
+        manifest = req.get("manifest")
+        if not isinstance(manifest, dict):
+            raise ValueError("warm_offer needs a manifest object")
+        protocol.send_json(
+            w, {"ok": True, **replmod.diff_needed(store, manifest)}
+        )
+
+    def _op_warm_pull(self, req, w) -> None:
+        from pulsar_tlaplus_tpu_torch.fleet import replicate as replmod
+
+        if not self._fleet_allowed(req, w):
+            return
+        store = self._fleet_store(w)
+        if store is None:
+            return
+        out = replmod.read_blob(
+            store, str(req["config_sig"]), str(req["rel"])
+        )
+        protocol.send_json(w, {"ok": True, **out})
+
+    def _op_warm_push(self, req, w) -> None:
+        from pulsar_tlaplus_tpu_torch.fleet import replicate as replmod
+
+        if not self._fleet_allowed(req, w):
+            return
+        store = self._fleet_store(w)
+        if store is None:
+            return
+        adir, reason = replmod.install_push(
+            store, req.get("manifest"), req.get("blobs") or {}
+        )
+        protocol.send_json(
+            w,
+            {
+                "ok": True,
+                "installed": adir is not None,
+                "reason": reason,
+            },
+        )
 
     def _op_shutdown(self, req, w) -> None:
         if req.get("_tenant") != authmod.LOCAL_TENANT:

@@ -24,6 +24,15 @@ the engines advance:
     PTT_FAULT=torn@warmwrite:2      warm-artifact write 2 publishes half
                                     a manifest (kill@warmwrite: dies
                                     between frame and manifest)
+    PTT_FAULT=partition@backend:3   the dispatcher's backend poll 3's
+                                    backend turns unreachable (alive,
+                                    partitioned) for a drain-length window
+    PTT_FAULT=slow@conn:2           the dispatcher's outbound poll 2 stalls
+                                    past its timeout (a hung backend)
+    PTT_FAULT=flap@backend:5        backend poll 5's backend starts a
+                                    die/return cycle (drain, one clean
+                                    poll, drain again: the readmission
+                                    hysteresis drill)
     PTT_FAULT=oom@level:7,kill@level:9   comma-separated specs compose
 
 Syntax ``kind@site:count``.  The sites the port's engines advance:
@@ -33,11 +42,13 @@ frame sequence number), ``spill`` (the tiered store's spill-write
 sequence), ``sweep`` (the liveness sweep's chunk) and ``segment`` (the
 simulator's segment epoch).  The daemon (``service/``) and the warm store
 (``warm/store.py``) advance ``conn`` (accepted connections), ``line``
-(protocol lines sent), ``persist`` (queue.json snapshots), ``warm``
-(artifact verifications) and ``warmwrite`` (artifact writes).  The parser
-accepts every kind of the JAX package (its fleet kinds too: the same
-string parses to the same schedule); the fleet's ``partition``, ``slow``
-and ``flap`` wait for the dispatcher (ROADMAP A15e).  Each spec fires at
+(protocol lines sent), ``persist`` (queue.json snapshots; the
+dispatcher's fleet_jobs.json snapshots too), ``warm`` (artifact
+verifications) and ``warmwrite`` (artifact writes).  The fleet's
+registry (``fleet/registry.py``) advances ``backend`` (every individual
+backend health poll) and ``conn`` (its outbound polls, for ``slow``), and
+realizes ``partition``, ``slow`` and ``flap`` there.  The same string
+parses to the same schedule as in the JAX package.  Each spec fires at
 most once per process, so a run that recovers from an injected fault and
 re-runs the same level is not injected again.
 

@@ -274,8 +274,8 @@ class WarmStore:
         blobs: Dict[str, bytes],
         reuse_from: Optional[str] = None,
     ) -> Tuple[Optional[str], str]:
-        """Install a replicated artifact (the fleet tier's push, ROADMAP
-        A15e): ``manifest`` is the owning
+        """Install a replicated artifact (the fleet's ``warm_push``,
+        ``fleet/replicate.install_push``): ``manifest`` is the owning
         daemon's published manifest verbatim (its ``files`` digests
         are the contract), ``blobs`` maps the rels the sieve shipped
         to their decoded bytes, and rels listed in the manifest but

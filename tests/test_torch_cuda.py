@@ -967,3 +967,70 @@ def test_daemon_refuses_more_slots_than_cards(card, tune_dir):
     assert [d.index for d in ServiceConfig(
         state_dir=str(tune_dir / "s"), devices=n).slot_devices()] == \
         list(range(n))
+
+
+def test_fleet_of_two_backends_on_the_card(card, tune_dir):
+    """Two daemons with a slot each on the one card behind a dispatcher:
+    the shipped cfg routed to 45,198 / 20, and a truncated job's artifact
+    replicated to the peer, where a resubmit continues from it to the
+    CPU run's counts."""
+    import shutil
+    import tempfile
+    import time
+
+    from pulsar_tlaplus_tpu_torch.fleet.dispatcher import (
+        FleetConfig,
+        FleetDispatcher,
+    )
+    from pulsar_tlaplus_tpu_torch.service.client import ServiceClient
+    from pulsar_tlaplus_tpu_torch.service.scheduler import ServiceConfig
+    from pulsar_tlaplus_tpu_torch.service.server import ServiceDaemon
+
+    root = tempfile.mkdtemp(prefix="pttc")  # socket paths: 107 bytes
+    shipped = os.path.join(SPECS, "compaction.cfg")
+    daemons = [ServiceDaemon(ServiceConfig(
+        state_dir=os.path.join(root, n), slice_s=0.5, **DAEMON_GEOM))
+        for n in ("b0", "b1")]
+    disp = None
+    try:
+        for d in daemons:
+            assert d.sched.pool.device.type == "cuda"
+            d.start()
+        addrs = [d.config.socket_path for d in daemons]
+        disp = FleetDispatcher(FleetConfig(
+            state_dir=os.path.join(root, "d"), backends=tuple(addrs),
+            health_interval_s=0.2))
+        disp.start()
+        cl = ServiceClient(disp.config.socket_path, timeout=600.0)
+        r = cl.submit("compaction", shipped, full=True)
+        w = cl.wait(r["job_id"], timeout=600.0)
+        assert r["backend"] in addrs and w["backend"] == r["backend"]
+        assert (w["result"]["distinct_states"],
+                w["result"]["diameter"]) == (45198, 20)
+        probe = cl.submit("bookkeeper", shipped.replace(
+            "compaction.cfg", "bookkeeper.cfg"), max_states=150, full=True)
+        assert cl.wait(probe["job_id"], timeout=600.0)["result"][
+            "status"] == "truncated"
+        peer = daemons[1 - addrs.index(probe["backend"])]
+        end = time.time() + 120
+        while not [m for _a, m in peer.sched.warm_store.manifests()
+                   if m.get("spec") == "bookkeeper"]:
+            assert time.time() < end, "the artifact never reached the peer"
+            time.sleep(0.1)
+        pcl = ServiceClient(peer.config.socket_path, timeout=600.0)
+        wide = pcl.submit("bookkeeper", shipped.replace(
+            "compaction.cfg", "bookkeeper.cfg"), full=True)
+        assert wide["warm_mode"] == "continue"
+        got = pcl.wait(wide["job_id"], timeout=600.0)["result"]
+        cold = _daemon_solo(shipped.replace("compaction.cfg",
+                                            "bookkeeper.cfg"),
+                            "bookkeeper", "cpu")
+        assert got["warm"] == "continue"
+        assert (got["distinct_states"], got["level_sizes"]) == (
+            cold.distinct_states, cold.level_sizes)
+    finally:
+        if disp is not None:
+            disp.shutdown()
+        for d in daemons:
+            d.shutdown()
+        shutil.rmtree(root, ignore_errors=True)

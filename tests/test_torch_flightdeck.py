@@ -270,19 +270,14 @@ def test_cli_metrics_and_top_equal_jax(files, name, monkeypatch):
     ["top", "--dispatch", "--once"],
 ])
 def test_daemon_and_fleet_modes_are_refused(argv, tmp_path):
-    """The daemon modes with no daemon listening exit 2 (transport, never
-    a verdict), as the JAX CLI does; the fleet modes exit 2 naming the
-    dispatcher, which is not ported yet."""
+    """The daemon and fleet modes with no daemon or dispatcher listening
+    exit 2 (transport, never a verdict), as the JAX CLI does."""
     rc, out, err = _run(cli.main, argv + ["--retries", "0", "--socket",
                                           str(tmp_path / "none.sock")])
     assert rc == 2 and not out
-    if "--aggregate" in argv or "--dispatch" in argv:
-        assert "needs the fleet dispatcher: not ported yet (ROADMAP " \
-            "A15e)" in err
-    else:
-        assert "no daemon socket" in err
-        assert _run(jcli.main, argv + ["--retries", "0", "--socket", str(
-            tmp_path / "none.sock")])[0] == 2
+    assert "no daemon socket" in err
+    assert _run(jcli.main, argv + ["--retries", "0", "--socket", str(
+        tmp_path / "none.sock")])[0] == 2
 
 
 def test_cli_check_flags_reach_the_engine(tmp_path):

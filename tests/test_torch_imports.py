@@ -72,3 +72,6 @@ def test_port_imports_no_jax():
                 "service.admission", "service.scheduler", "service.server",
                 "service.client"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+    for mod in ("fleet", "fleet.replicate", "fleet.registry",
+                "fleet.dispatcher"):
+        assert f"pulsar_tlaplus_tpu_torch.{mod}" in names

@@ -718,10 +718,16 @@ def test_daemon_protocol_roundtrip(pool, cfg_dir, sdir, jax_solo):
         text = cl.metrics()
         assert 'ptt_jobs{state="done"} 2' in text
         assert metrics_mod.validate_exposition(text) == []
-        for op in ("warm_list", "warm_offer", "warm_pull", "warm_push"):
-            resp = protocol.request(config.socket_path, op)
-            assert not resp["ok"] and resp["code"] == "bad_request"
-            assert "A15e" in resp["error"]
+        # the fleet's replication ops answer the unix socket: the list,
+        # and a typed bad_request for a malformed offer, pull or push
+        resp = protocol.request(config.socket_path, "warm_list")
+        assert resp["ok"] and isinstance(resp["artifacts"], list)
+        for op, kw in (("warm_offer", {}),
+                       ("warm_offer", {"manifest": {"files": {}}}),
+                       ("warm_pull", {"config_sig": "nope", "rel": "x"}),
+                       ("warm_push", {"manifest": "x", "blobs": {}})):
+            resp = protocol.request(config.socket_path, op, **kw)
+            assert not resp["ok"] and resp["code"] == "bad_request", (op, resp)
         resp = protocol.request(config.socket_path, "frobnicate")
         assert not resp["ok"] and "unknown op" in resp["error"]
         with protocol.connect(config.socket_path) as s:
@@ -768,6 +774,11 @@ def test_tcp_auth_quota_and_cli_exit_codes(pool, cfg_dir, sdir):
             with pytest.raises(SystemExit) as ei:
                 cli.main(argv)
             assert ei.value.code == code, argv
+        # the replication ops are the fleet's: a tenant token other than
+        # the fleet tenant's is refused
+        for op in ("warm_list", "warm_offer", "warm_pull", "warm_push"):
+            resp = protocol.request(addr, op, auth="test-beta-token-22")
+            assert not resp["ok"] and resp["code"] == "auth", (op, resp)
         # the listing is tenant-scoped over TCP
         assert ServiceClient(addr, token="test-alpha-token-1").status() == []
         assert [j["job_id"] for j in cl.status()] == [jid]
@@ -853,7 +864,10 @@ def test_cli_serve_submit_status_watch_cancel(cfg_dir, sdir):
             f"{queued}: done")
         assert "daemon_up 1" in _client(["metrics", *d], env, 0)
         assert "compaction" in _client(["top", "--once", *d], env, 0)
-        _client(["metrics", "--aggregate", *d], env, 2)
+        # --aggregate against a daemon (not a dispatcher): the daemon's
+        # own families, as the JAX CLI answers
+        assert "daemon_up 1" in _client(["metrics", "--aggregate", *d],
+                                        env, 0)
         # SIGTERM while the big job runs: the queue persists, exit 0
         srv.send_signal(signal.SIGTERM)
         assert srv.wait(timeout=WAIT) == 0
