@@ -55,10 +55,10 @@ each with the kernels' launch counters zeroed before and read after:
   and the 253,361-state config, both compaction counterexamples
   replayed step by step through the compiled ``successors`` on the card
   and the interpreter; compiled compaction.tla at the 9m binding in the
-  fused level and the stage loop in turns, cut after level 13, level
+  fused level and the stage loop in turns, cut after level 11, level
   sizes equal to the hand model's, its first 9 levels profiled, with
   the host seconds per window; the four scaled bindings to their pins
-  (geo_exact cut after level 16, geo_hashed after level 11:
+  (geo_exact cut after level 14, geo_hashed after level 11:
   ``COMPILED_*_LEVELS``); a tiered run equal to its untiered run;
   liveness to the ``compiled_full`` pins and the seeded bugs by
   simulation for seeds 0-2 in segments of 16 steps.  Phase 2f holds K2
@@ -177,7 +177,7 @@ under 1 GiB over the phase's start), the priority job runs first, and
 the scaled job's logs (from its harvested artifact frame) equal the solo
 run's; a ``metrics`` scrape adds no synchronizing call, at a level
 boundary of the running scaled job and on the idle daemon; 54 truncates the
-scaled binding at 8,388,608 states and resubmits it (``continue``) to
+scaled binding at 1,048,576 states and resubmits it (``continue``) to
 the solo run's count, level sizes and logs; 55 reseeds the 9m tier
 (``NINE_M_CFG_TEXT``, complete at 9,445,152 states) from MaxCrashTimes 2
 to 3 (its key set equal to a cold run's) and demotes a third submit
@@ -220,6 +220,23 @@ scrape error with one backend down), ``top --dispatch``, ``metrics
 --stream`` of the dispatcher's stream against its live families, every
 stream valid and ``trace`` stitching them.  ``fleet_launches`` (62)
 counts the in-process phases 58-59: K0, K1, K2 and H1 launched, K3 not.
+
+Phases 63-65 (``fuzz_path``): 63 builds the native CPU baseline checker
+(``native/compaction_bfs.cpp``, g++) and runs the shipped cfg and the
+253,361-state config at one thread and at every host CPU, each equal to
+the card engine's level sizes of phases 3 and 4, then the scaled binding
+with every host CPU for 15 s (a 2^27-slot table): each level it
+completes equals phase 6's cumulative total, and its states/s prints
+beside phase 6's card rate as a diagnostic (no bound).  64 runs
+``scripts/torch_fuzz.py`` on the card: seed 0, one binding a spec (4
+records, 0 mismatches against the interpreters, both verdict classes)
+and bookkeeper's widen drill at seed 5 (``reseed``, rows replayed and
+reused); the device side again on the CPU gives the same summaries.  65
+runs ``simulate -seed 1 -max-steps 100000 -rounds 2`` (stopped by the
+rounds, as ``StreamingSimulator(max_rounds=2)``), ``check -profile``
+(45,198 / 20, a Chrome trace naming K1, K2 and H1) and ``-profile`` with
+``-xprof`` (refused).  ``fuzz_launches`` (``[65b ...]``) counts phase
+64's card runs: K0, K1, K2 and H1 launched, K3 not.
 
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
@@ -328,12 +345,12 @@ TIER9M_LEVELS = [1, 10, 100, 999, 9918, 38601, 68733, 119133, 187335,
                  196830]
 # the compiled path's runs cut in depth at a level boundary (every
 # window size stops there alike), to keep the script inside its time
-# limit: the 9m binding after level 13 and its profile after level 9
-# (phase 27), geo_exact after level 16 and geo_hashed after level 11
+# limit: the 9m binding after level 11 and its profile after level 9
+# (phase 27), geo_exact after level 14 and geo_hashed after level 11
 # (phase 28); their level sizes are held to the pins' prefixes
-COMPILED_9M_LEVELS = 13
+COMPILED_9M_LEVELS = 11
 COMPILED_9M_PROFILE_LEVELS = 9
-COMPILED_SCALED_LEVELS = {"geo_exact": 16, "geo_hashed": 11}
+COMPILED_SCALED_LEVELS = {"geo_exact": 14, "geo_hashed": 11}
 # phase 30's simulations of the seeded bugs on the compiled model: steps
 # a segment (a run stops at the end of the segment that finds its bug)
 COMPILED_SIM_SEGMENT = 16
@@ -652,7 +669,7 @@ INVARIANTS
 """
 SERVICE_CAP = SCALED_TOTAL + 1
 SERVICE_SCALED_STATES = 19_618_816  # level 7's first window at the cap
-SERVICE_FIRST_CAP = 8_388_608  # phase 54's truncated submit
+SERVICE_FIRST_CAP = 1_048_576  # phase 54's truncated submit (inside level 6)
 SERVICE_WARM_BYTES = 8 << 30  # holds one scaled artifact (~2 GB)
 SERVICE_WAIT = 300.0  # every wait of phases 53-56 has its own limit
 TOKENS_JSON = {"tokens_v": 1, "tenants": [
@@ -2007,6 +2024,249 @@ def fleet_path(torch, dev, kernels, failures, solo, ref):
     return fleet_launches, notes
 
 
+# ---- the fuzz path (phases 63-65): the native CPU baseline beside the
+# card engine, the differential fuzz harness on the card, and the CLI's
+# simulate and check -profile flags
+#
+# phase 63's scaled baseline: seconds of budget and table slots (log2),
+# bench.py's settings for its vs_baseline run but the budget
+BASELINE_SCALED_BUDGET = 15.0
+BASELINE_SCALED_TABLE_LOG2 = 27
+# phase 65's simulate: 512 walkers of depth 64 make 32,768 steps a round,
+# so -rounds 2 binds before -max-steps
+SIM_CLI_WALKERS = 512
+SIM_CLI_MAX_STEPS = 100_000
+
+
+def _load_fuzz():
+    """``scripts/torch_fuzz.py`` loaded by path (a fresh module)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz", os.path.join(ROOT, "scripts", "torch_fuzz.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cum(sizes):
+    return list(itertools.accumulate(int(n) for n in sizes))
+
+
+def fuzz_path(torch, dev, kernels, failures, ref):
+    """Phases 63-65: 63 the native baseline checker
+    (``native/compaction_bfs.cpp``) against the card engine's level
+    sizes of phases 3-4 and phase 6's cumulative levels, with its rate
+    beside the card's as a diagnostic; 64 ``scripts/torch_fuzz.py`` on
+    the card (seed 0, one binding a spec, and bookkeeper's widen drill
+    at seed 5), each device summary equal to the same run on the CPU;
+    65 ``simulate -seed/-max-steps/-rounds`` and ``check -profile`` on the
+    card.  ``ref``: phase 3's and 4's level sizes, phase 6's level sizes
+    and rate, the card's name and power limit.  Returns
+    ``fuzz_launches``: the kernels' launch counts of phase 64's card
+    runs (``[65b ...]`` prints them; K0, K1, K2 and H1 must be above 0,
+    K3 at 0)."""
+    from pulsar_tlaplus_tpu_torch import cli, native
+    from pulsar_tlaplus_tpu_torch.models.compaction import CompactionModel
+    from pulsar_tlaplus_tpu_torch.ref import pyeval
+    from pulsar_tlaplus_tpu_torch.sim.engine import StreamingSimulator
+
+    ncpu = os.cpu_count() or 1
+    notes = {}
+
+    def baseline():
+        t = time.time()
+        native.build_baseline()
+        build_s = time.time() - t
+        full_cfg = dataclasses.replace(pyeval.SHIPPED_CFG,
+                                       model_producer=True,
+                                       retain_null_key=False)
+        out = [f"built in {build_s:.1f}s"]
+        for name, c, sizes in (("shipped", pyeval.SHIPPED_CFG,
+                                ref["shipped_levels"]),
+                               ("full", full_cfg, ref["full_levels"])):
+            for threads in sorted({1, ncpu}):
+                r = native.run_baseline(
+                    c.message_sent_limit, c.num_keys, c.num_values,
+                    c.compaction_times_limit, c.max_crash_times,
+                    c.model_producer, c.retain_null_key, 300.0,
+                    threads=threads, table_log2=22, with_levels=True)
+                lv = r["level_records"]
+                got = (r["distinct_states"], r["levels"], r["truncated"],
+                       [x["new"] for x in lv], [x["cum"] for x in lv])
+                want = (sum(sizes), len(sizes), False, list(sizes[1:]),
+                        _cum(sizes)[1:])
+                if got != want:
+                    raise AssertionError(
+                        f"{name} at {threads} threads: {got[:3]} levels "
+                        f"{got[3]} against the card's {want[:3]} {want[3]}")
+                out.append(f"{name} {r['distinct_states']}/{r['levels']} "
+                           f"at {threads} threads in {r['wall_s']}s")
+        c = ref["scaled_cfg"]
+        r = native.run_baseline(
+            c.message_sent_limit, c.num_keys, c.num_values,
+            c.compaction_times_limit, c.max_crash_times, c.model_producer,
+            c.retain_null_key, BASELINE_SCALED_BUDGET, threads=ncpu,
+            table_log2=BASELINE_SCALED_TABLE_LOG2, with_levels=True)
+        card = _cum(ref["scaled_levels"][:ref["scaled_complete"]])
+        done = [x for x in r["level_records"] if x["complete"]]
+        held = [x for x in done if x["level"] <= len(card)]
+        bad = [(x["level"], x["cum"], card[x["level"] - 1]) for x in held
+               if x["cum"] != card[x["level"] - 1]]
+        if bad or len(held) < 4:
+            raise AssertionError(
+                f"scaled: completed levels {[x['level'] for x in done]}, "
+                f"(level, baseline cum, card cum) off: {bad}; the card "
+                f"completed {len(card)}")
+        notes["baseline_scaled"] = dict(
+            states_per_sec=r["states_per_sec"], distinct=r["distinct_states"],
+            wall_s=r["wall_s"], levels_completed=len(done), threads=ncpu,
+            card_states_per_sec=ref["scaled_rate"])
+        out.append(
+            f"scaled binding, {ncpu} threads, {BASELINE_SCALED_BUDGET:.0f}s "
+            f"budget: levels 2-{held[-1]['level']} complete and equal to "
+            f"phase 6's cumulative totals ({len(done) - len(held)} "
+            f"completed past phase 6's cut), {r['distinct_states']} states "
+            f"(truncated {r['truncated']})")
+        # a diagnostic, not a benchmark: the two rates are of different
+        # runs (the baseline's partial level 7 counts, the card's is cut
+        # at 17,787,335 states) and no bound is set on either
+        out.append(
+            f"diagnostic: baseline {r['states_per_sec']:.0f} st/s on "
+            f"{ncpu} host CPUs; card phase 6 {ref['scaled_rate']:.0f} st/s "
+            f"({ref['smi']})")
+        return "; ".join(out)
+
+    fuzz_launches = {}
+
+    def fuzz_on_card():
+        fz = _load_fuzz()
+        kernels.reset_launches()
+        records, bad = fz.run(seed=0, per_spec=1, log=lambda m: None)
+        widen, wbad = fz.run_widen(seed=5, per_spec=1,
+                                   specs=("bookkeeper",), log=lambda m: None)
+        fuzz_launches.update(kernels.LAUNCHES)
+        verdicts = {r["device"]["violation"] for r in records}
+        if len(records) != 4 or bad or None not in verdicts \
+                or len(verdicts) < 2:
+            raise AssertionError(f"fuzz: {len(records)} records, verdicts "
+                                 f"{verdicts}, failures {bad}")
+        w = widen[0]
+        if wbad or (w.get("plan") or {}).get("mode") != "reseed" or \
+                w["reseed"]["replay_rows"] < 1 or \
+                w["reseed"]["reused_rows"] < 1:
+            raise AssertionError(f"widen: {w}")
+        # the device side alone again, on the CPU: the same summaries
+        cpu, _ = fz.run(seed=0, per_spec=1, log=lambda m: None,
+                        device="cpu")
+        off = [(a["spec"], a["device"], b["device"])
+               for a, b in zip(records, cpu) if a["device"] != b["device"]
+               or a["binding"] != b["binding"]]
+        wcpu, _ = fz.run_widen(seed=5, per_spec=1, specs=("bookkeeper",),
+                               log=lambda m: None, device="cpu")
+        keys = ("binding", "base", "plan", "reseed", "warm", "cold")
+        if off or any(w[k] != wcpu[0][k] for k in keys):
+            raise AssertionError(f"card against CPU: {off}; widen {w} vs "
+                                 f"{wcpu[0]}")
+        notes["fuzz"] = [dict(spec=r["spec"], **r["device"])
+                         for r in records]
+        return (
+            "seed 0: " + ", ".join(
+                f"{r['spec']} {r['device']['distinct_states']} "
+                f"{r['device']['violation'] or 'clean'}" for r in records)
+            + f"; widen bookkeeper seed 5: reseed, replay "
+            f"{w['reseed']['replay_rows']} reused {w['reseed']['reused_rows']}"
+            f" rows, warm {w['warm']['distinct_states']} cold "
+            f"{w['cold']['distinct_states']}; every device summary equal to "
+            f"the CPU's; launches {fuzz_launches}")
+
+    def cli_repairs():
+        out = []
+        tail = ["-walkers", str(SIM_CLI_WALKERS), "-no-profile"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["simulate", "compaction", "-seed", "1",
+                           "-max-steps", str(SIM_CLI_MAX_STEPS), "-rounds",
+                           "2", *tail])
+        sim = StreamingSimulator(
+            CompactionModel(pyeval.SHIPPED_CFG), n_walkers=SIM_CLI_WALKERS,
+            seed=1, max_steps=SIM_CLI_MAX_STEPS, max_rounds=2,
+            profile=None).run()
+        line = [ln for ln in buf.getvalue().splitlines()
+                if ln.startswith("Simulation:")]
+        want = (f"{sim.steps} steps, {sim.walks} completed walks")
+        if rc != 0 or len(line) != 1 or want not in line[0] or (
+                sim.steps, sim.walks) != (2 * SIM_CLI_WALKERS * 64,
+                                          2 * SIM_CLI_WALKERS):
+            raise AssertionError(f"simulate: rc {rc}, {line} against "
+                                 f"{want}\n{buf.getvalue()[-800:]}")
+        out.append(f"simulate -seed 1 -max-steps {SIM_CLI_MAX_STEPS} "
+                   f"-rounds 2: {want}, as StreamingSimulator(max_rounds=2)")
+        pdir = tempfile.mkdtemp(prefix="ptt_profile_")
+        try:
+            t = time.time()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                               "-config", os.path.join(SPECS,
+                                                       "compaction.cfg"),
+                               "-no-profile", "-profile", pdir])
+            wall = time.time() - t
+            text = buf.getvalue()
+            if rc != 0 or "45198 distinct states found, search depth " \
+                    "(diameter) 20." not in text:
+                raise AssertionError(f"check -profile: rc {rc}\n{text}")
+            (name,) = os.listdir(pdir)
+            size = os.path.getsize(os.path.join(pdir, name))
+            with open(os.path.join(pdir, name)) as f:
+                names = {e.get("name", "") for e in json.load(f)[
+                    "traceEvents"] if e.get("cat") == "kernel"}
+            syms = {k: any(k in n for n in names) for k in (
+                "member_kernel", "key_plane_kernel", "insert_tail_kernel")}
+            if not all(syms.values()):
+                raise AssertionError(f"check -profile: kernel symbols {syms}"
+                                     f" among {len(names)} kernel names")
+            out.append(f"check -profile: 45198/20, {len(names)} kernel "
+                       f"names (K1/K2/H1 present), trace {size} bytes, "
+                       f"{wall:.1f}s")
+        finally:
+            shutil.rmtree(pdir, ignore_errors=True)
+        both = tempfile.mkdtemp(prefix="ptt_profile_")
+        a, b = os.path.join(both, "a"), os.path.join(both, "b")
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["check", os.path.join(SPECS, "compaction.tla"),
+                          "-profile", a, "-xprof", b])
+            raise AssertionError("-profile with -xprof ran")
+        except SystemExit as e:
+            msg = str(e.code)
+        finally:
+            made = os.listdir(both)
+            shutil.rmtree(both, ignore_errors=True)
+        if "-profile" not in msg or "-xprof" not in msg or made:
+            raise AssertionError(f"-profile with -xprof: {msg} ({made})")
+        out.append("-profile with -xprof refused")
+        return "; ".join(out)
+
+    t63 = time.time()
+    _phase("63 the native baseline against the card engine", baseline,
+           failures)
+    _phase("64 the fuzz harness on the card (seed 0, widen seed 5)",
+           fuzz_on_card, failures)
+    torch.cuda.empty_cache()
+    _phase("65 simulate -seed/-max-steps/-rounds, check -profile",
+           cli_repairs, failures)
+    print(f"[65b launches on the fuzz path] {fuzz_launches} (phase 64's "
+          f"card runs; 63-65 {time.time() - t63:.1f}s)", flush=True)
+    print(f"[65b numbers] {json.dumps(notes, default=str)}", flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if fuzz_launches.get(name, 0) <= 0:
+            failures.append(f"65b: {name} never launched on the fuzz path")
+    if fuzz_launches.get("sieve_mask"):
+        failures.append("65b: K3 launched on the fuzz path (no hbm_budget "
+                        "there)")
+    return fuzz_launches
+
+
 class _HookView:
     """A wrapped suspend hook that reports its inner hook's
     ``resume_emitted`` (the scheduler reads it after the slice)."""
@@ -2847,22 +3107,33 @@ def _main() -> int:
         _phase(name, run, failures)
 
     def shipped():
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = cli.main(["check", os.path.join(SPECS, "compaction.tla"),
                            "-config", os.path.join(SPECS, "compaction.cfg")])
+        sys.stderr.write(err.getvalue())
+        # the level sizes of the run's progress lines (phase 63 holds the
+        # native baseline to them)
+        untiered["shipped_levels"] = [
+            int(n) for n in re.findall(r"level \d+: \+?(\d+)",
+                                       err.getvalue())]
         out = buf.getvalue()
         m = re.search(r"(\d+) distinct states found, search depth "
                       r"\(diameter\) (\d+)", out)
         got = (rc, m and (int(m.group(1)), int(m.group(2))))
         if got != (0, (45198, 20)) or "Error" in out:
             raise AssertionError(f"cli check: rc/counts {got}\n{out}")
+        lv = untiered["shipped_levels"]
+        if (len(lv), sum(lv)) != (20, 45198):
+            raise AssertionError(f"cli check: level lines {lv}\n"
+                                 f"{err.getvalue()[-1500:]}")
         return f"cli check: 45198 states, diameter 20, rc 0 ({out.splitlines()[-1]})"
 
+    # untiered results the tiered runs of phases 9 and 11 must equal (and
+    # phase 3's level sizes, for phase 63)
+    untiered = {}
     counted("3 shipped cfg (cli)", shipped)
 
-    # untiered results the tiered runs of phases 9 and 11 must equal
-    untiered = {}
     full_cfg = dataclasses.replace(
         pyeval.SHIPPED_CFG, model_producer=True, retain_null_key=False
     )
@@ -2946,6 +3217,7 @@ def _main() -> int:
             )
         untiered["scaled"] = (r.level_sizes, *ck.merged_logs())
         untiered["scaled_wall"] = r.wall_s
+        untiered["scaled_rate"] = r.states_per_sec
         nv = r.distinct_states
         untiered["scaled_rows"] = ck.last_bufs["rows"][: nv * ck.W].clone()
         untiered["scaled_peak"] = torch.cuda.max_memory_allocated(dev)
@@ -4028,10 +4300,12 @@ def _main() -> int:
         from pulsar_tlaplus_tpu_torch.ops.packing import smap
 
         notes = []
-        for inv, depth in (("CompactedLedgerLeak", 12),
-                           ("DuplicateNullKeyMessage", 4)):
-            cs, fspec = compile_spec("compaction", invariants=(inv,))
-            ck = DeviceChecker(cs)
+        bugs = (("CompactedLedgerLeak", 12), ("DuplicateNullKeyMessage", 4))
+        # one compiled model for both runs: its graphs are recorded once
+        cs, fspec = compile_spec("compaction",
+                                 invariants=tuple(inv for inv, _d in bugs))
+        for inv, depth in bugs:
+            ck = DeviceChecker(cs, invariants=(inv,))
             r = ck.run()
             if (r.violation, r.diameter, len(r.trace or ())) != (
                     inv, depth, depth):
@@ -5950,6 +6224,14 @@ def _main() -> int:
              scaled_peak=untiered["scaled_peak"],
              full_levels=[int(x) for x in untiered["full"][0]]))
 
+    # ---- 63-65: the native baseline, the fuzz harness, the CLI repairs
+    fuzz_launches = fuzz_path(torch, dev, kernels, failures, dict(
+        shipped_levels=untiered.get("shipped_levels", []),
+        full_levels=[int(x) for x in untiered["full"][0]],
+        scaled_levels=[int(x) for x in untiered["scaled"][0]],
+        scaled_complete=_cum(untiered["scaled"][0]).index(SCALED_TOTAL) + 1,
+        scaled_rate=untiered["scaled_rate"], scaled_cfg=scaled_cfg(),
+        smi=smi))
 
     if failures:
         print("\n".join(failures), file=sys.stderr)
@@ -5997,6 +6279,7 @@ def _main() -> int:
             tune_launches=tune_launches[name],
             service_launches=service_launches[name],
             fleet_launches=fleet_launches[name],
+            fuzz_launches=fuzz_launches.get(name, 0),
             **({"tune_shape": record["tune_kernels"][tk]}
                if (tk := {"member_block": "K1@16",
                           "insert_tail": "H1@32"}.get(name)) else {}),

@@ -9,14 +9,15 @@
         [-property NAME [-fairness none|wf_next] [-sweep-group G]]
         [-simulate N [-depth D] [-segment L] [-sim-seed S] [-sim-steps N]]
         [-checkpoint PATH [-recover]] [-metrics FILE] [-chunk N]
-        [-telemetry FILE] [-progress SEC] [-xprof DIR [-xprof-levels LO:HI]]
+        [-telemetry FILE] [-progress SEC]
+        [-profile DIR | -xprof DIR [-xprof-levels LO:HI]]
         [-engine device|host] [-visited fpset|sort] [-compact logshift|sort]
         [-sharded N [-slices S] [-sharded-engine device|host]
          [-sharded-dedup sort|hash] | -workers N]
         [-no-profile] [-adapt | -no-adapt]
     python -m pulsar_tlaplus_tpu_torch.cli simulate SPEC [-config FILE.cfg]
         [-invariant NAME ...] [-walkers N] [-depth D] [-segment L]
-        [-sim-seed S] [-sim-steps N] [-time-budget SEC] [-cpu]
+        [-seed S] [-max-steps N] [-rounds R] [-time-budget SEC] [-cpu]
         [-checkpoint PATH [-recover]] [-telemetry FILE] [-progress SEC]
         [-no-profile]
     python -m pulsar_tlaplus_tpu_torch.cli tune SPEC [-config FILE.cfg]
@@ -83,7 +84,8 @@ turns it off everywhere).  ``-telemetry FILE`` writes every engine's
 versioned JSONL event stream (``obs/telemetry.py``), ``-progress SEC``
 a TLC-style progress line that often (neither reads the device), and
 ``-xprof DIR`` a ``torch.profiler`` Chrome trace of the single-device
-engine's ``-xprof-levels`` window.  ``trace`` turns streams into a
+engine's ``-xprof-levels`` window (``-profile DIR``: of the whole check,
+on any path; not both).  ``trace`` turns streams into a
 Perfetto trace, ``metrics --stream`` into Prometheus text, ``top
 --stream`` into a dashboard, and ``ledger`` keeps the cross-run
 regression ledger.  ``serve`` runs the resident daemon (``service/``):
@@ -366,6 +368,7 @@ def _simulate(args, model, constants, invariants, n_walkers: int,
             segment_len=args.segment,
             seed=args.sim_seed,
             max_steps=args.sim_steps,
+            max_rounds=args.rounds,
             time_budget_s=time_budget,
             device="cpu" if args.cpu else None,
             progress=True,
@@ -803,20 +806,32 @@ def _positive_or_word(v: str):
     return n
 
 
-def _sim_args(p) -> None:
-    """The options ``check -simulate`` and ``simulate`` share."""
+def _sim_args(p, subcommand: bool = False) -> None:
+    """The options ``check -simulate`` and ``simulate`` share.  The
+    ``simulate`` subcommand (``subcommand``) also takes the JAX CLI's
+    spellings ``-seed`` and ``-max-steps`` (the ``-sim-*`` ones stay as
+    aliases) and ``-rounds``; ``check`` has the ``-sim-*`` ones only, as
+    in the JAX CLI."""
     p.add_argument("-depth", type=int, default=64,
                    help="steps per behavior before walkers restart "
                    "(TLC -simulate depth; default 64)")
     p.add_argument("-segment", type=int, default=None, metavar="STEPS",
                    help="steps per host read (clamped to a divisor of "
                    "-depth; default min(depth, 32))")
-    p.add_argument("-sim-seed", dest="sim_seed", type=int,
+    seed = ("-seed", "-sim-seed") if subcommand else ("-sim-seed",)
+    steps = ("-max-steps", "-sim-steps") if subcommand else ("-sim-steps",)
+    p.add_argument(*seed, dest="sim_seed", type=int,
                    default=0, help="seed of the walk stream, which is "
                    "deterministic given it (default 0)")
-    p.add_argument("-sim-steps", dest="sim_steps", type=int,
+    p.add_argument(*steps, dest="sim_steps", type=int,
                    default=None, help="total step budget across the "
                    "swarm (default: one depth round)")
+    if subcommand:
+        p.add_argument("-rounds", type=int, default=None, metavar="N",
+                       help="stop after N completed behavior rounds per "
+                       "walker")
+    else:
+        p.set_defaults(rounds=None)
 
 
 def _tel_args(p) -> None:
@@ -2046,6 +2061,11 @@ def main(argv=None) -> int:
         help="write a torch.profiler Chrome trace of the -xprof-levels "
         "window of the single-device engine into DIR")
     pc.add_argument(
+        "-profile", dest="profile_dir", metavar="DIR",
+        help="write a torch.profiler Chrome trace of the whole check "
+        "(model build, init, every level, the result) into DIR: CPU "
+        "activity, and CUDA activity on the card")
+    pc.add_argument(
         "-xprof-levels", metavar="LO:HI", default=None,
         help="BFS level window for -xprof (e.g. 6:7; default: the whole "
         "run)")
@@ -2117,7 +2137,7 @@ def main(argv=None) -> int:
     ps.add_argument("-walkers", type=int, default=None, metavar="N",
                     help="walker swarm width (default: the tuned "
                     "profile's, else 1024)")
-    _sim_args(ps)
+    _sim_args(ps, subcommand=True)
     ps.add_argument("-time-budget", dest="time_budget", type=float,
                     default=None, metavar="SEC", help="wall-clock budget")
     ps.add_argument("-cpu", action="store_true",
@@ -2147,7 +2167,37 @@ def main(argv=None) -> int:
             args.xprof_window = parse_level_window(args.xprof_levels)
         except ValueError as e:
             sys.exit(f"tpu-tlc: -xprof-levels: {e}")
+    if args.profile_dir and args.xprof:
+        # torch.profiler takes one session a process: the whole-check
+        # trace and the level window would collide mid-run
+        sys.exit("tpu-tlc: -profile and -xprof are mutually exclusive "
+                 "(both drive torch.profiler; pick the whole-check trace "
+                 "OR the level window)")
+    if args.profile_dir:
+        return _profiled_check(args)
     return _check(args)
+
+
+def _profiled_check(args) -> int:
+    """``check -profile DIR``: the whole check under one
+    ``torch.profiler`` session, its Chrome trace written to
+    ``DIR/check_<pid>.json`` however the check ends (an exit included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if not args.cpu and torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, f"check_{os.getpid()}.json")
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        return _check(args)
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"tpu-tlc: profile written to {path}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1227,6 +1227,12 @@ class Scheduler:
                     job.spec
                 ):
                     return demote(warm_plan.REASON_MODULE_EDIT)
+                # the plan read the manifest at submit: a later harvest
+                # for the same sig (another job's run) may have replaced
+                # the artifact with one past this job's budget, which
+                # the engine refuses to resume
+                if int(man.get("distinct_states") or 0) > ck.SCAP:
+                    return demote(warm_plan.REASON_BUDGET)
                 shutil.copyfile(
                     os.path.join(adir, warm_store.FRAME),
                     job.frame_path,

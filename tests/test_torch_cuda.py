@@ -1034,3 +1034,37 @@ def test_fleet_of_two_backends_on_the_card(card, tune_dir):
         for d in daemons:
             d.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def test_fuzz_bindings_on_card_equal_cpu(card):
+    """Seed 0's four fuzz bindings (``scripts/torch_fuzz.py``) on the
+    card: no mismatch against the interpreters, both verdict classes, and
+    each device summary equal to the same binding's run on the CPU."""
+    import importlib.util
+
+    root = os.path.dirname(SPECS)
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz", os.path.join(root, "scripts", "torch_fuzz.py"))
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    before = dict(kernels.LAUNCHES)
+    records, failures = fuzz.run(seed=0, per_spec=1, log=lambda m: None)
+    assert len(records) == 4 and failures == [], failures
+    assert None in {r["device"]["violation"] for r in records}
+    assert len({r["device"]["violation"] for r in records}) > 1
+    assert all(kernels.LAUNCHES.get(k, 0) > before.get(k, 0)
+               for k in ("selftest", "member_block", "key_plane", "insert_tail"))
+    from pulsar_tlaplus_tpu_torch.models.bookkeeper import BookkeeperConstants
+    from pulsar_tlaplus_tpu_torch.models.georeplication import GeoConstants
+    from pulsar_tlaplus_tpu_torch.models.subscription import (
+        SubscriptionConstants,
+    )
+
+    cls = {"compaction": pyeval.Constants, "bookkeeper": BookkeeperConstants,
+           "georeplication": GeoConstants,
+           "subscription": SubscriptionConstants}
+    for r in records:
+        c = cls[r["spec"]](**r["binding"])
+        cpu = fuzz.device_summary(fuzz.device_result(
+            r["spec"], c, tuple(r["invariants"]), device="cpu"))
+        assert cpu == r["device"], r["spec"]

@@ -1,6 +1,7 @@
-"""Import guard: the PyTorch port and ``chip_smoke.py`` import neither
-JAX nor anything of the JAX package, and importing them builds or loads
-no kernel."""
+"""Import guard: the PyTorch port, its ``scripts/torch_*.py`` and
+``chip_smoke.py`` import neither JAX nor anything of the JAX package,
+and importing them builds or loads no kernel; the fuzz harness and the
+native baseline also run with both blocked."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ for name in names:
 import chip_smoke
 import importlib.util
 for script in ("torch_calibrate", "torch_telemetry_report",
-               "torch_check_telemetry_schema"):
+               "torch_check_telemetry_schema", "torch_fuzz"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from pulsar_tlaplus_tpu_torch.kernels import build
@@ -75,3 +76,42 @@ def test_port_imports_no_jax():
     for mod in ("fleet", "fleet.replicate", "fleet.registry",
                 "fleet.dispatcher"):
         assert f"pulsar_tlaplus_tpu_torch.{mod}" in names
+
+
+# the fuzz harness and the native baseline import their parts inside
+# the functions that use them: run them, not only load them
+RUN_GUARD = r"""
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["pulsar_tlaplus_tpu"] = None
+import torch
+torch.set_num_threads(1)
+spec = importlib.util.spec_from_file_location("torch_fuzz", "scripts/torch_fuzz.py")
+fuzz = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fuzz)
+records, failures = fuzz.run(seed=0, per_spec=1, log=lambda m: None,
+                             device="cpu")
+assert len(records) == 4 and not failures, failures
+fuzz.DEVICE_KW = dict(sub_batch=64, visited_cap=1 << 10,
+                      frontier_cap=1 << 8, max_states=1 << 18)
+records, failures = fuzz.run_widen(seed=5, per_spec=1, specs=("bookkeeper",),
+                                   log=lambda m: None, device="cpu")
+assert records[0]["plan"]["mode"] == "reseed" and not failures, records
+from pulsar_tlaplus_tpu_torch import native
+r = native.run_baseline(2, 1, 1, 3, 1, False, True, 60.0, table_log2=16,
+                        with_levels=True)
+assert (r["distinct_states"], r["levels"]) == (992, 20), r
+bad = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib.", "pulsar_tlaplus_tpu."))]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_fuzz_harness_and_baseline_run_without_jax():
+    p = subprocess.run(
+        [sys.executable, "-c", RUN_GUARD], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"},
+    )
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip().splitlines()[-1] == "ok"

@@ -597,6 +597,28 @@ def test_continue_resubmit_no_warm_and_byte_cap(
     assert c.result["status"] == "ok" and left == ["subscription"]
 
 
+def test_continue_install_rechecks_the_budget(pool, cfg_dir, sdir,
+                                             jax_solo):
+    """A continue is planned at submit: when another job's harvest
+    replaces the planned artifact (same sig) with one past this job's
+    budget before its first slice, the install demotes the job to a cold
+    run (``budget_too_small``) instead of failing it on the resume."""
+    sched = Scheduler(_config(sdir), pool=pool)
+    small = os.path.join(cfg_dir, "small.cfg")
+    probe = sched.submit("compaction", small, max_states=600)
+    sched.run_until_idle()
+    assert probe.result["status"] == "truncated"
+    full = sched.submit("compaction", small)
+    late = sched.submit("compaction", small, max_states=600)
+    assert (full.warm_mode, late.warm_mode) == ("continue", "continue")
+    sched.run_until_idle()
+    assert_matches_solo(full, jax_solo["small"])
+    assert late.state == jobs.DONE, late.error
+    assert (late.warm_mode, late.warm_reason) == ("cold", "budget_too_small")
+    assert late.result["status"] == "truncated"
+    assert late.result["distinct_states"] == probe.result["distinct_states"]
+
+
 def test_warm_drills_torn_write_and_corrupt(
         pool, cfg_dir, sdir, jax_solo, fault_env):
     config = _config(sdir)
