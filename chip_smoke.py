@@ -182,9 +182,9 @@ the solo run's count, level sizes and logs; 55 reseeds the 9m tier
 (``NINE_M_CFG_TEXT``, complete at 9,445,152 states) from MaxCrashTimes 2
 to 3 (its key set equal to a cold run's) and demotes a third submit
 under ``corrupt@warm`` to ``cold``; 56 drives ``serve`` (no ``-cpu``) in
-subprocesses: SIGTERM (``PTT_FAULT=sigterm@level:6``) as its first job,
-a scaled one, starts level 6, so the job suspends with a frame of
-SCALED_TOTAL states; ``serve --recover`` resumes it at level 6 (its
+subprocesses: SIGTERM (``PTT_FAULT=sigterm@level:5``) as its first job,
+a scaled one, starts level 5, so the job suspends with a frame of
+SCALED_PREV_TOTAL states; ``serve --recover`` resumes it at level 5 (its
 ``job_resume`` and resumed run header checked) to the solo run's counts,
 then serves ``submit``/``status``/``watch``/``cancel``/``metrics``; a
 second ``serve --tcp 127.0.0.1:0 --tokens`` (admitted, bad
@@ -225,7 +225,7 @@ Phases 63-65 (``fuzz_path``): 63 builds the native CPU baseline checker
 (``native/compaction_bfs.cpp``, g++) and runs the shipped cfg and the
 253,361-state config at one thread and at every host CPU, each equal to
 the card engine's level sizes of phases 3 and 4, then the scaled binding
-with every host CPU for 15 s (a 2^27-slot table): each level it
+with every host CPU for 9 s (a 2^27-slot table): each level it
 completes equals phase 6's cumulative total, and its states/s prints
 beside phase 6's card rate as a diagnostic (no bound).  64 runs
 ``scripts/torch_fuzz.py`` on the card: seed 0, one binding a spec (4
@@ -237,6 +237,22 @@ rounds, as ``StreamingSimulator(max_rounds=2)``), ``check -profile``
 (45,198 / 20, a Chrome trace naming K1, K2 and H1) and ``-profile`` with
 ``-xprof`` (refused).  ``fuzz_launches`` (``[65b ...]``) counts phase
 64's card runs: K0, K1, K2 and H1 launched, K3 not.
+
+Phases 66-68 (``chaos_path``) run ``scripts/torch_chaos.py``'s drills
+with every daemon's slot on the card, after the two drill workloads'
+solo runs on one pool equal ``SOLO_PINS`` (1,654 / 16; bookkeeper's
+9-state ``ConfirmedEntryReadable`` trace): 66 ``run_chaos`` at seed 3
+with 3 clients x 2 jobs (the seeded ``drop@conn``/``torn@line``/
+``enospc@persist`` schedule over TCP, a bad token, a quota burst, a
+corrupted warm artifact demoted to ``cold``), 67 ``run_fleet_chaos`` (a
+backend killed mid-job: the queued job resubmitted, the running one
+``lost``, a warm start on the survivor), 68 ``run_fleet_chaos_v2`` at
+seed 0 with 2 x 1 (the ``cli dispatch`` subprocess killed -9 and
+recovered, a partition reconciled, a flap held to one failover, torn
+replication, the trace chains and ``fleet_trace.json``).  Every job a
+drill admits equals the pinned solo run.  ``chaos_launches``
+(``[68b ...]``) counts the drills' runs: K0, K1, K2 and H1 launched, K3
+not.
 
 Phase 8 profiles the fused scaled run and fails if the plain probe's
 ``amin`` scatter (``aten::scatter_reduce_``) shows up in it; phase 8b
@@ -1157,11 +1173,12 @@ def service_path(torch, dev, kernels, failures):
         t = time.time()
         try:
             # the first daemon's first job is a scaled job, and the daemon
-            # gets SIGTERM as that job starts level 6 (PTT_FAULT sends it,
+            # gets SIGTERM as that job starts level 5 (PTT_FAULT sends it,
             # as phase 34 does to the engine): the job suspends at level
-            # 6's end, a frame of SCALED_TOTAL states
+            # 5's end, a frame of SCALED_PREV_TOTAL states (level 6's
+            # would be a 2 GB frame, which phases 31 and 34 measure)
             srv = spawn("serve", "--state-dir", s1, "--slice", "0.5",
-                        *common, fault="sigterm@level:6")
+                        *common, fault="sigterm@level:5")
             tcp = spawn("serve", s2, "--tcp", "127.0.0.1:0",
                         "--tokens", tokens, "--tenant-max-states",
                         str(SERVICE_CAP + 1), "--spec", "compaction", *common)
@@ -1177,8 +1194,9 @@ def service_path(torch, dev, kernels, failures):
             job = queued(jt)
             at_term = (job["state"], (job.get("progress") or {})
                        .get("distinct_states"))
-            if at_term != ("suspended", SCALED_TOTAL) or not os.path.exists(
-                    os.path.join(s1, "jobs", jt, "frame.npz")):
+            frame = os.path.join(s1, "jobs", jt, "frame.npz")
+            if at_term != ("suspended", SCALED_PREV_TOTAL) or \
+                    not os.path.exists(frame):
                 raise AssertionError(f"at SIGTERM the job was {at_term}")
             # serve --recover resumes it from that frame, in a new process;
             # the TCP daemon's checks run while it starts
@@ -1225,7 +1243,7 @@ def service_path(torch, dev, kernels, failures):
                      if e["event"] == "run_header" and e.get("resume")]
             resumes = [e for e in _events(os.path.join(s1, "service.jsonl"))
                        if e["event"] == "job_resume" and e["job_id"] == jt]
-            if [h.get("resume_level") for h in heads] != [6] or \
+            if [h.get("resume_level") for h in heads] != [5] or \
                     len(resumes) != 1:
                 raise AssertionError(f"resume records {heads} {resumes}")
             restore_s = resumes[0]["restore_s"]
@@ -1277,10 +1295,10 @@ def service_path(torch, dev, kernels, failures):
                                frame_stall_s=stall,
                                recover_restore_s=restore_s)
             return (f"two daemons ready in {ready_s:.1f}s; SIGTERM as the "
-                    f"scaled job starts level 6 -> suspended, frame of "
+                    f"scaled job starts level 5 -> suspended, frame of "
                     f"{at_term[1]} states (stall s {stall}); serve "
                     "--recover resumed it at "
-                    f"level 6 (restore {restore_s}s) to "
+                    f"level 5 (restore {restore_s}s) to "
                     f"{r['distinct_states']} states = solo; then shipped "
                     "45198 / 20, simulate 4096 x 64, status, watch, cancel "
                     "while running, metrics; TCP: admitted, bad token 4, "
@@ -2030,7 +2048,7 @@ def fleet_path(torch, dev, kernels, failures, solo, ref):
 #
 # phase 63's scaled baseline: seconds of budget and table slots (log2),
 # bench.py's settings for its vs_baseline run but the budget
-BASELINE_SCALED_BUDGET = 15.0
+BASELINE_SCALED_BUDGET = 9.0
 BASELINE_SCALED_TABLE_LOG2 = 27
 # phase 65's simulate: 512 walkers of depth 64 make 32,768 steps a round,
 # so -rounds 2 binds before -max-steps
@@ -2265,6 +2283,177 @@ def fuzz_path(torch, dev, kernels, failures, ref):
         failures.append("65b: K3 launched on the fuzz path (no hbm_budget "
                         "there)")
     return fuzz_launches
+
+
+# phases 66-68: the drills' sizes (66 at the JAX slow test's 3 clients x 2
+# jobs, 68 at its pinned 2 x 1) and every wait's limit
+CHAOS_SEED = 3
+CHAOS_CLIENTS, CHAOS_JOBS = 3, 2
+CHAOS_V2_SEED = 0
+CHAOS_V2_CLIENTS, CHAOS_V2_JOBS = 2, 1
+CHAOS_WAIT = 300.0
+
+
+def _load_chaos():
+    """``scripts/torch_chaos.py`` loaded by path (a fresh module)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos", os.path.join(ROOT, "scripts", "torch_chaos.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chaos_path(torch, dev, kernels, failures):
+    """Phases 66-68: ``scripts/torch_chaos.py``'s three drills with their
+    daemons' slots on ``dev``.  The solo runs of the two drill workloads
+    (the small compaction binding, 1,654 / 16, and bookkeeper at
+    MaxBookieCrashes = 2, the 9-state ``ConfirmedEntryReadable``
+    counterexample) run first on one pool and equal ``SOLO_PINS``; each
+    drill holds every job it admits to them.  66 ``run_chaos`` (seed 3,
+    3 clients x 2 jobs: its seeded fault schedule, a bad token, a quota
+    burst, the corrupted warm artifact); 67 ``run_fleet_chaos`` (a
+    backend killed mid-job, the queued job resubmitted, a warm start on
+    the survivor); 68 ``run_fleet_chaos_v2`` (seed 0, 2 x 1: the
+    ``cli dispatch`` subprocess killed -9 twice, a partition, a flap,
+    torn replication, the trace chains).  Each drill's ``PTT_FAULT`` is
+    restored, the fault module re-armed, its observer cleared and its
+    state dir removed after it.  Returns ``chaos_launches``: the
+    kernels' launch counts of the drills (the solo runs left out;
+    ``[68b ...]`` prints them; K0, K1, K2 and H1 must be above 0, K3 at
+    0)."""
+    from pulsar_tlaplus_tpu_torch.service.scheduler import (
+        CheckerPool,
+        ServiceConfig,
+    )
+    from pulsar_tlaplus_tpu_torch.utils import faults
+
+    t66 = time.time()
+    ch = _load_chaos()
+    root = tempfile.mkdtemp(prefix="ptt_cha_")  # short: socket paths
+    kernels.reset_launches()
+    off = collections.Counter()  # the solo runs' launches
+    notes: dict = {}
+    solo_s = 0.0
+    on_cpu = torch.device(dev).type == "cpu"  # a rehearsal off the card
+
+    def quiet(_msg):
+        pass
+
+    def drill(fn, name, check, **kw):
+        """Run one drill on its own state dir, ``check`` its report
+        there, then restore what it touched."""
+        prev = os.environ.get("PTT_FAULT")
+        state = os.path.join(root, name)
+        try:
+            t = time.time()
+            report = fn(state, pool=pool, log=quiet,
+                        timeout_s=CHAOS_WAIT, cpu=on_cpu, **kw)
+            notes[name] = dict(wall_s=round(time.time() - t, 2))
+            return check(report, state)
+        finally:
+            if prev is None:
+                os.environ.pop("PTT_FAULT", None)
+            else:
+                os.environ["PTT_FAULT"] = prev
+            faults.reset()
+            faults.set_observer(None)
+            shutil.rmtree(state, ignore_errors=True)
+
+    try:
+        pool = CheckerPool(ServiceConfig(
+            state_dir=os.path.join(root, "pool"), cpu=on_cpu,
+            **ch.GEOM_FAST), device=dev)
+        cfgs = ch._write_cfgs(os.path.join(root, "solo"), bookkeeper=True)
+        before = dict(kernels.LAUNCHES)
+        t = time.time()
+        solos = ch._solo_results(pool, {n: (n, p) for n, p in cfgs.items()})
+        solo_s = time.time() - t
+        for k, v in kernels.LAUNCHES.items():
+            off[k] += v - before[k]
+        for name, pin in ch.SOLO_PINS.items():
+            got = ch.solo_summary(solos[name])
+            if got != pin:
+                failures.append(f"66: the card's solo {name} run {got} is "
+                                f"not its pin {pin}")
+
+        def service(r, _state):
+            want = dict(completed=len(r["admitted"]), auth=1)
+            got = dict(completed=r["completed"], auth=r["rejected"]["auth"])
+            if got != want or r["rejected"]["quota"] < 1 \
+                    or r["streams_validated"] < 3 \
+                    or r["warm_quarantined"] < 1:
+                raise AssertionError(f"run_chaos: {r}")
+            notes["chaos"].update(schedule=r["schedule"],
+                                  fired=r["faults_fired"])
+            return (f"schedule {r['schedule']!r}, fired "
+                    f"{['%s@%s:%d' % f for f in r['faults_fired']]}; "
+                    f"{r['completed']} admitted jobs each equal to the "
+                    f"pinned solo run, rejected {r['rejected']}, "
+                    f"{r['warm_quarantined']} artifact quarantined, "
+                    f"{r['streams_validated']} streams valid")
+
+        def fleet_v1(r, _state):
+            if r["resubmitted"] != 1 or r["replicated_wire_bytes"] <= 0 \
+                    or r["warm_mode"] not in ("continue", "reseed") \
+                    or r["streams_validated"] != 3:
+                raise AssertionError(f"run_fleet_chaos: {r}")
+            notes["fleet_v1"].update(
+                wire_bytes=r["replicated_wire_bytes"],
+                warm_mode=r["warm_mode"])
+            return (f"owner killed mid-job: 1 queued job resubmitted, the "
+                    f"running one lost; {r['replicated_wire_bytes']} wire "
+                    f"bytes replicated; warm {r['warm_mode']} on the "
+                    f"survivor equal to the pinned solo run")
+
+        def fleet_v2(r, state):
+            trace = os.path.join(state, "fleet_trace.json")
+            if r["recovered"] != CHAOS_V2_CLIENTS * CHAOS_V2_JOBS \
+                    or r["reconciled_jobs"] < 1 or r["partitions"] < 1 \
+                    or r["trace_chains"] < 1 \
+                    or r["streams_validated"] != 3 \
+                    or not os.path.exists(trace):
+                raise AssertionError(f"run_fleet_chaos_v2: {r}, fleet_trace"
+                                     f".json {os.path.exists(trace)}")
+            notes["fleet_v2"].update(
+                schedule=r["schedule"], trace_chains=r["trace_chains"],
+                wire_bytes=r["replicated_wire_bytes"])
+            return (f"schedule {r['schedule']}: {r['recovered']} acked jobs "
+                    f"exactly once across kill -9 + --recover, "
+                    f"{r['reconciled_jobs']} reconciled after "
+                    f"{r['partitions']} partition, the flap held to one "
+                    f"failover, {r['replicated_wire_bytes']} wire bytes "
+                    f"under a torn line, {r['trace_chains']} trace chains, "
+                    f"fleet_trace.json written")
+
+        _phase(f"66 run_chaos on the card (seed {CHAOS_SEED}, "
+               f"{CHAOS_CLIENTS} clients x {CHAOS_JOBS} jobs)",
+               lambda: drill(ch.run_chaos, "chaos", service,
+                             seed=CHAOS_SEED, clients=CHAOS_CLIENTS,
+                             jobs_per_client=CHAOS_JOBS, solos=solos),
+               failures)
+        _phase("67 run_fleet_chaos on the card (failover)",
+               lambda: drill(ch.run_fleet_chaos, "fleet_v1", fleet_v1,
+                             solo=solos["compaction"]), failures)
+        _phase(f"68 run_fleet_chaos_v2 on the card (seed {CHAOS_V2_SEED}, "
+               f"{CHAOS_V2_CLIENTS} x {CHAOS_V2_JOBS})",
+               lambda: drill(ch.run_fleet_chaos_v2, "fleet_v2", fleet_v2,
+                             seed=CHAOS_V2_SEED, clients=CHAOS_V2_CLIENTS,
+                             jobs_per_client=CHAOS_V2_JOBS,
+                             solo=solos["compaction"]), failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    chaos_launches = {k: v - off[k] for k, v in kernels.LAUNCHES.items()}
+    print(f"[68b launches on the chaos path] {chaos_launches} (the solo "
+          f"runs left out: {dict(off)}, {solo_s:.2f}s; phases 66-68 "
+          f"{time.time() - t66:.1f}s)", flush=True)
+    print(f"[68b numbers] {json.dumps(notes, default=str)}", flush=True)
+    for name in MAIN_PATH_KERNELS:
+        if chaos_launches.get(name, 0) <= 0:
+            failures.append(f"68b: {name} never launched on the chaos path")
+    if chaos_launches.get("sieve_mask"):
+        failures.append("68b: K3 launched on the chaos path (no hbm_budget "
+                        "there)")
+    return chaos_launches
 
 
 class _HookView:
@@ -6233,6 +6422,10 @@ def _main() -> int:
         scaled_rate=untiered["scaled_rate"], scaled_cfg=scaled_cfg(),
         smi=smi))
 
+    # ---- 66-68: the service and fleet chaos drills (scripts/torch_chaos.py)
+    torch.cuda.empty_cache()
+    chaos_launches = chaos_path(torch, dev, kernels, failures)
+
     if failures:
         print("\n".join(failures), file=sys.stderr)
         return 1
@@ -6280,6 +6473,7 @@ def _main() -> int:
             service_launches=service_launches[name],
             fleet_launches=fleet_launches[name],
             fuzz_launches=fuzz_launches.get(name, 0),
+            chaos_launches=chaos_launches.get(name, 0),
             **({"tune_shape": record["tune_kernels"][tk]}
                if (tk := {"member_block": "K1@16",
                           "insert_tail": "H1@32"}.get(name)) else {}),

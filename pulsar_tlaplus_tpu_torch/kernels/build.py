@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -73,6 +74,9 @@ _SIGNATURES = {
 # launches per kernel since the last reset (chip_smoke.py resets them
 # around the main path to show that it ran through the kernels)
 LAUNCHES = {name: 0 for name in SOURCES}
+# several threads launch at once (the daemons' slots, two backends in one
+# process): every update of LAUNCHES holds this lock
+_launch_lock = threading.Lock()
 
 _libs: dict = {}
 
@@ -169,7 +173,8 @@ def launch(name: str, fn: str, *args) -> None:
     if rc:
         msg = _libs["selftest"].ptt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def selftest(device: torch.device) -> None:
@@ -188,5 +193,6 @@ def selftest(device: torch.device) -> None:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0

@@ -133,6 +133,17 @@ def specs() -> List[Tuple[str, str, int]]:
     return out
 
 
+def fired() -> List[Tuple[str, str, int]]:
+    """The specs of the current ``PTT_FAULT`` value that have fired, in
+    schedule order.  Unlike the observer, which each engine run replaces
+    for its own duration, this sees every fire since the value was last
+    armed (a changed value or :func:`reset` re-arms and clears it)."""
+    if not os.environ.get("PTT_FAULT"):
+        return []
+    out = specs()
+    return [out[i] for i in sorted(_fired)]
+
+
 def active() -> bool:
     """Whether any fault is armed (one environment read)."""
     return bool(os.environ.get("PTT_FAULT"))

@@ -20,7 +20,7 @@ for name in names:
 import chip_smoke
 import importlib.util
 for script in ("torch_calibrate", "torch_telemetry_report",
-               "torch_check_telemetry_schema", "torch_fuzz"):
+               "torch_check_telemetry_schema", "torch_fuzz", "torch_chaos"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from pulsar_tlaplus_tpu_torch.kernels import build

@@ -522,3 +522,48 @@ def test_insert_tail_has_no_fallback():
                                            device="meta"),
             4, fpset.new_claims(8, "meta"), 4,
         )
+
+
+def test_launch_counts_are_exact_across_threads(monkeypatch):
+    """``build.launch`` counts under a lock: 8 threads launching fake
+    libraries at once, switching as often as the interpreter can, leave
+    every count exact (two backends in one process share the
+    counters)."""
+    import sys
+    import threading
+    import types
+
+    from pulsar_tlaplus_tpu_torch.kernels import build
+
+    names = list(build.SOURCES)
+    libs = {n: types.SimpleNamespace(fake=lambda *a: 0) for n in names}
+    monkeypatch.setattr(build, "load", lambda: libs)
+    monkeypatch.setattr(build, "LAUNCHES", dict.fromkeys(names, 0))
+    n_threads, each = 8, 5_000
+    gate = threading.Barrier(n_threads)
+
+    def body(i):
+        gate.wait()
+        for k in range(each):
+            build.launch(names[(i + k) % len(names)], "fake")
+
+    threads = [threading.Thread(target=body, args=(i,))
+               for i in range(n_threads)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    want = dict.fromkeys(names, 0)
+    for i in range(n_threads):
+        for k in range(each):
+            want[names[(i + k) % len(names)]] += 1
+    assert build.LAUNCHES == want
+    assert sum(want.values()) == n_threads * each
+    build.reset_launches()
+    assert set(build.LAUNCHES.values()) == {0}
